@@ -1,0 +1,9 @@
+from .cameras import CAM_PARAM_DIM, pack_camera, pack_rig, project_points
+from .example_rigs import dome_camera, dome_rig
+from .grids import (
+    compute_center_grids_np,
+    compute_grid_np,
+    norm_to_pixel,
+    project_to_norm_coords,
+)
+from .transforms import get_resize_transform

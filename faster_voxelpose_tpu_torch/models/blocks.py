@@ -1,0 +1,199 @@
+"""Reusable conv building blocks, NCHW / NCL PyTorch modules (counterpart
+of `faster_voxelpose_tpu/models/blocks.py`, reference
+lib/models/cnns_2d.py:12-112 and cnns_1d.py:10-109).
+
+Parameters are float32; each conv casts its input, kernel and bias to the
+module's compute dtype, as flax's `dtype=` does, and BatchNorm (eval
+mode, running statistics, eps 1e-5) runs in float32 and returns the
+compute dtype.  Module and parameter names follow the flax modules, so
+that `weights.from_jax_variables` maps the flax paths mechanically.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_CONV = {1: F.conv1d, 2: F.conv2d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
+_POOL = {1: F.max_pool1d, 2: F.max_pool2d}
+
+
+def scaled(channels: int, width: float) -> int:
+    """Channel count under a width multiplier, rounded to a multiple of 8,
+    floor 8; width 1.0 keeps the reference topology."""
+    if width == 1.0:
+        return channels
+    return max(8, int(round(channels * width / 8)) * 8)
+
+
+def _normal(*shape: int) -> nn.Parameter:
+    # reference init: normal(0, 0.001) weights, zero biases
+    return nn.Parameter(torch.randn(*shape) * 1e-3)
+
+
+class Conv(nn.Module):
+    """Convolution with 'SAME' padding (odd kernels), weight (O, I, *k)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, rank: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.rank, self.dtype, self.pad = rank, dtype, kernel // 2
+        self.weight = _normal(cout, cin, *(kernel,) * rank)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        dt = self.dtype
+        return _CONV[self.rank](
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), padding=self.pad
+        )
+
+
+class Dense(nn.Module):
+    """Linear layer in the compute dtype, weight (O, I)."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _normal(cout, cin)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over dim 1 with the flax statistics."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        y = F.batch_norm(
+            x.float(), self.running_mean, self.running_var, self.weight,
+            self.bias, training=False, eps=1e-5,
+        )
+        return y.to(self.dtype)
+
+
+class Deconv(nn.Module):
+    """Transposed convolution with torch semantics, weight (I, O, *k).
+
+    The flax module stores the same kernel spatially flipped as (*k, I, O)
+    and computes the k2/s2 case as a sub-pixel 1x1 conv; both give
+    y[2u + a] = x[u] @ W[:, :, a], which is what conv_transpose computes
+    here (`weights.from_jax_variables` undoes the flip)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, pad: int,
+                 rank: int = 2, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.rank, self.stride, self.pad, self.dtype = rank, stride, pad, dtype
+        self.weight = _normal(cin, cout, *(kernel,) * rank)
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
+
+    def forward(self, x):
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return _DECONV[self.rank](
+            x.to(dt), self.weight.to(dt), b, stride=self.stride, padding=self.pad
+        )
+
+
+class ConvBNRelu(nn.Module):
+    """conv(k) + BN + ReLU (reference Basic2DBlock / Basic1DBlock)."""
+
+    def __init__(self, cin, cout, kernel, rank=2, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv(cin, cout, kernel, rank, dtype)
+        self.bn = BatchNorm(cout, dtype)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+class ResBlock(nn.Module):
+    """3-3 residual block with BN, 1x1-projected skip on channel change
+    (reference Res2DBlock / Res1DBlock)."""
+
+    def __init__(self, cin, cout, rank=2, dtype=torch.float32):
+        super().__init__()
+        self.conv1 = Conv(cin, cout, 3, rank, dtype)
+        self.bn1 = BatchNorm(cout, dtype)
+        self.conv2 = Conv(cout, cout, 3, rank, dtype)
+        self.bn2 = BatchNorm(cout, dtype)
+        self.project = cin != cout
+        if self.project:
+            self.skip_conv = Conv(cin, cout, 1, rank, dtype)
+            self.skip_bn = BatchNorm(cout, dtype)
+        self.dtype = dtype
+
+    def forward(self, x):
+        res = F.relu(self.bn1(self.conv1(x)))
+        res = self.bn2(self.conv2(res))
+        skip = self.skip_bn(self.skip_conv(x)) if self.project else x.to(self.dtype)
+        return F.relu(res + skip)
+
+
+class UpsampleBlock(nn.Module):
+    """2x transposed-conv upsample + BN + ReLU (kernel = stride = 2)."""
+
+    def __init__(self, cin, cout, rank=2, dtype=torch.float32):
+        super().__init__()
+        self.deconv = Deconv(cin, cout, 2, 2, 0, rank, True, dtype)
+        self.bn = BatchNorm(cout, dtype)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.deconv(x)))
+
+
+class EncoderDecoder(nn.Module):
+    """Two-level U-Net trunk 32 -> 64 -> 128 -> 64 -> 32 with residual
+    skips (reference EncoderDecorder), for rank 1 or 2."""
+
+    def __init__(self, rank=2, dtype=torch.float32, width=1.0):
+        super().__init__()
+        c32, c64, c128 = (scaled(c, width) for c in (32, 64, 128))
+        self.rank = rank
+        self.skip_res1 = ResBlock(c32, c32, rank, dtype)
+        self.encoder_res1 = ResBlock(c32, c64, rank, dtype)
+        self.skip_res2 = ResBlock(c64, c64, rank, dtype)
+        self.encoder_res2 = ResBlock(c64, c128, rank, dtype)
+        self.mid_res = ResBlock(c128, c128, rank, dtype)
+        self.decoder_res2 = ResBlock(c128, c128, rank, dtype)
+        self.decoder_upsample2 = UpsampleBlock(c128, c64, rank, dtype)
+        self.decoder_res1 = ResBlock(c64, c64, rank, dtype)
+        self.decoder_upsample1 = UpsampleBlock(c64, c32, rank, dtype)
+
+    def forward(self, x):
+        pool = _POOL[self.rank]
+        skip1 = self.skip_res1(x)
+        x = self.encoder_res1(pool(x, 2))
+        skip2 = self.skip_res2(x)
+        x = self.encoder_res2(pool(x, 2))
+        x = self.mid_res(x)
+        x = self.decoder_upsample2(self.decoder_res2(x)) + skip2
+        x = self.decoder_upsample1(self.decoder_res1(x)) + skip1
+        return x
+
+
+class UNetFront(nn.Module):
+    """Front 7-wide conv block + residual widen to 32 channels, shared by
+    P2PNet / CenterNet / C2CNet (reference front_layers)."""
+
+    def __init__(self, cin, rank=2, dtype=torch.float32, width=1.0):
+        super().__init__()
+        c16, c32 = scaled(16, width), scaled(32, width)
+        self.front_basic = ConvBNRelu(cin, c16, 7, rank, dtype)
+        self.front_res = ResBlock(c16, c32, rank, dtype)
+
+    def forward(self, x):
+        return self.front_res(self.front_basic(x))
+
