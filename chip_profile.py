@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of one served request goes, on one NVIDIA GPU.
+"""Where the time of one served request, or of one train step, goes on
+one NVIDIA GPU.
 
     python3 chip_profile.py [--requests N]
+    python3 chip_profile.py --train [--steps N]
 
-Serves frames rendered as in chip_smoke.py's serving phase (PoseService,
-Panoptic profile, committed panoptic_synthetic weights) and times N
-requests untraced, then traces them with torch.profiler.  Prints the
-card, the host wall time per request (each request ends with its poses
-on the host), the device time per request and its share of the
-untraced wall time, then the kernels with the most device time.  Needs
-a CUDA device; fails without one.
+Serving: frames rendered as in chip_smoke.py's serving phase
+(PoseService, Panoptic profile, committed panoptic_synthetic weights);
+N requests are timed untraced, then traced with torch.profiler.
+Training (--train): train steps at the Panoptic profile (bf16 conv
+stacks, batch 4, seeded random weights) on synthetic scenes from the
+port's generator, rendered on the card, as in chip_smoke.py's training
+phase; the batches are moved to the card before the timed window, so
+the window holds the steps alone.  Prints the card, the host wall time
+per request or step (each ends in a synchronisation), the device time
+and its share of the untraced wall time, then the kernels with the most
+device time.  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -22,25 +28,42 @@ import time
 import numpy as np
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--requests", type=int, default=10)
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args()
-
-    import torch
+def report(prof, n, wall_ms, traced_ms, card, unit, top, extra=""):
+    """Print the device time per `unit` by kernel from a torch.profiler
+    trace of n units, beside the untraced host wall time."""
     from torch.autograd import DeviceType
+
+    # device-side events only (kernels, copies, fills): the host operators
+    # that launched them carry the same time again, and so do annotated
+    # ranges such as the optimizer's step on the device's timeline
+    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    if device_ms <= 0:
+        raise AssertionError("the trace holds no device time")
+    print(f"profile: {n} {unit}s{extra} | {card}")
+    print(f"profile: host wall {wall_ms:.4f} ms/{unit} untraced ({traced_ms:.4f} traced), "
+          f"device {device_ms:.4f} ms/{unit}, busy share {device_ms / wall_ms:.4f}, "
+          f"{sum(r[2] for r in rows)} device events/{unit}")
+    for name, ms, count in rows[:top]:
+        print(f"  {ms:9.4f} ms {ms / device_ms:7.2%} x{count:<4d} {name[:90]}")
+    print(json.dumps({"unit": unit, "wall_ms": wall_ms, "traced_ms": traced_ms,
+                      "device_ms": device_ms,
+                      "top": [dict(name=n_[:90], ms=m, launches=c) for n_, m, c in rows[:top]]}))
+
+
+def serve_profile(args, card) -> None:
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device", file=sys.stderr)
-        return 2
     import chip_smoke as cs
     from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
     from faster_voxelpose_tpu_torch.engine import PoseService
     from faster_voxelpose_tpu_torch.geometry import dome_rig
 
-    card = cs.card_line()
     cfg = panoptic_synthetic_profile()
     center = cfg.CAPTURE_SPEC.SPACE_CENTER
     rig = dome_rig(1, cfg.DATASET.CAMERA_NUM, space_center=center)[0]
@@ -64,23 +87,59 @@ def main() -> int:
         t0 = time.perf_counter()
         detected = [svc.infer_heatmaps(f)["n_people"] for f in frames]
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.requests
+    report(prof, args.requests, wall_ms, traced_ms, card, "request", args.top,
+           f", mean detected {np.mean(detected):.3f}")
 
-    # device-side events only (kernels, copies, fills): the host operators
-    # that launched them carry the same time again
-    rows = [(e.key, e.self_device_time_total / 1e3 / args.requests, e.count // args.requests)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    if device_ms <= 0:
-        raise AssertionError("the trace holds no device time")
-    print(f"profile: {args.requests} requests, mean detected {np.mean(detected):.3f} | {card}")
-    print(f"profile: host wall {wall_ms:.4f} ms/request untraced ({traced_ms:.4f} traced), "
-          f"device {device_ms:.4f} ms/request, busy share {device_ms / wall_ms:.4f}")
-    for name, ms, count in rows[:args.top]:
-        print(f"  {ms:9.4f} ms {ms / device_ms:7.2%} x{count:<4d} {name[:90]}")
-    print(json.dumps({"wall_ms": wall_ms, "traced_ms": traced_ms, "device_ms": device_ms,
-                      "top": [dict(name=n[:90], ms=m, launches=c) for n, m, c in rows[:args.top]]}))
+
+def train_profile(args, card) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    cfg = panoptic_synthetic_profile()
+    n = args.steps
+    batches = [batch_to_device(b, "cuda") for b in cs.synthetic_loader(cfg, 3 + 2 * n)]
+    torch.manual_seed(0)
+    tr = Trainer(cfg, build_model(cfg).cuda())
+    for b in batches[:3]:
+        tr.step(b)
+    torch.cuda.synchronize()
+
+    def steps(bs):
+        t0 = time.perf_counter()
+        for b in bs:
+            tr.step(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(bs)
+
+    wall_ms = steps(batches[3:3 + n])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = steps(batches[3 + n:])
+    report(prof, n, wall_ms, traced_ms, card, "step", args.top,
+           f" of batch {cfg.TRAIN.BATCH_SIZE}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=10)
+    ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    card = cs.card_line()
+    (train_profile if args.train else serve_profile)(args, card)
     return 0
 
 

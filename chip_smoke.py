@@ -8,16 +8,32 @@ profile of configs/demo/panoptic_synthetic.yaml (5 views, 240x128x15
 heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
 
 1. builds the CUDA kernels from csrc/ with nvcc and prints the ptxas report;
-2. kernel phases: each kernel on the card at main-path shapes against its
-   plain PyTorch version (float32, max abs error <= 1e-5 on values in
-   [0, 1]), timed beside its plain version, a grid_sample-based PyTorch
-   yardstick and its bound;
+2. kernel phases: each kernel, and the crop sampler in each of its modes
+   (planes projected in the kernel, planes from coords, the masked cube
+   from either), on the card at main-path shapes against its plain
+   PyTorch version (float32, max abs error <= 1e-5 on values in [0, 1]),
+   timed beside its plain version, a grid_sample-based PyTorch yardstick
+   and its bound;
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
-4. serving phase: PoseService with the committed panoptic_synthetic
-   weights answers rendered 1-6-person frames; both kernels' launch
-   counters must rise on every request, someone must be detected and the
-   median matched MPJPE must stay under 150 mm.
+4. route phase: the served path answers the same 6 frames under the
+   default config, PALLAS_FUSED_COORDS false and PALLAS_TILE [4, 4, 4];
+   each route launches its own crop kernel once per request and no
+   other, and the fused poses agree within 0.01 mm;
+5. train-parity phase: one train step of a small seeded model on the card
+   and on the CPU from the same weights and batch: with float64 conv
+   stacks, losses within 1e-4 relative and every gradient tensor within
+   1e-3 relative L2; with float32, within limits set between its own
+   reading and a bf16 control's, which must break them;
+6. training phase: the Panoptic profile at full width, seeded random
+   weights: 8 steps on one batch of 4 synthetic scenes from the port's
+   generator, rendered on the card, must give finite losses and lower
+   the detection loss (2D + 1D) below 0.9 of its first value; then 20
+   steps on fresh batches are timed.
+The serving phase (PoseService with the committed panoptic_synthetic
+weights answering 24 rendered 1-6-person frames: the default route's
+launch counters rise on every request, someone is detected, the median
+matched MPJPE stays under 150 mm) runs between phases 3 and 4.
 
 Any failed phase raises, so the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernel table
@@ -39,7 +55,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = 1e-5
+# float32 train step, card against CPU: between the sound reading and the
+# bf16 control's (train_parity_phase)
+F32_LOSS_TOL, F32_GRAD_TOL = 1e-4, 0.5
 N_REQUESTS = 24
+CARD = "cuda"  # the device the phases drive
 
 # a 15-joint (panoptic-order) template skeleton, mm offsets from mid-hip
 # (the template of scripts/make_demo_data.py, which the weights trained on)
@@ -226,11 +246,11 @@ def whole_phase(cfg, geom, rig, hm, card):
     return row
 
 
-def crop_phase(cfg, geom, rig, hm, card, rng):
+def crop_case(cfg, geom, rig, hm, rng):
+    """K = 10 crops at random centres (3 dead slots, random bbox sizes)
+    with their masks, in the layout the crop sampler takes."""
     import torch
-    import torch.nn.functional as F
 
-    from faster_voxelpose_tpu_torch.geometry import project_to_norm_coords
     from faster_voxelpose_tpu_torch.models import projection as pj
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
@@ -245,76 +265,222 @@ def crop_phase(cfg, geom, rig, hm, card, rng):
     masks = pj.crop_axis_masks(geom, tl, torch.as_tensor(bbox, dtype=torch.float32, device=dev))
     cams = torch.as_tensor(rig, device=dev)
     crop = pj.crop_projection(geom)
-    args = (hm, cams, tl.contiguous(), *(m.to(torch.uint8) for m in masks),
-            torch.as_tensor(valid, device=dev).to(torch.uint8), crop)
+    vk = np.flatnonzero(valid)
+    mx, my, mz = (m.to(torch.uint8) for m in masks)
+    v8 = torch.as_tensor(valid, device=dev).to(torch.uint8)
+    return dict(
+        K=K, cams=cams, tl=tl.contiguous(), masks=(mx, my, mz, v8), crop=crop, vk=vk,
+        pix=sk.crop_pixels(crop, cams, tl.contiguous(), geom.ind_voxels_per_axis),
+        live=sum(int(masks[0][k].sum() * masks[1][k].sum() * masks[2][k].sum()) for k in vk),
+        keep=torch.stack([(masks[0][k][:, None, None] & masks[1][k][None, :, None]
+                           & masks[2][k][None, None, :]) for k in vk]).float(),
+    )
+
+
+def library_crop(geom, hm, case, norm, planes=True):
+    """grid_sample yardstick of the crop sampler on the valid slots:
+    sample at normalized coords norm (V, n_valid * N, 2), mean over views,
+    clamp, mask, then the three max planes (or the cube)."""
+    import torch.nn.functional as F
+
+    vx, vy, vz = geom.ind_voxels_per_axis
+    hm_nchw = hm.permute(0, 3, 1, 2).contiguous()
+    s = F.grid_sample(hm_nchw, norm[:, None], align_corners=True, padding_mode="zeros")
+    cube = s.mean(0).clamp(0, 1)[:, 0].t().reshape(len(case["vk"]), vx, vy, vz, -1)
+    cube = cube * case["keep"][..., None]
+    return (cube.amax(3), cube.amax(2), cube.amax(1)) if planes else cube
+
+
+def crop_bound(hm, case, geom, project, cube):
+    """The least time of one crop-sampler mode on this run's masks: the
+    heatmaps, the rig or the live voxels' coords, the masks in, the planes
+    or the cube out; operations of the live voxels (projection ~70 flops
+    per voxel and view when in the kernel, ~8 per joint and view for the
+    bilinear sample, ~4 per joint for mean, clamp, mask and max)."""
+    V, H, W, J = hm.shape
+    K, live = case["K"], case["live"]
+    vx, vy, vz = geom.ind_voxels_per_axis
+    nbytes = 4 * V * H * W * J + K * (vx + vy + vz + 1)
+    nbytes += 4 * (V * 21 + 3 * K) if project else 8 * V * live
+    nbytes += 4 * K * J * (vx * vy * vz if cube else vx * vy + vx * vz + vy * vz)
+    flops = live * V * ((70 if project else 0) + 8 * J) + live * J * 4
+    return bound(nbytes, flops)
+
+
+def crop_phase(cfg, geom, rig, hm, card, case):
+    import torch
+
+    from faster_voxelpose_tpu_torch.geometry import project_to_norm_coords
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    args = (hm, case["cams"], case["tl"], *case["masks"], case["crop"])
     out, ref = sk.sample_crop_planes(*args), sk.sample_crop_planes_plain(*args)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     if not (err <= TOL and all(torch.isfinite(a).all() for a in out)):
         raise AssertionError(f"sample_crop_planes disagrees with its plain version: {err}")
 
-    # grid_sample yardstick: the valid slots' crops projected, sampled,
-    # averaged, clamped, masked and max-projected by stock PyTorch ops
     vx, vy, vz = geom.ind_voxels_per_axis
-    vk = np.flatnonzero(valid)
-    pts = torch.cat([sk.crop_world_points(crop, tl[k], (vx, vy, vz)) for k in vk])
-    mk = torch.stack([(masks[0][k][:, None, None] & masks[1][k][None, :, None]
-                       & masks[2][k][None, None, :]) for k in vk]).float()
-    hm_nchw = hm.permute(0, 3, 1, 2).contiguous()
-    rt = geom.resize_transform
+    vk = case["vk"]
+    pts = torch.cat([sk.crop_world_points(case["crop"], case["tl"][k], (vx, vy, vz)) for k in vk])
 
-    def library():
-        norm = project_to_norm_coords(pts, cams, rt, geom.ori_image_size,
-                                      geom.image_size, geom.heatmap_size)
-        s = F.grid_sample(hm_nchw, norm[:, None], align_corners=True, padding_mode="zeros")
-        cube = s.mean(0).clamp(0, 1)[:, 0].t().reshape(len(vk), vx, vy, vz, -1) * mk[..., None]
-        return cube.amax(3), cube.amax(2), cube.amax(1)
+    def library():  # the projection is part of this mode's work
+        norm = project_to_norm_coords(pts, case["cams"], geom.resize_transform,
+                                      geom.ori_image_size, geom.image_size, geom.heatmap_size)
+        return library_crop(geom, hm, case, norm)
 
-    vk_t = torch.as_tensor(vk, device=dev)
+    vk_t = torch.as_tensor(vk, device=hm.device)
     lib_err = max(float((a - b[vk_t]).abs().max()) for a, b in zip(library(), ref))
-    V, H, W, J = hm.shape
-    live = sum(int(masks[0][k].sum() * masks[1][k].sum() * masks[2][k].sum()) for k in vk)
-    nbytes = 4 * (V * H * W * J + V * 21 + 3 * K) + K * (vx + vy + vz + 1) \
-        + 4 * K * J * (vx * vy + vx * vz + vy * vz)
-    flops = live * V * (70 + 8 * J) + live * J * 4
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = crop_bound(hm, case, geom, project=True, cube=False)
     row = dict(name="sample_crop_planes", ms=time_ms(lambda: sk.sample_crop_planes(*args)),
                plain_ms=time_ms(lambda: sk.sample_crop_planes_plain(*args)),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    V = hm.shape[0]
     print(f"kernel sample_crop_planes: err {err:.3g} (library err {lib_err:.3g}) kernel_ms "
           f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-          f"bound_ms {b_ms:.4f} ({b_by}) K{K} valid {len(vk)} live voxels {live} "
-          f"samples {live * V} | {card}")
+          f"bound_ms {b_ms:.4f} ({b_by}) K{case['K']} valid {len(vk)} live voxels {case['live']} "
+          f"samples {case['live'] * V} | {card}")
     return row
 
 
-def parity_phase():
-    """A small model (3 views, 40x32 heatmaps, 16x16x8 grid, 16^3 crops,
-    K = 4, float32, seeded random weights) through the kernels on the card
-    against its plain path on the CPU: the same proposals to 1e-3 and
-    fused poses within 0.5 mm."""
+def pixel_to_norm(pix, geom):
+    """Heatmap pixels -> grid_sample's normalized coords."""
     import torch
 
+    w, h = geom.heatmap_size
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=pix.device)
+    return pix * scale - 1.0
+
+
+def coords_phase(cfg, geom, hm, card, case):
+    """Kernel row 3: the planes from precomputed coords."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    pix, masks = case["pix"], case["masks"]
+    out = sk.sample_crop_planes_coords(hm, pix, *masks)
+    ref = sk.sample_crop_coords_plain(hm, pix, *masks)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    if not (err <= TOL and all(torch.isfinite(a).all() for a in out)):
+        raise AssertionError(f"sample_crop_planes_coords disagrees with its plain version: {err}")
+    # the same planes as the projecting kernel's, to the tolerance
+    proj = sk.sample_crop_planes(hm, case["cams"], case["tl"], *masks, case["crop"])
+    route_err = max(float((a - b).abs().max()) for a, b in zip(out, proj))
+    if not route_err <= TOL:
+        raise AssertionError(f"coords and project routes disagree: {route_err}")
+    vk_t = torch.as_tensor(case["vk"], device=hm.device)
+    norm = pixel_to_norm(pix[vk_t], geom).transpose(0, 1).reshape(hm.shape[0], -1, 2)
+
+    def library():
+        return library_crop(geom, hm, case, norm)
+
+    lib_err = max(float((a - b[vk_t]).abs().max()) for a, b in zip(library(), ref))
+    b_ms, b_by = crop_bound(hm, case, geom, project=False, cube=False)
+    row = dict(name="sample_crop_planes_coords",
+               ms=time_ms(lambda: sk.sample_crop_planes_coords(hm, pix, *masks)),
+               plain_ms=time_ms(lambda: sk.sample_crop_coords_plain(hm, pix, *masks)),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    print(f"kernel sample_crop_planes_coords: err {err:.3g} (vs project route {route_err:.3g}, "
+          f"library err {lib_err:.3g}) kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+          f"library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) coords "
+          f"{tuple(pix.shape)} {pix.numel() * 4 / 1e6:.1f} MB | {card}")
+    return row
+
+
+def cube_phase(cfg, geom, hm, card, case):
+    """Kernel row 4: the masked cube, from in-kernel projection and from
+    coords; its max planes against the planes kernel's."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    pix, masks = case["pix"], case["masks"]
+    proj = dict(cams=case["cams"], centers_tl=case["tl"], crop=case["crop"])
+    sources = {"project": proj, "coords": dict(pix=pix)}
+    plains = {
+        "project": lambda: sk.sample_crop_planes_plain(hm, case["cams"], case["tl"], *masks,
+                                                       case["crop"], cube=True),
+        "coords": lambda: sk.sample_crop_coords_plain(hm, pix, *masks, cube=True),
+    }
+    errs = {}
+    for src, kw in sources.items():
+        out, ref = sk.sample_crop_cube(hm, *masks, **kw), plains[src]()
+        torch.cuda.synchronize()
+        errs[src] = float((out - ref).abs().max())
+        if not (errs[src] <= TOL and torch.isfinite(out).all()):
+            raise AssertionError(f"sample_crop_cube ({src}) disagrees with its plain version: {errs[src]}")
+    cube = sk.sample_crop_cube(hm, *masks, **proj)
+    planes = sk.sample_crop_planes(hm, case["cams"], case["tl"], *masks, case["crop"])
+    if not all(torch.equal(a, b) for a, b in zip((cube.amax(3), cube.amax(2), cube.amax(1)), planes)):
+        raise AssertionError("the cube's max planes differ from the planes kernel's")
+    vk_t = torch.as_tensor(case["vk"], device=hm.device)
+    norm = pixel_to_norm(pix[vk_t], geom).transpose(0, 1).reshape(hm.shape[0], -1, 2)
+
+    def library():  # the cube: no plane max
+        return library_crop(geom, hm, case, norm, planes=False)
+
+    lib_err = float((library() - cube[vk_t]).abs().max())
+    times = {src: time_ms(lambda kw=kw: sk.sample_crop_cube(hm, *masks, **kw))
+             for src, kw in sources.items()}
+    plain_ms = time_ms(plains["project"])
+    b_ms, b_by = crop_bound(hm, case, geom, project=True, cube=True)
+    bc_ms, bc_by = crop_bound(hm, case, geom, project=False, cube=True)
+    row = dict(name="sample_crop_cube", ms=times["project"], plain_ms=plain_ms,
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(errs.values()), coords_ms=times["coords"], coords_bound_ms=bc_ms)
+    print(f"kernel sample_crop_cube: err project {errs['project']:.3g} coords {errs['coords']:.3g} "
+          f"(library err {lib_err:.3g}) kernel_ms project {times['project']:.4f} coords "
+          f"{times['coords']:.4f} plain_ms {plain_ms:.4f} library_ms {row['library_ms']:.4f} "
+          f"bound_ms project {b_ms:.4f} ({b_by}) coords {bc_ms:.4f} ({bc_by}) cube "
+          f"{tuple(cube.shape)} {cube.numel() * 4 / 1e6:.1f} MB | {card}")
+    return row
+
+
+def small_config(dtype="float32"):
+    """3 views, 40x32 heatmaps, 16x16x8 grid, 16^3 crops, K = 4; a
+    2100 mm person box keeps every crop origin away from a .5 tie."""
     from faster_voxelpose_tpu_torch.config import Config
-    from faster_voxelpose_tpu_torch.geometry import dome_rig
-    from faster_voxelpose_tpu_torch.models import build_model
 
     cfg = Config()
     d, c = cfg.DATASET, cfg.CAPTURE_SPEC
     d.ORI_IMAGE_SIZE, d.IMAGE_SIZE, d.HEATMAP_SIZE, d.CAMERA_NUM = (320, 240), (160, 128), (40, 32), 3
     c.SPACE_SIZE, c.SPACE_CENTER = (4000.0, 4000.0, 1600.0), (0.0, 0.0, 800.0)
     c.VOXELS_PER_AXIS, c.MAX_PEOPLE, c.MIN_SCORE = (16, 16, 8), 4, -1e9
-    # a 2100 mm person box keeps every crop origin away from a .5 tie
     cfg.INDIVIDUAL_SPEC.SPACE_SIZE, cfg.INDIVIDUAL_SPEC.VOXELS_PER_AXIS = (2100.0,) * 3, (16, 16, 16)
-    cfg.NETWORK.COMPUTE_DTYPE = "float32"
+    cfg.NETWORK.COMPUTE_DTYPE = dtype
+    return cfg
+
+
+def small_model(cfg):
+    """Seeded fan-in scaled weights (O(1) activations), bbox sizes near 0.6."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.models import build_model
+
     torch.manual_seed(0)
     model = build_model(cfg)
-    with torch.no_grad():  # fan-in scaled weights keep activations O(1)
+    with torch.no_grad():
         for p in model.parameters():
             if p.ndim > 1:
                 p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5)
-        model.hdn.center_net.size_out.weight.mul_(0.01)  # bbox sizes near 0.6
+        model.hdn.center_net.size_out.weight.mul_(0.01)
         model.hdn.center_net.size_out.bias.fill_(0.6)
+    return model
+
+
+def parity_phase():
+    """The small float32 model through the kernels on the card against its
+    plain path on the CPU: the same proposals to 1e-3 and fused poses
+    within 0.5 mm."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+
+    cfg = small_config()
+    d, c = cfg.DATASET, cfg.CAPTURE_SPEC
+    model = small_model(cfg)
     rig = torch.as_tensor(dome_rig(1, 3, space_center=c.SPACE_CENTER,
                                    ori_image_size=d.ORI_IMAGE_SIZE, focal=240.0))
     hm = torch.rand((1, 3, 32, 40, 15), generator=torch.Generator().manual_seed(1))
@@ -326,6 +492,297 @@ def parity_phase():
     print(f"parity: small model card vs CPU: proposals {d_prop:.3g}, fused poses {d_pose:.3g} mm")
     if not (d_prop <= 1e-3 and d_pose <= 0.5 and torch.isfinite(out.fused_poses).all()):
         raise AssertionError(f"card and CPU paths disagree: proposals {d_prop}, poses {d_pose} mm")
+
+
+def route_phase(cfg, rig, card, rng):
+    """The served path under the three crop routes that the sampling keys
+    select at this profile, on the same 6 frames: each route's kernel
+    launches once per request and no other crop kernel does; the fused
+    poses agree within 0.01 mm.  Returns each route kernel's launches."""
+    import copy
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.models.projection import resolve_crop_route
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    with np.load(ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
+        variables = {k: npz[k] for k in npz.files}
+    center = cfg.CAPTURE_SPEC.SPACE_CENTER
+    most = min(6, cfg.CAPTURE_SPEC.MAX_PEOPLE)
+    frames = [render_frame(make_people(rng, int(rng.randint(1, most + 1)), center), rig, cfg, CARD)
+              for _ in range(6)]
+    routes = {
+        "sample_crop_planes": ("default", {}),
+        "sample_crop_planes_coords": ("PALLAS_FUSED_COORDS false", {"PALLAS_FUSED_COORDS": False}),
+        "sample_crop_cube": ("PALLAS_TILE [4, 4, 4]", {"PALLAS_TILE": (4, 4, 4)}),
+    }
+    results, launches = {}, {}
+    for kernel, (label, keys) in routes.items():
+        rcfg = copy.deepcopy(cfg)
+        for k, v in keys.items():
+            setattr(rcfg.NETWORK, k, v)
+        svc = PoseService(rcfg, variables=variables, rig=rig, device=CARD)
+        svc.warmup()
+        sk.reset_launch_counts()
+        results[kernel] = [svc.infer_heatmaps(f) for f in frames]
+        counts = sk.launch_counts()
+        launches[kernel] = counts[kernel]
+        stats = svc.stats()
+        print(f"route {label}: {resolve_crop_route(rcfg)} launches {counts} p50_ms "
+              f"{stats['p50_ms']} | {card}")
+        want = {n: 0 for n in counts}
+        want.update({"sample_whole": len(frames), kernel: len(frames)})
+        if counts != want:
+            raise AssertionError(f"route {label}: launches {counts}, expected {want}")
+    ref = results["sample_crop_planes"]
+    worst = 0.0
+    for kernel, res in results.items():
+        for a, b in zip(res, ref):
+            pa, pb = np.asarray(a["poses_mm"]), np.asarray(b["poses_mm"])
+            if pa.shape != pb.shape:
+                raise AssertionError(f"{kernel}: {len(pa)} people against {len(pb)}")
+            if pa.size:
+                worst = max(worst, float(np.abs(pa - pb).max()))
+    people = [r["n_people"] for r in ref]
+    print(f"route: fused poses of the three routes agree within {worst:.3g} mm over 6 frames, "
+          f"people {people}")
+    if not (worst <= 0.01 and sum(people) > 0):
+        raise AssertionError(f"routes disagree by {worst} mm (people {people})")
+    return launches
+
+
+def anchored_batch(cfg, model, cams, rng, device):
+    """The batch of the JAX package's own training check
+    (tests/test_training.py:21-72): random heatmaps (x 0.3) and dense
+    random targets, and GT roots within 120 mm of the model's own
+    train-mode proposals, 2 people per sample, so that the matching and
+    the 1D and joint losses are active from the first step."""
+    import torch
+
+    d, c = cfg.DATASET, cfg.CAPTURE_SPEC
+    B, V, J, K = cams.shape[0], d.CAMERA_NUM, d.NUM_JOINTS, c.MAX_PEOPLE
+    W, H = d.HEATMAP_SIZE
+    vx, vy, vz = c.VOXELS_PER_AXIS
+    hm = torch.as_tensor(rng.rand(B, V, H, W, J).astype(np.float32) * 0.3)
+    cams = torch.as_tensor(cams)
+    with torch.no_grad():
+        pc = model(hm.to(device), cams.to(device), train=True).proposal_centers[..., :3].cpu().numpy()
+    roots = (pc + rng.uniform(-120, 120, pc.shape)).astype(np.float32)
+    batch = {
+        "input_heatmaps": hm, "cameras": cams,
+        "2d_heatmaps": rng.rand(B, vx, vy).astype(np.float32),
+        "1d_heatmaps": rng.rand(B, K, vz).astype(np.float32),
+        "index": rng.randint(0, vx * vy, (B, K)).astype(np.float32),
+        "bbox": (rng.rand(B, K, 2) * 0.5 + 0.3).astype(np.float32),
+        "mask": np.tile(np.arange(K) < 2, (B, 1)),
+        "roots_3d": roots, "num_person": np.full((B,), 2, np.int32),
+        "joints_3d": (roots[:, :, None] + rng.uniform(-200, 200, (B, K, J, 3))).astype(np.float32),
+        "joints_3d_vis": np.ones((B, K, J), np.float32),
+    }
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _train_step_grads(cfg, state, batch, dev):
+    """Losses and parameter gradients of one train-mode forward and
+    backward of the small model from `state` on `dev`."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    model = build_model(cfg)
+    model.load_state_dict(state)
+    tr = Trainer(cfg, model.to(dev))
+    tr.model.zero_grad(set_to_none=True)
+    loss = tr.loss({k: v.to(dev) for k, v in batch.items()})
+    loss["total"].backward()
+    return ({k: float(v.detach()) for k, v in loss.items()},
+            {k: p.grad.detach().double().cpu() for k, p in tr.model.named_parameters()})
+
+
+def _step_gap(ref, got, floor):
+    """(worst relative loss error, {tensor: relative L2 gradient error})
+    of step `got` against step `ref`; a gradient norm below `floor` of the
+    model's largest is taken as that floor."""
+    (l_ref, g_ref), (l_got, g_got) = ref, got
+    d_loss = max(abs(l_got[k] - v) / max(abs(v), 1e-30) for k, v in l_ref.items())
+    scale = max(float(g.norm()) for g in g_ref.values())
+    rel = {k: float((g_got[k] - g).norm()) / max(float(g.norm()), floor * scale)
+           for k, g in g_ref.items()}
+    return d_loss, rel
+
+
+def train_parity_readings(card):
+    """One train step of the small seeded model on the card against the
+    same step on the CPU, same weights and batch, in three settings:
+    float64 and float32 conv stacks on both devices, and a control with
+    bf16 conv stacks on the card against float32 on the CPU, which is what
+    a cast to a narrower type on the card's path looks like.  Returns
+    {setting: (worst relative loss error, worst relative L2 gradient
+    error)}, gradients below 1e-4 of the largest norm taken against that
+    floor (see train_parity_phase)."""
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+
+    readings = {}
+    for dtype in ("float64", "float32", "bfloat16"):
+        if dtype != "bfloat16":  # the control reuses float32's weights, batch and CPU step
+            cfg = small_config(dtype)
+            cfg.TRAIN.ACCUMULATION_STEPS, cfg.TRAIN.LR = 2, 1e-3
+            model = small_model(cfg)
+            cams = dome_rig(2, 3, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
+                            ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE, focal=240.0)
+            batch = anchored_batch(cfg, model, cams, np.random.RandomState(5), "cpu")
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+            ref = _train_step_grads(cfg, state, batch, "cpu")
+            if min(ref[0]["joint"], ref[0]["1d_heatmaps"]) <= 0:
+                raise AssertionError(f"train parity: a loss term is inactive: {ref[0]}")
+        got = _train_step_grads(small_config(dtype), state, batch, CARD)
+        d_loss, rel = _step_gap(ref, got, 1e-4)
+        name = max(rel, key=rel.get)
+        label = "bf16 on the card against float32 on the CPU (control)" \
+            if dtype == "bfloat16" else f"{dtype} conv stacks"
+        extra = ""
+        if dtype == "float64":  # the same reading with a floor of 1e-6
+            fine = _step_gap(ref, got, 1e-6)[1]
+            k6 = max(fine, key=fine.get)
+            extra = f"; with a 1e-6 floor worst {fine[k6]:.3g} ({k6})"
+        print(f"train parity ({label}): card losses {got[0]} rel {d_loss:.3g}; gradients worst "
+              f"rel L2 {rel[name]:.3g} ({name}), {sum(v > 1e-3 for v in rel.values())}/{len(rel)} "
+              f"tensors above 1e-3{extra} | {card}")
+        readings[dtype] = (d_loss, rel[name])
+    return readings
+
+
+def train_parity_phase(card):
+    """Holds the readings of `train_parity_readings`.
+
+    float64 conv stacks: losses within 1e-4 relative, every gradient
+    tensor within 1e-3 relative L2.  float32 carries its own rounding: its
+    train-mode U-Net gradients are 3e-3 to 9e-3 from a float64 run on any
+    device (tests/test_torch_train.py), so float32 is held to the limits
+    F32_LOSS_TOL and F32_GRAD_TOL, set between its reading on the card and
+    the bf16 control's, and the control must break both.
+
+    A gradient below 1e-4 of the model's largest norm is a near-cancelling
+    sum (a conv bias before a train-mode BatchNorm is exactly 0; P2PNet's
+    output bias is 6e-6 of the largest): for such a tensor the error is
+    taken against that 1e-4 floor.  A 1e-7 change of the input heatmaps,
+    the size of the kernels' difference from their plain versions, moves
+    that output bias by 3.4e-3 relative in float64 and no gradient above
+    1e-2 of the largest by more than 1.6e-4 (measured on the CPU)."""
+    r = train_parity_readings(card)
+    bounds = {"float64": (1e-4, 1e-3), "float32": (F32_LOSS_TOL, F32_GRAD_TOL)}
+    for dtype, (loss_tol, grad_tol) in bounds.items():
+        d_loss, d_grad = r[dtype]
+        if not (d_loss <= loss_tol and d_grad <= grad_tol):
+            raise AssertionError(f"train step card vs CPU ({dtype}): losses {d_loss} > {loss_tol} "
+                                 f"or gradients {d_grad} > {grad_tol}")
+    d_loss, d_grad = r["bfloat16"]
+    if not (d_loss > F32_LOSS_TOL and d_grad > F32_GRAD_TOL):
+        raise AssertionError(f"the bf16 control passes the float32 limits: losses {d_loss}, "
+                             f"gradients {d_grad}")
+
+
+def synthetic_loader(cfg, n_batches, seed=0):
+    """The port's own synthetic scenes for `cfg`: the demo rig and pose
+    bank of configs/demo/panoptic_synthetic.yaml, made here from seeds."""
+    from faster_voxelpose_tpu_torch.datasets import SyntheticDataset
+    from faster_voxelpose_tpu_torch.datasets.demo_data import make_pose_bank, make_rig
+    from faster_voxelpose_tpu_torch.engine.loader import make_loader
+
+    c, d = cfg.CAPTURE_SPEC, cfg.DATASET
+    rig = make_rig(d.CAMERA_NUM, 2800.0, 2200.0, c.SPACE_CENTER[:2], d.ORI_IMAGE_SIZE)
+    cams = {int(k): {kk: np.array(vv) for kk, vv in v.items()} for k, v in rig.items()}
+    cfg.SYNTHETIC.NUM_DATA = n_batches * cfg.TRAIN.BATCH_SIZE
+    ds = SyntheticDataset(cfg, pose_bank=make_pose_bank(2000), cameras=cams)
+    return make_loader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True, drop_last=True, seed=seed)
+
+
+def fixed_batch_check(cfg, model, batch, label, terms, steps=8):
+    """The JAX package's own training check (tests/test_training.py:21-86:
+    LR 1e-3, ACCUMULATION_STEPS 2): `steps` train steps on one batch give
+    finite losses and lower the sum of the loss `terms` below 0.9 of its
+    first value.  Returns that sum at every step."""
+    import copy
+
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+
+    fcfg = copy.deepcopy(cfg)
+    fcfg.TRAIN.LR, fcfg.TRAIN.ACCUMULATION_STEPS = 1e-3, 2
+    tr = Trainer(fcfg, model)
+    watched = []
+    for i in range(steps):
+        losses = {k: float(v) for k, v in tr.step(batch).items()}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite loss at {label} step {i}: {losses}")
+        watched.append(sum(losses[t] for t in terms))
+        print(f"train {label} step {i}: " + " ".join(f"{k} {v:.6g}" for k, v in losses.items()))
+    what = " + ".join(terms)
+    print(f"train {label}: people {batch['num_person'].tolist()}, {what} loss "
+          f"{watched[0]:.6g} -> {watched[-1]:.6g} ({watched[-1] / watched[0]:.4f} of the first)")
+    if not watched[-1] < 0.9 * watched[0]:
+        raise AssertionError(f"{label}: the {what} loss did not fall below 0.9x: {watched}")
+    return watched
+
+
+def training_phase(card, fresh_steps=20):
+    """Full-width training on the card at the Panoptic profile (bf16 conv
+    stacks, batch 4) from seeded random weights.
+
+    First the JAX package's own check (`fixed_batch_check`) on the first
+    batch of synthetic scenes from the port's generator, heatmaps rendered
+    on the card: the detection loss (2D + 1D) must fall.  Then
+    `fresh_steps` timed steps on fresh synthetic batches at the profile's
+    LR 1e-4 and ACCUMULATION_STEPS 4.  Returns the kernels' launches over
+    the timed steps."""
+    import time
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg = panoptic_synthetic_profile()
+    B = cfg.TRAIN.BATCH_SIZE
+    batches = iter(synthetic_loader(cfg, 1 + fresh_steps))
+    torch.manual_seed(1)
+    model = build_model(cfg).cuda()
+    fixed_batch_check(cfg, model, batch_to_device(next(batches), "cuda"), "synthetic batch",
+                      ("2d_heatmaps", "1d_heatmaps"))
+
+    tr = Trainer(cfg, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    device_ms, data_ms = [], []
+    t_start = time.perf_counter()
+    for i in range(fresh_steps):
+        t0 = time.perf_counter()
+        batch = batch_to_device(next(batches), "cuda")
+        data_ms.append((time.perf_counter() - t0) * 1e3)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = tr.step(batch)
+        b.record()
+        b.synchronize()
+        device_ms.append(a.elapsed_time(b))
+        if not all(torch.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite loss at fresh step {i}: {losses}")
+    wall = time.perf_counter() - t_start
+    launches = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / fresh_steps for k, v in launches.items()}
+    print(f"train fresh batches: {fresh_steps} steps of batch {B}: device ms/step median "
+          f"{np.median(device_ms):.3f} (min {min(device_ms):.3f} max {max(device_ms):.3f}), host "
+          f"data ms/batch median {np.median(data_ms):.3f}, samples/s {fresh_steps * B / wall:.3f} "
+          f"(data and steps in series), peak memory {peak / 2**30:.3f} GiB, launches per step "
+          f"{per_step}, last losses {({k: round(float(v), 6) for k, v in losses.items()})} | {card}")
+    for name in ("sample_whole", "sample_crop_planes"):
+        if launches[name] != B * fresh_steps:
+            raise AssertionError(f"{name} launched {launches[name]} times in {fresh_steps} steps of {B}")
+    return launches
 
 
 def serving_phase(cfg, rig, card, rng):
@@ -347,6 +804,7 @@ def serving_phase(cfg, rig, card, rng):
     sk.reset_launch_counts()
     results = [svc.infer_heatmaps(f) for f in frames]
     launches = sk.launch_counts()
+    route = ("sample_whole", "sample_crop_planes")  # the default route's kernels
 
     n_true = np.mean([len(p) for p in scenes])
     n_det = np.mean([r["n_people"] for r in results])
@@ -357,7 +815,7 @@ def serving_phase(cfg, rig, card, rng):
           f"{n_det:.3f}, matched {len(errs)}, MPJPE median {np.median(errs) if errs else float('nan'):.2f} "
           f"mm mean {np.mean(errs) if errs else float('nan'):.2f} mm, launches {launches}")
     for name, count in launches.items():
-        if count < N_REQUESTS:
+        if (count < N_REQUESTS) if name in route else count:
             raise AssertionError(f"{name} launched {count} times for {N_REQUESTS} requests")
     if not any(r["n_people"] for r in results):
         raise AssertionError("no person detected in any frame")
@@ -370,6 +828,7 @@ def serving_phase(cfg, rig, card, rng):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -398,17 +857,41 @@ def main() -> int:
     hm = (hm + 0.05 * torch.rand(hm.shape, generator=torch.Generator().manual_seed(0))
           .to(hm.device)).clamp(0, 1).contiguous()  # no exact zeros between people
 
-    rows = [whole_phase(cfg, geom, rig, hm, card), crop_phase(cfg, geom, rig, hm, card, rng)]
+    case = crop_case(cfg, geom, rig, hm, rng)
+    rows = [whole_phase(cfg, geom, rig, hm, card), crop_phase(cfg, geom, rig, hm, card, case),
+            coords_phase(cfg, geom, hm, card, case), cube_phase(cfg, geom, hm, card, case)]
+    del case
     parity_phase()
-    launches = serving_phase(cfg, rig, card, rng)
+    # serving before the training phases, so that its latency is read on a
+    # host and card that training has not yet loaded, as in earlier runs
+    paths = {"serving": serving_phase(cfg, rig, card, rng)}
+    paths["route"] = route_phase(cfg, rig, card, rng)
+    train_parity_phase(card)
+    paths["train"] = training_phase(card)
 
+    # launches: the run of the main path that reaches each kernel, training
+    # for the default route's kernels, the route phase for the others
+    main_path = {"sample_whole": "train", "sample_crop_planes": "train",
+                 "sample_crop_planes_coords": "route", "sample_crop_cube": "route"}
     replaces = {"sample_whole": "faster_voxelpose_tpu/ops/pallas_sampling.py:947",
-                "sample_crop_planes": "faster_voxelpose_tpu/ops/pallas_sampling.py:1010"}
-    kernels = [dict(name=r["name"], route="cuda", source="faster_voxelpose_tpu_torch/csrc/sampling.cu",
-                    replaces=replaces[r["name"]], launches=launches[r["name"]],
-                    max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                    bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"])
-               for r in rows]
+                "sample_crop_planes": "faster_voxelpose_tpu/ops/pallas_sampling.py:1010",
+                "sample_crop_planes_coords": "faster_voxelpose_tpu/ops/pallas_sampling.py:947",
+                "sample_crop_cube": "faster_voxelpose_tpu/ops/pallas_sampling.py:1010"}
+    kernels = []
+    for r in rows:
+        name = r["name"]
+        launches = paths[main_path[name]][name]
+        if launches <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append(dict(
+            name=name, route="cuda", source="faster_voxelpose_tpu_torch/csrc/sampling.cu",
+            replaces=replaces[name], launches=launches, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], path=main_path[name],
+            launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
+            **{k: r[k] for k in ("coords_ms", "coords_bound_ms") if k in r}))
+    print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f} s from start "
+          "(torch import and kernel build included)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,13 +5,16 @@
 // their plain PyTorch versions, their launch counters and the notes on
 // what bounds them.
 //
-//   fvp_sample_whole       replaces the JAX package's sample_tiles in cube
-//                          mode (ops/pallas_sampling.py:947), called by
-//                          project_whole_pallas (models/projection.py:340)
-//   fvp_sample_crop_planes replaces sample_tiles_fused with
-//                          emit_planes=True (ops/pallas_sampling.py:1010),
-//                          called by project_individual_planes_pallas
-//                          (models/projection.py:527)
+//   fvp_sample_whole  replaces the JAX package's sample_tiles in cube mode
+//                     (ops/pallas_sampling.py:947), called by
+//                     project_whole_pallas (models/projection.py:340)
+//   fvp_sample_crop   the crop sampler of project_individual_planes_pallas
+//                     (models/projection.py:459-571) in its four modes:
+//                     pixels projected in the kernel or read from coords,
+//                     times three max planes or the masked cube.  It
+//                     replaces sample_tiles_fused (:1010) and sample_tiles
+//                     (:947) with emit_planes=True, and both in their
+//                     masked cube mode.
 //
 // Both compute, per voxel and joint, the mean over V views of
 // grid_sample(align_corners=True, padding_mode='zeros') on pixel
@@ -137,54 +140,94 @@ sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
   out[(size_t)n * J + lane] = clamp01(acc / (float)V);
 }
 
-// One block per (x slab, slot).  The block walks the slab's (y, z)
-// voxels, lanes over joints; xy (max over z) and xz (max over y) reduce in
-// shared memory, yz (max over x) across blocks with atomicMax into the
-// zero-initialised output.  Every value is >= 0 after the clamp and the
-// mask, so the int order of the float bits is the float order; +0.0f
-// turns a -0.0 into +0.0 before the compare.  Dead slots, masked slabs
-// and masked voxels write nothing: their planes stay 0, which is what
-// the max of masked (zero) values gives.
+// One block per (x slab, slot), lanes over joints; the block walks the
+// slab's (y, z) voxels.  Two template switches share this body:
+//
+//   kCoords  false: each voxel's pixel in each view is projected here from
+//                   the rig and the crop origin (project_pixel);
+//            true:  it is read from precomputed coords pix (K, V, N, 2),
+//                   N = vx * vy * vz voxels in (x, y, z) order.  Dead
+//                   slots, masked slabs and masked voxels read no coords.
+//   kCube    false: xy (max over z) and xz (max over y) reduce in shared
+//                   memory, yz (max over x) across blocks with atomicMax
+//                   into the zero-initialised output.  Every value is >= 0
+//                   after the clamp and the mask, so the int order of the
+//                   float bits is the float order; +0.0f turns a -0.0 into
+//                   +0.0 before the compare.  Dead slots, masked slabs and
+//                   masked voxels write nothing: their planes stay 0,
+//                   which is what the max of masked (zero) values gives.
+//            true:  the bbox-masked cube (K, vx, vy, vz, J) is written
+//                   whole, zeros for dead slots, masked slabs and masked
+//                   voxels, so the output needs no zero fill.
+template <bool kCoords, bool kCube>
 __global__ void __launch_bounds__(kThreads)
-crop_planes_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
-                   const int* __restrict__ tl, const uint8_t* __restrict__ mx,
-                   const uint8_t* __restrict__ my, const uint8_t* __restrict__ mz,
-                   const uint8_t* __restrict__ valid, CropConsts kc,
-                   float* __restrict__ out_xy, float* __restrict__ out_xz,
-                   float* __restrict__ out_yz, int V, int H, int W, int J,
-                   int vx, int vy, int vz, int lane_shift) {
+crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
+            const int* __restrict__ tl, const float* __restrict__ pix,
+            const uint8_t* __restrict__ mx, const uint8_t* __restrict__ my,
+            const uint8_t* __restrict__ mz, const uint8_t* __restrict__ valid,
+            CropConsts kc, float* __restrict__ out_xy,
+            float* __restrict__ out_xz, float* __restrict__ out_yz,
+            float* __restrict__ out_cube, int V, int H, int W, int J, int vx,
+            int vy, int vz, int lane_shift) {
   const int x = blockIdx.x, k = blockIdx.y;
-  if (!valid[k] || !mx[(size_t)k * vx + x]) return;
+  const size_t slab = (size_t)vy * vz;  // voxels of one x slab
+  float* cube = kCube ? out_cube + ((size_t)k * vx + x) * slab * J : nullptr;
+  if (!valid[k] || !mx[(size_t)k * vx + x]) {
+    if (kCube)
+      for (size_t i = threadIdx.x; i < slab * J; i += blockDim.x) cube[i] = 0.0f;
+    return;
+  }
 
   extern __shared__ float smem[];
-  float* s_cams = smem;                             // V * 21
-  int* s_xy = reinterpret_cast<int*>(smem + V * 21);  // vy * J
-  int* s_xz = s_xy + vy * J;                        // vz * J
-  for (int i = threadIdx.x; i < V * 21; i += blockDim.x) s_cams[i] = cams[i];
-  for (int i = threadIdx.x; i < (vy + vz) * J; i += blockDim.x) s_xy[i] = 0;
+  float* s_cams = smem;                               // V * 21 (projection)
+  int* s_xy = reinterpret_cast<int*>(smem + V * 21);  // vy * J (planes)
+  int* s_xz = s_xy + vy * J;                          // vz * J (planes)
+  if (!kCoords)
+    for (int i = threadIdx.x; i < V * 21; i += blockDim.x) s_cams[i] = cams[i];
+  if (!kCube)
+    for (int i = threadIdx.x; i < (vy + vz) * J; i += blockDim.x) s_xy[i] = 0;
   __syncthreads();
 
   const int lane = threadIdx.x & ((1 << lane_shift) - 1);
   const int per_iter = blockDim.x >> lane_shift;
   const uint8_t* myk = my + (size_t)k * vy;
   const uint8_t* mzk = mz + (size_t)k * vz;
-  const float wx = ADD(kc.origin[0], MUL((float)(tl[3 * k] + x), kc.step[0]));
-  const int tly = tl[3 * k + 1], tlz = tl[3 * k + 2];
   const size_t view = (size_t)H * W * J;
+  const size_t n_vox = (size_t)vx * slab;
+  const float2* pk = kCoords ? reinterpret_cast<const float2*>(pix) +
+                                   (size_t)k * V * n_vox + (size_t)x * slab
+                             : nullptr;
+  const float wx = kCoords ? 0.0f : ADD(kc.origin[0], MUL((float)(tl[3 * k] + x), kc.step[0]));
+  const int tly = kCoords ? 0 : tl[3 * k + 1], tlz = kCoords ? 0 : tl[3 * k + 2];
 
-  for (int i = threadIdx.x >> lane_shift; i < vy * vz; i += per_iter) {
+  for (int i = threadIdx.x >> lane_shift; i < (int)slab; i += per_iter) {
     const int y = i / vz, z = i - y * vz;
-    if (lane >= J || !myk[y] || !mzk[z]) continue;
-    const float wy = ADD(kc.origin[1], MUL((float)(tly + y), kc.step[1]));
-    const float wz = ADD(kc.origin[2], MUL((float)(tlz + z), kc.step[2]));
+    if (lane >= J) continue;
+    if (!myk[y] || !mzk[z]) {
+      if (kCube) cube[(size_t)i * J + lane] = 0.0f;
+      continue;
+    }
+    float wy = 0.0f, wz = 0.0f;
+    if (!kCoords) {
+      wy = ADD(kc.origin[1], MUL((float)(tly + y), kc.step[1]));
+      wz = ADD(kc.origin[2], MUL((float)(tlz + z), kc.step[2]));
+    }
     float acc = 0.0f;
     for (int v = 0; v < V; ++v) {
       float px, py;
-      project_pixel(s_cams + 21 * v, wx, wy, wz, kc, px, py);
+      if (kCoords) {
+        const float2 p = pk[(size_t)v * n_vox + i];
+        px = p.x;
+        py = p.y;
+      } else {
+        project_pixel(s_cams + 21 * v, wx, wy, wz, kc, px, py);
+      }
       acc += bilinear(hm + v * view, H, W, J, lane, px, py);
     }
     const float r = clamp01(acc / (float)V) + 0.0f;
-    if (r > 0.0f) {
+    if (kCube) {
+      cube[(size_t)i * J + lane] = r;
+    } else if (r > 0.0f) {
       const int bits = __float_as_int(r);
       atomicMax(&s_xy[y * J + lane], bits);
       atomicMax(&s_xz[z * J + lane], bits);
@@ -193,6 +236,7 @@ crop_planes_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
                 bits);
     }
   }
+  if (kCube) return;
   __syncthreads();
 
   float* oxy = out_xy + ((size_t)k * vx + x) * vy * J;
@@ -217,26 +261,40 @@ int fvp_sample_whole(const float* hm, const float* pix, float* out, int V,
   return (int)cudaGetLastError();
 }
 
-// heatmaps (V, H, W, J), cams (V, 21), tl (K, 3) int32, mx (K, vx),
-// my (K, vy), mz (K, vz), valid (K,) uint8; consts: 21 host floats in
-// CropConsts order.  Outputs (K, vx, vy, J), (K, vx, vz, J), (K, vy, vz, J)
-// must be zero-filled.
-int fvp_sample_crop_planes(const float* hm, const float* cams, const int* tl,
-                           const uint8_t* mx, const uint8_t* my,
-                           const uint8_t* mz, const uint8_t* valid,
-                           const float* consts, float* out_xy, float* out_xz,
-                           float* out_yz, int V, int H, int W, int J, int K,
-                           int vx, int vy, int vz, void* stream) {
+// The crop sampler in its four modes.  heatmaps (V, H, W, J); mx (K, vx),
+// my (K, vy), mz (K, vz), valid (K,) uint8.  from_coords = 0: cams (V, 21),
+// tl (K, 3) int32 and consts (21 host floats in CropConsts order) give the
+// pixels; from_coords = 1: pix (K, V, vx*vy*vz, 2) gives them.  cube = 0:
+// outputs (K, vx, vy, J), (K, vx, vz, J), (K, vy, vz, J), zero-filled;
+// cube = 1: output (K, vx, vy, vz, J), any contents.  Unused pointers may
+// be null.
+int fvp_sample_crop(const float* hm, const float* cams, const int* tl,
+                    const float* pix, const uint8_t* mx, const uint8_t* my,
+                    const uint8_t* mz, const uint8_t* valid,
+                    const float* consts, float* out_xy, float* out_xz,
+                    float* out_yz, float* out_cube, int V, int H, int W, int J,
+                    int K, int vx, int vy, int vz, int from_coords, int cube,
+                    void* stream) {
   if (K <= 0) return (int)cudaGetLastError();
   CropConsts kc;
   float* dst = reinterpret_cast<float*>(&kc);
-  for (int i = 0; i < (int)(sizeof(CropConsts) / sizeof(float)); ++i) dst[i] = consts[i];
+  for (int i = 0; i < (int)(sizeof(CropConsts) / sizeof(float)); ++i)
+    dst[i] = from_coords ? 0.0f : consts[i];
   const int shift = lane_shift_for(J);
-  const size_t smem = sizeof(float) * ((size_t)V * 21 + (size_t)(vy + vz) * J);
+  const size_t smem =
+      sizeof(float) * ((size_t)V * 21 + (cube ? 0 : (size_t)(vy + vz) * J));
   const dim3 grid((unsigned)vx, (unsigned)K);
-  crop_planes_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      hm, cams, tl, mx, my, mz, valid, kc, out_xy, out_xz, out_yz, V, H, W,
-      J, vx, vy, vz, shift);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FVP_CROP(C, Q)                                                     \
+  crop_kernel<C, Q><<<grid, kThreads, smem, st>>>(                         \
+      hm, cams, tl, pix, mx, my, mz, valid, kc, out_xy, out_xz, out_yz,    \
+      out_cube, V, H, W, J, vx, vy, vz, shift)
+  if (from_coords) {
+    if (cube) FVP_CROP(true, true); else FVP_CROP(true, false);
+  } else {
+    if (cube) FVP_CROP(false, true); else FVP_CROP(false, false);
+  }
+#undef FVP_CROP
   return (int)cudaGetLastError();
 }
 

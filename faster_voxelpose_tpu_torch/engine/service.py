@@ -14,7 +14,9 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from ..datasets.shelf_campus import load_flat_calibration
 from ..device import DeviceLike, pin_float32, resolve_device
+from ..geometry.cameras import pack_rig
 from ..models.faster_voxelpose import build_model
 from ..weights import from_jax_variables
 
@@ -74,6 +76,17 @@ class PoseService:
         if rig.shape != (1, self._V, 21):
             raise ValueError(f"rig shape {rig.shape} != (1, {self._V}, 21)")
         self._rig = torch.as_tensor(rig, device=self.device)
+
+    def set_rig_from_calibration(self, path: str) -> np.ndarray:
+        """Hot-swap the rig from a flat calibration JSON
+        ({cam_id: {R, T, fx, fy, cx, cy, k, p}}, cameras in id order,
+        the first CAMERA_NUM of them); returns the packed rig."""
+        cams = load_flat_calibration(path)
+        if len(cams) < self._V:
+            raise ValueError(f"{path} holds {len(cams)} cameras, the model takes {self._V}")
+        rig = pack_rig([cams[k] for k in sorted(cams)][: self._V]).astype(np.float32)
+        self.set_rig(rig)
+        return rig
 
     def _require_rig(self) -> torch.Tensor:
         if self._rig is None:

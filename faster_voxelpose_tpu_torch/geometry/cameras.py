@@ -64,3 +64,24 @@ def project_points(x: torch.Tensor, cams: torch.Tensor) -> torch.Tensor:
     u = y0 * d + 2 * c[19] * y0 * y1 + c[20] * (r2 + 2 * y0 * y0)
     v = y1 * d + 2 * c[20] * y0 * y1 + c[19] * (r2 + 2 * y1 * y1)
     return torch.stack([u * c[12] + c[14], v * c[13] + c[15]], dim=-1)
+
+
+def project_points_np(x: np.ndarray, packed_cam: np.ndarray) -> np.ndarray:
+    """World (N, 3) -> pixels (N, 2) for one packed camera, numpy float64
+    on the host (dataset building, synthetic visibility checks); the
+    reference's project_point_cpu (cameras.py:58-84), 1e-5 depth epsilon
+    included."""
+    p = np.asarray(packed_cam, dtype=np.float64)
+    R = p[0:9].reshape(3, 3)
+    T = p[9:12].reshape(3, 1)
+    f = p[12:14].reshape(2, 1)
+    c = p[14:16].reshape(2, 1)
+    k = p[16:19]
+    tp = p[19:21]
+    xcam = R @ (np.asarray(x, dtype=np.float64).T - T)  # (3, N)
+    y = xcam[:2] / (xcam[2] + 1e-5)
+    r2 = np.sum(y**2, axis=0)
+    d = 1 + k[0] * r2 + k[1] * r2 * r2 + k[2] * r2 * r2 * r2
+    u = y[0] * d + 2 * tp[0] * y[0] * y[1] + tp[1] * (r2 + 2 * y[0] * y[0])
+    v = y[1] * d + 2 * tp[1] * y[0] * y[1] + tp[0] * (r2 + 2 * y[1] * y[1])
+    return (f * np.stack([u, v], axis=0) + c).T

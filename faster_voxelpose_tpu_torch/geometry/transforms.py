@@ -82,3 +82,19 @@ def get_resize_transform(ori_image_size, image_size) -> np.ndarray:
     c = np.array([ori_image_size[0] / 2.0, ori_image_size[1] / 2.0])
     s = get_scale(ori_image_size, image_size)
     return get_affine_transform(c, s, 0, image_size)
+
+
+def affine_transform_points(pts: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine to (N, 2) points."""
+    return pts @ t[:, :2].T + t[:, 2]
+
+
+def rotate_points(points: np.ndarray, center: np.ndarray, rot_deg: float) -> np.ndarray:
+    """Rotate (N, 2) points around center by rot_deg degrees (reference
+    transforms.py:95-108; the synthetic scene generator uses it)."""
+    rot_rad = rot_deg * np.pi / 180.0
+    rot = np.array(
+        [[np.cos(rot_rad), -np.sin(rot_rad)], [np.sin(rot_rad), np.cos(rot_rad)]]
+    )
+    center = np.asarray(center, dtype=np.float64).reshape(1, 2)
+    return (points - center) @ rot.T + center

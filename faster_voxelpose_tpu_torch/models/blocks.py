@@ -3,9 +3,11 @@ of `faster_voxelpose_tpu/models/blocks.py`, reference
 lib/models/cnns_2d.py:12-112 and cnns_1d.py:10-109).
 
 Parameters are float32; each conv casts its input, kernel and bias to the
-module's compute dtype, as flax's `dtype=` does, and BatchNorm (eval
-mode, running statistics, eps 1e-5) runs in float32 and returns the
-compute dtype.  Module and parameter names follow the flax modules, so
+module's compute dtype, as flax's `dtype=` does, and BatchNorm (eps 1e-5)
+runs in float32 and returns the compute dtype.  As in the flax modules,
+train mode is an argument, `train`, passed down to every BatchNorm:
+running statistics when false, batch statistics (and a running-statistics
+update) when true.  Module and parameter names follow the flax modules, so
 that `weights.from_jax_variables` maps the flax paths mechanically.
 """
 
@@ -65,7 +67,13 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with the flax statistics."""
+    """BatchNorm over dim 1 with flax's semantics (momentum 0.9, eps 1e-5).
+
+    Train mode takes the float32 mean and the biased variance
+    E[x^2] - E[x]^2 (floored at 0) over the batch and spatial axes, both
+    to normalise and for the running update ra = 0.9 ra + 0.1 batch.
+    `F.batch_norm(training=True)` would update the running variance with
+    the unbiased variance instead, n/(n-1) away from the JAX package's."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -75,11 +83,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
-        y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, training=False, eps=1e-5,
-        )
+    def forward(self, x, train: bool = False):
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if not train:
+            y = F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, training=False, eps=1e-5,
+            )
+            return y.to(self.dtype)
+        dims = [0] + list(range(2, x.ndim))
+        mean = x.mean(dims)
+        var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
+            self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + 1e-5) * self.weight  # op order of flax's _normalize
+        y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype)
 
 
@@ -115,8 +135,8 @@ class ConvBNRelu(nn.Module):
         self.conv = Conv(cin, cout, kernel, rank, dtype)
         self.bn = BatchNorm(cout, dtype)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    def forward(self, x, train: bool = False):
+        return F.relu(self.bn(self.conv(x), train))
 
 
 class ResBlock(nn.Module):
@@ -135,10 +155,10 @@ class ResBlock(nn.Module):
             self.skip_bn = BatchNorm(cout, dtype)
         self.dtype = dtype
 
-    def forward(self, x):
-        res = F.relu(self.bn1(self.conv1(x)))
-        res = self.bn2(self.conv2(res))
-        skip = self.skip_bn(self.skip_conv(x)) if self.project else x.to(self.dtype)
+    def forward(self, x, train: bool = False):
+        res = F.relu(self.bn1(self.conv1(x), train))
+        res = self.bn2(self.conv2(res), train)
+        skip = self.skip_bn(self.skip_conv(x), train) if self.project else x.to(self.dtype)
         return F.relu(res + skip)
 
 
@@ -150,8 +170,8 @@ class UpsampleBlock(nn.Module):
         self.deconv = Deconv(cin, cout, 2, 2, 0, rank, True, dtype)
         self.bn = BatchNorm(cout, dtype)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.deconv(x)))
+    def forward(self, x, train: bool = False):
+        return F.relu(self.bn(self.deconv(x), train))
 
 
 class EncoderDecoder(nn.Module):
@@ -172,15 +192,15 @@ class EncoderDecoder(nn.Module):
         self.decoder_res1 = ResBlock(c64, c64, rank, dtype)
         self.decoder_upsample1 = UpsampleBlock(c64, c32, rank, dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         pool = _POOL[self.rank]
-        skip1 = self.skip_res1(x)
-        x = self.encoder_res1(pool(x, 2))
-        skip2 = self.skip_res2(x)
-        x = self.encoder_res2(pool(x, 2))
-        x = self.mid_res(x)
-        x = self.decoder_upsample2(self.decoder_res2(x)) + skip2
-        x = self.decoder_upsample1(self.decoder_res1(x)) + skip1
+        skip1 = self.skip_res1(x, train)
+        x = self.encoder_res1(pool(x, 2), train)
+        skip2 = self.skip_res2(x, train)
+        x = self.encoder_res2(pool(x, 2), train)
+        x = self.mid_res(x, train)
+        x = self.decoder_upsample2(self.decoder_res2(x, train), train) + skip2
+        x = self.decoder_upsample1(self.decoder_res1(x, train), train) + skip1
         return x
 
 
@@ -194,6 +214,6 @@ class UNetFront(nn.Module):
         self.front_basic = ConvBNRelu(cin, c16, 7, rank, dtype)
         self.front_res = ResBlock(c16, c32, rank, dtype)
 
-    def forward(self, x):
-        return self.front_res(self.front_basic(x))
+    def forward(self, x, train: bool = False):
+        return self.front_res(self.front_basic(x, train), train)
 

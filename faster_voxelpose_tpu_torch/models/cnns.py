@@ -1,7 +1,8 @@
 """Task heads: P2PNet (plane->pose), CenterNet (BEV center+bbox), C2CNet
 (1D height), WeightNet (plane-fusion weights) — counterparts of
 `faster_voxelpose_tpu/models/cnns.py` (reference cnns_2d.py:115-187,
-cnns_1d.py:112-143, weight_net.py:48-89), channels-first inside.
+cnns_1d.py:112-143, weight_net.py:48-89), channels-first inside.  Each
+takes `train` and passes it to its BatchNorms.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ class P2PNet(nn.Module):
         self.encdec = EncoderDecoder(2, dtype, width)
         self.output = Conv(scaled(32, width), cout, 1, 2, dtype)
 
-    def forward(self, x):
-        return self.output(self.encdec(self.front(x))).float()
+    def forward(self, x, train: bool = False):
+        return self.output(self.encdec(self.front(x, train), train)).float()
 
 
 class CenterNet(nn.Module):
@@ -43,9 +44,9 @@ class CenterNet(nn.Module):
         self.size_conv = Conv(c32, head, 3, 2, dtype)
         self.size_out = Conv(head, 2, 1, 2, dtype)
 
-    def forward(self, cube):
+    def forward(self, cube, train: bool = False):
         x = cube.amax(dim=3).permute(0, 3, 1, 2).to(self.dtype)
-        x = self.encdec(self.front(x))
+        x = self.encdec(self.front(x, train), train)
         hm = self.hm_out(F.relu(self.hm_conv(x)))
         size = self.size_out(F.relu(self.size_conv(x)))
         return hm.float(), size.float()
@@ -60,8 +61,8 @@ class C2CNet(nn.Module):
         self.encdec = EncoderDecoder(1, dtype, width)
         self.output = Conv(scaled(32, width), 1, 1, 1, dtype)
 
-    def forward(self, x):
-        return self.output(self.encdec(self.front(x)))[:, 0].float()
+    def forward(self, x, train: bool = False):
+        return self.output(self.encdec(self.front(x, train), train))[:, 0].float()
 
 
 class WeightNet(nn.Module):
@@ -76,9 +77,9 @@ class WeightNet(nn.Module):
         self.fc1 = Dense(feat_channels, hidden_channels, dtype)
         self.fc2 = Dense(hidden_channels, 1, dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         M, J, H, W = x.shape
-        x = self.feat_bn(self.feat_conv(x.reshape(M * J, 1, H, W)))
+        x = self.feat_bn(self.feat_conv(x.reshape(M * J, 1, H, W)), train)
         x = F.relu(F.max_pool2d(x, 2))
         x = x.mean(dim=(2, 3))
         x = self.fc2(F.relu(self.fc1(x)))

@@ -1,8 +1,8 @@
-"""Top-level FasterVoxelPose model, inference (counterpart of
-`faster_voxelpose_tpu/models/faster_voxelpose.py:163-237`, reference
+"""Top-level FasterVoxelPose model (counterpart of
+`faster_voxelpose_tpu/models/faster_voxelpose.py`, reference
 faster_voxelpose.py:18-105): HDN then JLN on heatmaps and a packed rig,
-with the same `ModelOutputs` layout.  The training losses belong to the
-training slice and are not ported yet.
+with the same `ModelOutputs` layout, and in train mode the four-term
+training loss.
 """
 
 from __future__ import annotations
@@ -13,11 +13,12 @@ import torch
 from torch import nn
 
 from ..config import Config
-from .hdn import HumanDetectionNet
-from .jln import JointLocalizationNet
-from .projection import make_projection_geometry
+from .hdn import HDNOutputs, HumanDetectionNet
+from .jln import JLNOutputs, JointLocalizationNet
+from .projection import make_projection_geometry, resolve_crop_route
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 class ModelOutputs(NamedTuple):
@@ -25,6 +26,16 @@ class ModelOutputs(NamedTuple):
     plane_poses: torch.Tensor  # (3, B, K, J, 2)
     proposal_centers: torch.Tensor  # (B, K, 7)
     losses: Optional[Dict[str, torch.Tensor]]
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of values where mask (broadcastable) is true; 0 when the mask
+    is empty (reference early return when no proposal is valid,
+    faster_voxelpose.py:70-78)."""
+    mask = torch.broadcast_to(mask, values.shape).to(values.dtype)
+    total = torch.sum(values * mask)
+    count = torch.sum(mask)
+    return torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
 
 
 class FasterVoxelPoseNet(nn.Module):
@@ -42,25 +53,88 @@ class FasterVoxelPoseNet(nn.Module):
             self.geom, K, cfg.NETWORK.BETA, J,
             cfg.NETWORK.NUM_CHANNEL_JOINT_FEAT,
             cfg.NETWORK.NUM_CHANNEL_JOINT_HIDDEN,
-            dtype=dtype, width=width,
+            dtype=dtype, width=width, crop_route=resolve_crop_route(cfg),
         )
 
-    def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor) -> ModelOutputs:
-        """heatmaps (B, V, H, W, J) float32, cams (B, V, 21) float32."""
+    def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor,
+                targets: Optional[Dict[str, torch.Tensor]] = None,
+                meta: Optional[Dict[str, torch.Tensor]] = None,
+                train: bool = False) -> ModelOutputs:
+        """heatmaps (B, V, H, W, J) float32, cams (B, V, 21) float32.
+
+        In train mode, meta ('roots_3d', 'bbox', 'num_person', 'joints_3d',
+        'joints_3d_vis') matches the proposals to the ground truth and,
+        with targets ('2d_heatmaps', '1d_heatmaps', 'index', 'bbox',
+        'mask'), the losses are returned in `losses`."""
         J = self.cfg.DATASET.NUM_JOINTS
         heatmaps, cams = heatmaps.float(), cams.float()
-        hdn = self.hdn(heatmaps, cams)
+        gt = meta if (train and meta) else {}
+        hdn = self.hdn(heatmaps, cams, train, gt.get("roots_3d"), gt.get("bbox"),
+                       gt.get("num_person"))
         mask = hdn.proposal_centers[:, :, 3] >= 0
-        jln = self.jln(heatmaps, cams, hdn.proposal_centers)
+        jln = self.jln(heatmaps, cams, hdn.proposal_centers, train)
 
         # eval-time confidence refresh (reference
         # joint_localization_net.py:98)
         pc = hdn.proposal_centers.clone()
         pc[:, :, 4] = torch.where(mask, jln.confidences, pc[:, :, 4])
+        losses = None
+        if train and targets is not None:
+            losses = self._losses(hdn, jln, mask, targets, meta)
         flag_score = pc[:, :, None, 3:5].expand(-1, -1, J, -1)
         fused5 = torch.cat([jln.fused_poses, flag_score], dim=-1)
-        return ModelOutputs(fused5, jln.plane_poses, pc, None)
+        return ModelOutputs(fused5, jln.plane_poses, pc, losses)
+
+    def _losses(self, hdn: HDNOutputs, jln: JLNOutputs, mask: torch.Tensor,
+                targets: Dict[str, torch.Tensor], meta: Dict[str, torch.Tensor]):
+        """Training losses (reference faster_voxelpose.py:51-98, JAX
+        package models/faster_voxelpose.py:239-300)."""
+        tr = self.cfg.TRAIN
+        J = self.cfg.DATASET.NUM_JOINTS
+        p2g = hdn.proposal_centers[:, :, 3].clamp(min=0.0).long()  # (B, K)
+
+        # BEV center-heatmap MSE over the full map
+        loss_2d = tr.LAMBDA_LOSS_2D * torch.mean((hdn.heatmaps_2d - targets["2d_heatmaps"]) ** 2)
+
+        # 1D height MSE on matched proposals only
+        t1d = targets["1d_heatmaps"]
+        matched_1d = torch.gather(t1d, 1, p2g[..., None].expand(-1, -1, t1d.shape[-1]))
+        sq = (hdn.heatmaps_1d - matched_1d) ** 2
+        loss_1d = tr.LAMBDA_LOSS_1D * masked_mean(sq, mask[..., None])
+
+        # bbox-size L1 supervised at GT center positions
+        gt_index = targets["index"].long()  # (B, Kgt)
+        bbox_at_gt = torch.gather(hdn.bbox_maps, 1, gt_index[..., None].expand(-1, -1, 2))
+        l1 = torch.abs(bbox_at_gt - targets["bbox"])
+        loss_bbox = tr.LAMBDA_LOSS_BBOX * masked_mean(l1, targets["mask"][..., None])
+
+        # visibility-masked joint L1 per plane + weighted fused term
+        gt_joints = meta["joints_3d"].float()  # (B, Kgt, J, 3)
+        gt_vis = meta["joints_3d_vis"].float()  # (B, Kgt, J)
+        jsel = torch.gather(gt_joints, 1, p2g[:, :, None, None].expand(-1, -1, J, 3))
+        vis = torch.gather(gt_vis, 1, p2g[:, :, None].expand(-1, -1, J))[..., None]
+        mkj = mask[:, :, None, None]
+
+        def plane_l1(pred, gt2):
+            return masked_mean(torch.abs(pred * vis - gt2 * vis), mkj)
+
+        loss_joint = (
+            plane_l1(jln.plane_poses[0], jsel[..., [0, 1]])
+            + plane_l1(jln.plane_poses[1], jsel[..., [0, 2]])
+            + plane_l1(jln.plane_poses[2], jsel[..., [1, 2]])
+            + tr.LAMBDA_LOSS_FUSED
+            * masked_mean(torch.abs(jln.fused_poses * vis - jsel * vis), mkj)
+        )
+        loss_joint = torch.where(mask.any(), loss_joint, torch.zeros_like(loss_joint))
+        return {
+            "2d_heatmaps": loss_2d,
+            "1d_heatmaps": loss_1d,
+            "bbox": loss_bbox,
+            "joint": loss_joint,
+            "total": loss_2d + loss_1d + loss_bbox + loss_joint,
+        }
 
 
 def build_model(cfg: Config) -> FasterVoxelPoseNet:
+    """The model in eval mode, for serving; training passes train=True."""
     return FasterVoxelPoseNet(cfg).eval()

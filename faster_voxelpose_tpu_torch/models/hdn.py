@@ -1,15 +1,13 @@
-"""Human Detection Network, inference: whole-space cube -> per-person 3D
-center proposals with confidences and bbox sizes (counterpart of
-`faster_voxelpose_tpu/models/hdn.py:80-154`, reference
-human_detection_net.py:67-104).
-
-Training-time GT matching (`match_proposals_to_gt`) belongs to the
-training slice and is not ported yet.
+"""Human Detection Network: whole-space cube -> per-person 3D center
+proposals with confidences and bbox sizes (counterpart of
+`faster_voxelpose_tpu/models/hdn.py`, reference
+human_detection_net.py:25-104).  In train mode each proposal is matched
+to its nearest ground-truth root instead of thresholded by score.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,6 +23,33 @@ class HDNOutputs(NamedTuple):
     bbox_maps: torch.Tensor  # (B, X*Y, 2) dense bbox-size regression
     proposal_centers: torch.Tensor  # (B, K, 7)
     feature_cubes: torch.Tensor  # (B, X, Y, Z, J) whole-space volume
+
+
+def match_proposals_to_gt(
+    centers_mm: torch.Tensor,  # (B, K, 3) proposal world centers
+    bbox_preds: torch.Tensor,  # (B, K, 2)
+    gt_roots: torch.Tensor,  # (B, Kgt, 3)
+    gt_bbox: torch.Tensor,  # (B, Kgt, 2)
+    num_person: torch.Tensor,  # (B,)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-time matching: each proposal gets the index of its
+    nearest valid GT root, or -1 beyond 500 mm; a matched bbox prediction
+    that underestimates the GT bbox by more than 0.1 on either axis is
+    replaced by the GT bbox (reference filter_proposal,
+    human_detection_net.py:25-42).  Returns (proposal2gt (B, K) float,
+    bbox (B, K, 2))."""
+    Kgt = gt_roots.shape[1]
+    arange = torch.arange(Kgt, device=gt_roots.device)
+    gt_valid = arange[None, :] < num_person.reshape(-1, 1)  # (B, Kgt)
+    diff = centers_mm[:, :, None, :] - gt_roots[:, None, :, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1))  # (B, K, Kgt)
+    dist = torch.where(gt_valid[:, None, :], dist, torch.full_like(dist, float("inf")))
+    min_dist, min_gt = dist.min(dim=-1)  # the first minimum, as jnp.argmin
+    proposal2gt = torch.where(min_dist > 500.0, torch.full_like(min_dist, -1.0), min_gt.float())
+    matched = torch.gather(gt_bbox, 1, min_gt[..., None].expand(-1, -1, 2))
+    underestimates = (bbox_preds < matched - 0.1).any(dim=-1)
+    replace = (proposal2gt >= 0) & underestimates
+    return proposal2gt, torch.where(replace[..., None], matched, bbox_preds)
 
 
 class HumanDetectionNet(nn.Module):
@@ -43,8 +68,13 @@ class HumanDetectionNet(nn.Module):
         self.register_buffer("vox_scale", space / (voxn - 1), persistent=False)
         self.register_buffer("vox_bias", center - space / 2.0, persistent=False)
 
-    def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor) -> HDNOutputs:
-        """heatmaps (B, V, H, W, J), cams (B, V, 21)."""
+    def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor, train: bool = False,
+                gt_roots: Optional[torch.Tensor] = None,
+                gt_bbox: Optional[torch.Tensor] = None,
+                num_person: Optional[torch.Tensor] = None) -> HDNOutputs:
+        """heatmaps (B, V, H, W, J), cams (B, V, 21); in train mode with
+        gt_roots (B, Kgt, 3), gt_bbox (B, Kgt, 2) and num_person (B,) the
+        proposals are matched to the ground truth."""
         B, K = cams.shape[0], self.max_people
         vx, vy, vz = self.geom.voxels_per_axis
         cubes = torch.stack([
@@ -52,9 +82,10 @@ class HumanDetectionNet(nn.Module):
             for b in range(B)
         ])  # (B, X, Y, Z, J)
 
-        hm, size = self.center_net(cubes)
+        hm, size = self.center_net(cubes, train)
         hm2d = hm[:, 0]
-        confs2d, idx2d, flat2d = nms2d_topk(hm2d, K)
+        # proposal selection carries no gradient (human_detection_net.py:85)
+        confs2d, idx2d, flat2d = nms2d_topk(hm2d.detach(), K)
 
         bbox_flat = size.permute(0, 2, 3, 1).reshape(B, vx * vy, 2)
         match_bbox = torch.gather(bbox_flat, 1, flat2d[..., None].expand(-1, -1, 2))
@@ -62,15 +93,21 @@ class HumanDetectionNet(nn.Module):
         # per-proposal z-columns (B, K, Z, J) -> C2CNet over (B*K, J, Z)
         cube_flat = cubes.reshape(B, vx * vy, vz, -1)
         cols = cube_flat[torch.arange(B, device=cubes.device)[:, None], flat2d]
-        hm1d = self.c2c_net(cols.reshape(B * K, vz, -1).transpose(1, 2)).reshape(B, K, vz)
+        hm1d = self.c2c_net(cols.reshape(B * K, vz, -1).transpose(1, 2), train).reshape(B, K, vz)
 
-        conf1d = hm1d.amax(dim=-1)
-        idx1d = hm1d.argmax(dim=-1)  # first maximum, as jnp.argmax
+        hm1d_d = hm1d.detach()
+        conf1d = hm1d_d.amax(dim=-1)
+        idx1d = hm1d_d.argmax(dim=-1)  # first maximum, as jnp.argmax
 
         voxel_idx = torch.cat([idx2d, idx1d[..., None]], dim=-1)
         centers_mm = voxel_idx.float() * self.vox_scale + self.vox_bias
         confs = confs2d * conf1d
-        proposal2gt = (confs > self.min_score).float() - 1.0
+        if train and gt_roots is not None:
+            proposal2gt, match_bbox = match_proposals_to_gt(
+                centers_mm, match_bbox, gt_roots, gt_bbox, num_person
+            )
+        else:
+            proposal2gt = (confs > self.min_score).float() - 1.0
         proposal_centers = torch.cat(
             [centers_mm, proposal2gt[..., None], confs[..., None], match_bbox], dim=-1
         )

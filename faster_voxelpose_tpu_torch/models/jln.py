@@ -2,7 +2,9 @@
 -> P2PNet -> soft-argmax -> learned per-joint plane fusion (counterpart
 of `faster_voxelpose_tpu/models/jln.py`, reference
 joint_localization_net.py:36-100).  Invalid proposal slots are skipped
-by the crop kernel and their outputs multiplied to zero.
+by the crop kernel and their outputs multiplied to zero.  In train mode
+their zero planes enter P2PNet's batch statistics, as in the JAX
+package (models/projection.py:299-304).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from torch import nn
 from ..ops.soft_argmax import soft_argmax
 from .cnns import P2PNet, WeightNet
 from .projection import (
+    DEFAULT_CROP_ROUTE,
+    CropRoute,
     ProjectionGeometry,
     compute_crop_origin,
     project_individual_planes,
@@ -48,9 +52,10 @@ class JointLocalizationNet(nn.Module):
     def __init__(self, geom: ProjectionGeometry, max_people: int, beta: float,
                  num_joints: int, weight_feat_channels: int = 32,
                  weight_hidden_channels: int = 64, dtype=torch.float32,
-                 width: float = 1.0):
+                 width: float = 1.0, crop_route: CropRoute = DEFAULT_CROP_ROUTE):
         super().__init__()
         self.geom, self.max_people, self.beta = geom, max_people, beta
+        self.crop_route = crop_route
         self.num_joints = num_joints
         self.p2p_net = P2PNet(num_joints, num_joints, dtype=dtype, width=width)
         self.weight_net = WeightNet(
@@ -61,8 +66,9 @@ class JointLocalizationNet(nn.Module):
         )
 
     def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor,
-                proposal_centers: torch.Tensor) -> JLNOutputs:
+                proposal_centers: torch.Tensor, train: bool = False) -> JLNOutputs:
         geom = self.geom
+        proposal_centers = proposal_centers.detach()
         B, K, J = cams.shape[0], self.max_people, self.num_joints
         vx, vy, vz = geom.ind_voxels_per_axis
         n = B * K
@@ -72,7 +78,8 @@ class JointLocalizationNet(nn.Module):
 
         per_sample = [
             project_individual_planes(
-                geom, heatmaps[b], cams[b], centers_tl[b], bbox_sizes[b], mask[b]
+                geom, heatmaps[b], cams[b], centers_tl[b], bbox_sizes[b], mask[b],
+                self.crop_route,
             )
             for b in range(B)
         ]
@@ -81,7 +88,7 @@ class JointLocalizationNet(nn.Module):
         plane_yz = torch.cat([p[2] for p in per_sample]).reshape(n, vy, vz, J)
         planes = torch.cat([plane_xy, plane_xz, plane_yz]).permute(0, 3, 1, 2)
 
-        feats = self.p2p_net(planes)  # (3n, J, X, Y)
+        feats = self.p2p_net(planes, train)  # (3n, J, X, Y)
         plane_poses, confs = soft_argmax(
             feats.reshape(3, n, J, -1), self.center_grids, self.beta
         )  # (3, n, J, 2), (n,)
@@ -91,7 +98,7 @@ class JointLocalizationNet(nn.Module):
             [off[..., [0, 1]], off[..., [0, 2]], off[..., [1, 2]]]
         )
 
-        weights = self.weight_net(feats).reshape(3, n, J, 1)
+        weights = self.weight_net(feats, train).reshape(3, n, J, 1)
         fused = fuse_plane_poses(plane_poses, weights)
 
         m = mask.reshape(n, 1, 1).float()

@@ -4,9 +4,13 @@
 Whole-space stage: the static world grid is projected into every view on
 the device and sampled by the `sample_whole` kernel into the (X, Y, Z, J)
 cube.  Per-person stage: each proposal's 64^3 crop is rebuilt from its
-integer origin on the virtual fine grid and projected, sampled, masked
-and max-projected onto three planes inside the `sample_crop_planes`
-kernel, so no crop cube is ever stored.
+integer origin on the virtual fine grid, projected, sampled, masked and
+max-projected onto three planes.  The config keys that choose how the
+JAX package's crop kernel computes that (`resolve_crop_route`) choose
+one of four routes here: by default the `sample_crop_planes` kernel
+projects in the kernel and stores no crop cube; the other routes read
+coords computed by PyTorch and/or store the masked cube and take its
+planes by max-reduction, as the JAX package does on those settings.
 """
 
 from __future__ import annotations
@@ -24,7 +28,17 @@ from ..geometry.grids import (
     project_to_norm_coords,
 )
 from ..geometry.transforms import get_resize_transform
-from ..ops.sampling_kernels import CropProjection, sample_crop_planes, sample_whole
+from ..ops.sampling_kernels import (
+    CropProjection,
+    crop_pixels,
+    sample_crop_cube,
+    sample_crop_planes,
+    sample_crop_planes_coords,
+    sample_whole,
+)
+
+CropRoute = Tuple[str, str]  # (coords source, output)
+DEFAULT_CROP_ROUTE: CropRoute = ("project", "planes")
 
 
 class ProjectionGeometry(NamedTuple):
@@ -168,6 +182,69 @@ def crop_axis_masks(
     return masks[0], masks[1], masks[2]
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def resolve_crop_route(cfg: Config) -> CropRoute:
+    """How the crop stage runs under the config's sampling keys:
+    (coords source, output) with source "project" (pixels projected in
+    the kernel) or "coords" (pixels computed by PyTorch, read by the
+    kernel) and output "planes" (max planes in the kernel) or "cube" (the
+    masked cube, planes by max-reduction).
+
+    The rules copy the JAX package's `resolve_sampling_spec`
+    (models/faster_voxelpose.py:55-82) and the planes test of
+    `project_individual_planes_pallas` (models/projection.py:518-519):
+    coords when PALLAS_FUSED_COORDS is false, a tile dim is not a power of
+    two, or the heatmap fits one kernel window; cube when a tile dim is
+    not a power of two or a tile's voxel count is not a multiple of 128.
+
+    Where the JAX package takes its quad path instead of the kernel
+    (SAMPLING_BACKEND "quad", a tile that does not divide the crop, a
+    heatmap group past the kernel's memory), the port keeps the default
+    route: the quad path computes the same function.  The JAX package
+    also takes the quad path on any backend but a TPU; the port answers
+    as it would on a TPU, so a config selects the same mode on both.  On
+    the card every route runs a kernel; the plain versions run only for
+    tensors on the CPU.
+
+    The window arithmetic (PALLAS_WINDOW, rows rounded to 8 or 16 by
+    PALLAS_EXACT, the 12 MiB fit and the bf16 item size) is the TPU
+    kernel's VMEM tiling, copied only so that a config picks the same mode
+    here: it describes nothing of the card.  All four modes give the same
+    planes on the card, and the default route serves fastest of them
+    (`chip_smoke.py`'s route phase, PERF.md)."""
+    n = cfg.NETWORK
+    if n.SAMPLING_BACKEND == "quad":
+        return DEFAULT_CROP_ROUTE
+    tile = tuple(int(t) for t in n.PALLAS_TILE)
+    exact = bool(n.PALLAS_EXACT)
+    sub = 8 if exact else 16  # row granularity of the packed heatmaps
+    W, H = cfg.DATASET.HEATMAP_SIZE
+    hp, wp = _round_up(H, sub), _round_up(W, 8)
+    itemsize = 4 if exact else 2
+    fits = (
+        cfg.DATASET.CAMERA_NUM * hp * wp * 16 * itemsize <= 12 * 2**20
+        and all(v % t == 0 for v, t in zip(cfg.INDIVIDUAL_SPEC.VOXELS_PER_AXIS, tile))
+    )
+    if not fits:
+        if n.SAMPLING_BACKEND == "pallas":
+            raise ValueError(
+                "SAMPLING_BACKEND 'pallas' requested but the profile does not fit "
+                f"the kernel (heatmap {W}x{H}, tile {tile})"
+            )
+        return DEFAULT_CROP_ROUTE
+    xw = min(int(n.PALLAS_WINDOW[0]), wp)
+    yw = min(_round_up(int(n.PALLAS_WINDOW[1]), sub), hp)
+    one_window = -(-wp // xw) == 1 and -(-hp // yw) == 1
+    pow2 = not any(d & (d - 1) for d in tile)
+    source = "project" if n.PALLAS_FUSED_COORDS and pow2 and not one_window else "coords"
+    samples = tile[0] * tile[1] * tile[2]
+    output = "planes" if pow2 and samples % 128 == 0 else "cube"
+    return source, output
+
+
 def project_individual_planes(
     geom: ProjectionGeometry,
     heatmaps: torch.Tensor,  # (V, H, W, J)
@@ -175,15 +252,26 @@ def project_individual_planes(
     centers_tl: torch.Tensor,  # (K, 3) int32
     bbox_sizes: torch.Tensor,  # (K, 2)
     valid: torch.Tensor,  # (K,) bool; invalid slots give zero planes
+    route: CropRoute = DEFAULT_CROP_ROUTE,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-person plane projections (xy (K,X,Y,J), xz (K,X,Z,J),
     yz (K,Y,Z,J)) of the bbox-masked crop cubes
-    (joint_localization_net.py:80-81)."""
-    mx, my, mz = crop_axis_masks(geom, centers_tl, bbox_sizes)
-    u8 = torch.uint8
-    return sample_crop_planes(
-        heatmaps.contiguous(), cams.float().contiguous(),
-        centers_tl.to(torch.int32).contiguous(),
-        mx.to(u8), my.to(u8), mz.to(u8), valid.to(u8).contiguous(),
-        crop_projection(geom),
-    )
+    (joint_localization_net.py:80-81), by the crop route of
+    `resolve_crop_route`."""
+    source, output = route
+    mx, my, mz = (m.to(torch.uint8) for m in crop_axis_masks(geom, centers_tl, bbox_sizes))
+    heatmaps, valid = heatmaps.contiguous(), valid.to(torch.uint8).contiguous()
+    cams, tl = cams.float().contiguous(), centers_tl.to(torch.int32).contiguous()
+    crop = crop_projection(geom)
+    if source == "coords":
+        pix = crop_pixels(crop, cams, tl, geom.ind_voxels_per_axis)
+        if output == "planes":
+            return sample_crop_planes_coords(heatmaps, pix, mx, my, mz, valid)
+        cube = sample_crop_cube(heatmaps, mx, my, mz, valid, pix=pix)
+    elif output == "planes":
+        return sample_crop_planes(heatmaps, cams, tl, mx, my, mz, valid, crop)
+    else:
+        cube = sample_crop_cube(heatmaps, mx, my, mz, valid, cams=cams, centers_tl=tl,
+                                crop=crop)
+    # (K, X, Y, Z, J) -> max over z, y, x (models/projection.py:560-570)
+    return cube.amax(3), cube.amax(2), cube.amax(1)

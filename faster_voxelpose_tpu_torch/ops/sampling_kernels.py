@@ -40,13 +40,43 @@ sample_crop_planes
     voxels are skipped.  The projection rounds after every operation,
     as the plain version does: near a camera an FMA's missing rounding
     moves a sample by more than the 1e-5 tolerance.
+
+sample_crop_planes_coords
+    Replaces `sample_tiles(..., emit_planes=True, valid, mask)` on
+    precomputed coords (ops/pallas_sampling.py:947, reached from
+    project_individual_planes_pallas, models/projection.py:485-505 and
+    :532-535, when PALLAS_FUSED_COORDS is false, a tile dim is not a
+    power of two, or the heatmap fits one window).  sample_crop_planes
+    with the pixels read from a (K, V, N, 2) coords tensor that PyTorch
+    computed (`crop_pixels`) instead of projected in the kernel.  Bound
+    on an H100: the coords of the live voxels (8 B per voxel and view)
+    and the planes against the same gathers' operations, counted by
+    `chip_smoke.py` from the masks.  Design: the same device code as
+    sample_crop_planes (one template); dead slots, masked slabs and masked
+    voxels read no coords.
+
+sample_crop_cube
+    Replaces the masked cube mode of `sample_tiles` / `sample_tiles_fused`
+    (ops/pallas_sampling.py:947 / :1010), which the JAX package takes when
+    a tile dim is not a power of two or a tile's voxel count is not a
+    multiple of 128 (models/projection.py:547-571): the bbox-masked crop
+    cube (K, vx, vy, vz, J), from in-kernel projection or from coords,
+    whose planes the caller takes by max-reduction.  Bound on an H100:
+    bytes; it must write the whole cube (157 MB at K = 10, about 47 us),
+    plus the coords when it reads them.  Design: the same template, with
+    every cube element written once (zeros for dead slots and masked
+    voxels), so the output needs no zero fill.
+
+Every kernel here is forward only: no gradient reaches the samplers in
+training (the heatmaps are data, the proposals are detached), and each
+wrapper raises on an input that requires grad rather than detach it.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +84,12 @@ import torch
 from ..geometry.grids import norm_to_pixel, project_to_norm_coords, reciprocal_f32
 from .sampling import sample_and_mean_views
 
-LAUNCHES: Dict[str, int] = {"sample_whole": 0, "sample_crop_planes": 0}
+LAUNCHES: Dict[str, int] = {
+    "sample_whole": 0,
+    "sample_crop_planes": 0,
+    "sample_crop_planes_coords": 0,
+    "sample_crop_cube": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -105,13 +140,33 @@ def sample_whole_plain(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tenso
 def crop_world_points(
     crop: CropProjection, tl: torch.Tensor, voxels: Tuple[int, int, int]
 ) -> torch.Tensor:
-    """World coords (vx*vy*vz, 3) of one crop with fine-grid origin tl (3,)."""
+    """World coords (..., vx*vy*vz, 3) of crops with fine-grid origins
+    tl (..., 3), voxels in (x, y, z) order."""
+    lead = tuple(tl.shape[:-1])
     axes = []
     for a in range(3):
-        idx = tl[a] + torch.arange(voxels[a], device=tl.device, dtype=tl.dtype)
-        axes.append(crop.origin[a] + idx.float() * crop.step[a])
-    gx, gy, gz = torch.meshgrid(*axes, indexing="ij")
-    return torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+        idx = tl[..., a, None] + torch.arange(voxels[a], device=tl.device, dtype=tl.dtype)
+        axes.append(crop.origin[a] + idx.float() * crop.step[a])  # (..., v_a)
+    full = lead + tuple(voxels)
+    gx = axes[0][..., :, None, None].expand(full)
+    gy = axes[1][..., None, :, None].expand(full)
+    gz = axes[2][..., None, None, :].expand(full)
+    return torch.stack([gx, gy, gz], dim=-1).reshape(lead + (-1, 3))
+
+
+def crop_pixels(
+    crop: CropProjection, cams: torch.Tensor, centers_tl: torch.Tensor,
+    voxels: Tuple[int, int, int],
+) -> torch.Tensor:
+    """Heatmap pixel coords (K, V, vx*vy*vz, 2) of every crop voxel in
+    every view, as the JAX package's `person_coords` computes them
+    (models/projection.py:487-505): one tensor for all K slots."""
+    pts = crop_world_points(crop, centers_tl, voxels)  # (K, N, 3)
+    norm = project_to_norm_coords(
+        pts[:, None], cams, np.asarray(crop.resize_transform).reshape(2, 3),
+        crop.ori_image_size, crop.image_size, crop.heatmap_size,
+    )
+    return norm_to_pixel(norm, crop.heatmap_size).contiguous()
 
 
 def sample_crop_planes_plain(
@@ -123,30 +178,66 @@ def sample_crop_planes_plain(
     mz: torch.Tensor,
     valid: torch.Tensor,
     crop: CropProjection,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per slot: project the crop, sample every view, mean, clamp, mask
-    and max-project.  One slot's cube is live at a time; invalid slots
-    give zero planes.  Returns (K, vx, vy, J), (K, vx, vz, J), (K, vy, vz, J)."""
-    K, vx, vy, vz = centers_tl.shape[0], mx.shape[1], my.shape[1], mz.shape[1]
+    *,
+    cube: bool = False,
+):
+    """The crop sampler with each slot's pixels projected from cams,
+    centers_tl and crop: the plain version of sample_crop_planes, and
+    with `cube` of sample_crop_cube's projecting mode."""
+    voxels = (mx.shape[1], my.shape[1], mz.shape[1])
+    resize = np.asarray(crop.resize_transform).reshape(2, 3)
+
+    def slot_pixels(k: int) -> torch.Tensor:
+        pts = crop_world_points(crop, centers_tl[k], voxels)
+        norm = project_to_norm_coords(pts, cams, resize, crop.ori_image_size,
+                                      crop.image_size, crop.heatmap_size)
+        return norm_to_pixel(norm, crop.heatmap_size)
+
+    return _crop_plain(heatmaps, slot_pixels, mx, my, mz, valid, cube=cube)
+
+
+def sample_crop_coords_plain(
+    heatmaps: torch.Tensor,
+    pix: torch.Tensor,
+    mx: torch.Tensor,
+    my: torch.Tensor,
+    mz: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    cube: bool = False,
+):
+    """The crop sampler with the pixels read from pix (K, V, N, 2): the
+    plain version of sample_crop_planes_coords, and with `cube` of
+    sample_crop_cube's coords mode."""
+    return _crop_plain(heatmaps, lambda k: pix[k], mx, my, mz, valid, cube=cube)
+
+
+def _crop_plain(heatmaps, slot_pixels, mx, my, mz, valid, *, cube):
+    """Per valid slot: its pixels (V, N, 2) from slot_pixels(k), sample
+    every view, mean, clamp, mask; then max-project, or with `cube` keep
+    the masked cube.  One slot's cube is live at a time unless `cube`;
+    invalid slots give zeros.  Returns (K, vx, vy, J), (K, vx, vz, J),
+    (K, vy, vz, J), or the cube (K, vx, vy, vz, J)."""
+    K, vx, vy, vz = mx.shape[0], mx.shape[1], my.shape[1], mz.shape[1]
     J = heatmaps.shape[-1]
     kw = dict(dtype=torch.float32, device=heatmaps.device)
-    pxy, pxz, pyz = (torch.zeros((K, a, b, J), **kw)
-                     for a, b in ((vx, vy), (vx, vz), (vy, vz)))
+    if cube:
+        out = torch.zeros((K, vx, vy, vz, J), **kw)
+    else:
+        pxy, pxz, pyz = (torch.zeros((K, a, b, J), **kw)
+                         for a, b in ((vx, vy), (vx, vz), (vy, vz)))
     for k in range(K):
         if not bool(valid[k]):
             continue
-        pts = crop_world_points(crop, centers_tl[k], (vx, vy, vz))
-        norm = project_to_norm_coords(
-            pts, cams, np.asarray(crop.resize_transform).reshape(2, 3),
-            crop.ori_image_size, crop.image_size, crop.heatmap_size,
-        )
-        pix = norm_to_pixel(norm, crop.heatmap_size)
-        cube = sample_and_mean_views(heatmaps, pix).reshape(vx, vy, vz, J)
+        c = sample_and_mean_views(heatmaps, slot_pixels(k)).reshape(vx, vy, vz, J)
         m = (mx[k].bool()[:, None, None] & my[k].bool()[None, :, None]
              & mz[k].bool()[None, None, :])
-        cube = cube * m[..., None].float()
-        pxy[k], pxz[k], pyz[k] = cube.amax(2), cube.amax(1), cube.amax(0)
-    return pxy, pxz, pyz
+        c = c * m[..., None].float()
+        if cube:
+            out[k] = c
+        else:
+            pxy[k], pxz[k], pyz[k] = c.amax(2), c.amax(1), c.amax(0)
+    return out if cube else (pxy, pxz, pyz)
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +255,18 @@ def _lib():
     if not getattr(lib, "_fvp_typed", False):
         lib.fvp_sample_whole.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.fvp_sample_whole.restype = _I
-        lib.fvp_sample_crop_planes.argtypes = (
-            [_P] * 11 + [_I] * 8 + [_P]
-        )
-        lib.fvp_sample_crop_planes.restype = _I
+        lib.fvp_sample_crop.argtypes = [_P] * 13 + [_I] * 10 + [_P]
+        lib.fvp_sample_crop.restype = _I
         lib._fvp_typed = True
     return lib
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (plain version), False for tensors on one CUDA
+    device (kernel); raises on a mix and on an input that requires grad,
+    since the kernels have no backward."""
+    if any(t.requires_grad for t in tensors):
+        raise ValueError("the sampling kernels are forward only: an input requires grad")
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
@@ -199,6 +293,10 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def sample_whole(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
     """heatmaps (V, H, W, J) f32, pix (V, N, 2) f32 -> (N, J) f32."""
     if _on_cpu(heatmaps, pix):
@@ -219,6 +317,47 @@ def sample_whole(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_crop(name, heatmaps, mx, my, mz, valid, *, cams=None, centers_tl=None,
+                 crop=None, pix=None, cube=False):
+    """Check the inputs of one crop-sampler mode, allocate its outputs and
+    launch fvp_sample_crop; pixels come from pix when given, else from
+    cams, centers_tl and crop."""
+    V, H, W, J = heatmaps.shape
+    K, vx, vy, vz = mx.shape[0], mx.shape[1], my.shape[1], mz.shape[1]
+    _check(heatmaps, "heatmaps", torch.float32, (V, H, W, J))
+    for t, tname, n in ((mx, "mx", vx), (my, "my", vy), (mz, "mz", vz)):
+        _check(t, tname, torch.uint8, (K, n))
+    _check(valid, "valid", torch.uint8, (K,))
+    if pix is None:
+        _check(cams, "cams", torch.float32, (V, 21))
+        _check(centers_tl, "centers_tl", torch.int32, (K, 3))
+        consts = crop.consts()
+    else:
+        _check(pix, "pix", torch.float32, (K, V, vx * vy * vz, 2))
+        consts = np.zeros(21, np.float32)
+    if not 0 < J <= 32:
+        raise ValueError(f"{name} takes 1..32 joints, got {J}")
+    if 4 * (V * 21 + (0 if cube else (vy + vz) * J)) > 48 * 1024:
+        raise ValueError(f"{name}: planes exceed the kernel's 48 KB of shared memory")
+    kw = dict(dtype=torch.float32, device=heatmaps.device)
+    if cube:
+        out = (torch.empty((K, vx, vy, vz, J), **kw),)
+        planes = (None, None, None)
+    else:
+        out = planes = tuple(torch.zeros((K, a, b, J), **kw)
+                             for a, b in ((vx, vy), (vx, vz), (vy, vz)))
+    err = _lib().fvp_sample_crop(
+        heatmaps.data_ptr(), _ptr(cams), _ptr(centers_tl), _ptr(pix),
+        mx.data_ptr(), my.data_ptr(), mz.data_ptr(), valid.data_ptr(),
+        consts.ctypes.data, *(_ptr(p) for p in planes), _ptr(out[0]) if cube else None,
+        V, H, W, J, K, vx, vy, vz, int(pix is not None), int(cube),
+        _stream(heatmaps.device),
+    )
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out[0] if cube else out
+
+
 def sample_crop_planes(
     heatmaps: torch.Tensor,
     cams: torch.Tensor,
@@ -235,29 +374,47 @@ def sample_crop_planes(
     args = (heatmaps, cams, centers_tl, mx, my, mz, valid)
     if _on_cpu(*args):
         return sample_crop_planes_plain(*args, crop)
-    V, H, W, J = heatmaps.shape
-    K, vx, vy, vz = centers_tl.shape[0], mx.shape[1], my.shape[1], mz.shape[1]
-    _check(heatmaps, "heatmaps", torch.float32, (V, H, W, J))
-    _check(cams, "cams", torch.float32, (V, 21))
-    _check(centers_tl, "centers_tl", torch.int32, (K, 3))
-    for t, name, n in ((mx, "mx", vx), (my, "my", vy), (mz, "mz", vz)):
-        _check(t, name, torch.uint8, (K, n))
-    _check(valid, "valid", torch.uint8, (K,))
-    if not 0 < J <= 32:
-        raise ValueError(f"sample_crop_planes takes 1..32 joints, got {J}")
-    if 4 * (V * 21 + (vy + vz) * J) > 48 * 1024:
-        raise ValueError("crop planes exceed the kernel's 48 KB of shared memory")
-    kw = dict(dtype=torch.float32, device=heatmaps.device)
-    pxy = torch.zeros((K, vx, vy, J), **kw)
-    pxz = torch.zeros((K, vx, vz, J), **kw)
-    pyz = torch.zeros((K, vy, vz, J), **kw)
-    consts = crop.consts()
-    err = _lib().fvp_sample_crop_planes(
-        heatmaps.data_ptr(), cams.data_ptr(), centers_tl.data_ptr(),
-        mx.data_ptr(), my.data_ptr(), mz.data_ptr(), valid.data_ptr(),
-        consts.ctypes.data, pxy.data_ptr(), pxz.data_ptr(), pyz.data_ptr(),
-        V, H, W, J, K, vx, vy, vz, _stream(heatmaps.device),
-    )
-    _raise_on(err, "sample_crop_planes")
-    LAUNCHES["sample_crop_planes"] += 1
-    return pxy, pxz, pyz
+    return _launch_crop("sample_crop_planes", heatmaps, mx, my, mz, valid,
+                        cams=cams, centers_tl=centers_tl, crop=crop)
+
+
+def sample_crop_planes_coords(
+    heatmaps: torch.Tensor,
+    pix: torch.Tensor,
+    mx: torch.Tensor,
+    my: torch.Tensor,
+    mz: torch.Tensor,
+    valid: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """sample_crop_planes with the pixels given: pix (K, V, vx*vy*vz, 2)
+    f32 heatmap pixel coords, voxels in (x, y, z) order."""
+    if _on_cpu(heatmaps, pix, mx, my, mz, valid):
+        return sample_crop_coords_plain(heatmaps, pix, mx, my, mz, valid)
+    return _launch_crop("sample_crop_planes_coords", heatmaps, mx, my, mz, valid, pix=pix)
+
+
+def sample_crop_cube(
+    heatmaps: torch.Tensor,
+    mx: torch.Tensor,
+    my: torch.Tensor,
+    mz: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    cams: Optional[torch.Tensor] = None,
+    centers_tl: Optional[torch.Tensor] = None,
+    crop: Optional[CropProjection] = None,
+    pix: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The bbox-masked crop cubes (K, vx, vy, vz, J) f32, zero for invalid
+    slots; pixels from pix (K, V, N, 2) when given, else projected from
+    cams (V, 21), centers_tl (K, 3) int32 and crop."""
+    if (pix is None) == (cams is None):
+        raise ValueError("sample_crop_cube takes either pix or cams, centers_tl and crop")
+    src = (pix,) if pix is not None else (cams, centers_tl)
+    if _on_cpu(heatmaps, mx, my, mz, valid, *src):
+        if pix is not None:
+            return sample_crop_coords_plain(heatmaps, pix, mx, my, mz, valid, cube=True)
+        return sample_crop_planes_plain(heatmaps, cams, centers_tl, mx, my, mz, valid, crop,
+                                        cube=True)
+    return _launch_crop("sample_crop_cube", heatmaps, mx, my, mz, valid, cams=cams,
+                        centers_tl=centers_tl, crop=crop, pix=pix, cube=True)

@@ -1,4 +1,4 @@
-"""Flax variables -> state dict of the port's modules.
+"""Flax variables <-> state dict of the port's modules.
 
 The JAX package's checkpoints (`checkpoints/*/model_best.npz`) hold its
 flax variables as path-keyed arrays, e.g.
@@ -10,6 +10,9 @@ names, so each path maps onto a state-dict key, with these layout changes:
   dense kernel   (I, O)                -> (O, I)
   BatchNorm      params scale / bias   -> weight / bias
                  batch_stats mean / var -> running_mean / running_var
+
+`to_jax_variables` inverts the mapping, so that weights trained by the
+port are served by either package.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def _convert(path: str, value: np.ndarray):
             w = w.T
         else:
             w = np.transpose(w, (rank + 1, rank, *spatial))
-    return ".".join(modules + [name]), torch.from_numpy(np.ascontiguousarray(w))
+    return ".".join(modules + [name]), torch.tensor(np.ascontiguousarray(w))
 
 
 def from_jax_variables(
@@ -86,3 +89,33 @@ def from_jax_variables(
                 f"({len(unused)}/{len(missing)}/{len(bad)})"
             )
     return sd
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """State dict of the port's model -> flat path-keyed flax variables,
+    float32 numpy, the inverse of `from_jax_variables` (the layout of the
+    JAX package's `model_best.npz`)."""
+    flat = {}
+    for key, t in state_dict.items():
+        *modules, name = key.split(".")
+        w = t.detach().cpu().float().numpy()
+        if name in ("running_mean", "running_var"):
+            path = ["batch_stats", *modules, name.split("_")[1]]
+        elif name == "bias":
+            path = ["params", *modules, "bias"]
+        elif name == "weight" and w.ndim == 1:  # BatchNorm scale
+            path = ["params", *modules, "scale"]
+        elif name == "weight":
+            path = ["params", *modules, "kernel"]
+            rank = w.ndim - 2
+            spatial = tuple(range(2, w.ndim))
+            if modules and modules[-1] == "deconv":
+                w = np.flip(np.transpose(w, (*spatial, 0, 1)), axis=tuple(range(rank)))
+            elif w.ndim == 2:
+                w = w.T
+            else:
+                w = np.transpose(w, (*spatial, 1, 0))
+        else:
+            raise ValueError(f"unrecognised state-dict key {key!r}")
+        flat["/".join(path)] = np.ascontiguousarray(w, dtype=np.float32)
+    return flat

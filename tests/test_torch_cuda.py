@@ -99,6 +99,65 @@ def test_kernels_match_plain(dev, profile):
     assert float(planes[0][2].abs().max()) == 0.0  # the dead slot
 
 
+@pytest.mark.parametrize("profile", ["tiny", "panoptic"])
+def test_coords_and_cube_modes_match_plain(dev, profile):
+    """Kernel rows 3 and 4: planes from coords, and the masked cube from
+    in-kernel projection and from coords, against their plain versions;
+    the cube's max planes equal the planes kernel's bit for bit."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg = _profiles()[profile]()
+    geom, rig, hm, centers, bbox, valid = _case(cfg, 2, K=cfg.CAPTURE_SPEC.MAX_PEOPLE)
+    hm_t, cams, tl, mx, my, mz, v, crop = _kernel_args(geom, rig, hm, centers, bbox, valid, dev)
+    masks = (mx, my, mz, v)
+    pix = sk.crop_pixels(crop, cams, tl, geom.ind_voxels_per_axis)
+    sk.reset_launch_counts()
+    planes_c = sk.sample_crop_planes_coords(hm_t, pix, *masks)
+    cube_p = sk.sample_crop_cube(hm_t, *masks, cams=cams, centers_tl=tl, crop=crop)
+    cube_c = sk.sample_crop_cube(hm_t, *masks, pix=pix)
+    assert sk.launch_counts()["sample_crop_planes_coords"] == 1
+    assert sk.launch_counts()["sample_crop_cube"] == 2
+    for a, b in zip(planes_c, sk.sample_crop_coords_plain(hm_t, pix, *masks)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cube_p, sk.sample_crop_planes_plain(hm_t, cams, tl, *masks, crop, cube=True),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(cube_c, sk.sample_crop_coords_plain(hm_t, pix, *masks, cube=True),
+                               atol=1e-5, rtol=0)
+    assert float(cube_p[2].abs().max()) == 0.0  # the dead slot
+    planes = sk.sample_crop_planes(hm_t, cams, tl, *masks, crop)
+    for a, b in zip((cube_p.amax(3), cube_p.amax(2), cube_p.amax(1)), planes):
+        assert torch.equal(a, b)
+
+
+def test_model_routes_agree_on_the_card(dev):
+    """The tiny model under the default, coords and cube routes: each
+    launches its own crop kernel once and the poses agree."""
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    outs = {}
+    for name, keys in (("sample_crop_planes", {}),
+                       ("sample_crop_planes_coords", {"PALLAS_FUSED_COORDS": False}),
+                       ("sample_crop_cube", {"PALLAS_TILE": (4, 4, 4)})):
+        cfg = tiny_cfg()
+        cfg.NETWORK.PALLAS_TILE, cfg.NETWORK.PALLAS_WINDOW = (8, 8, 8), (8, 16)
+        cfg.CAPTURE_SPEC.MIN_SCORE = -1e9
+        cfg.INDIVIDUAL_SPEC.SPACE_SIZE = (2100.0,) * 3
+        for k, val in keys.items():
+            setattr(cfg.NETWORK, k, val)
+        torch.manual_seed(0)
+        model = build_model(cfg).to(dev)
+        geom, rig, hm, *_ = _case(cfg, 1)
+        sk.reset_launch_counts()
+        with torch.no_grad():
+            outs[name] = model(torch.as_tensor(hm, device=dev)[None], torch.as_tensor(rig, device=dev)[None])
+        counts = sk.launch_counts()
+        assert counts[name] == 1 and sum(counts.values()) == 2, counts
+    ref = outs["sample_crop_planes"].fused_poses
+    for out in outs.values():
+        assert float((out.fused_poses - ref).abs().max()) <= 0.01
+
+
 def test_wrappers_check_and_count(dev):
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
@@ -140,6 +199,7 @@ def test_model_cuda_matches_cpu(dev):
         ref = model(hm_t, rig_t)
         sk.reset_launch_counts()
         out = model.to(dev)(hm_t.to(dev), rig_t.to(dev))
-    assert sk.launch_counts() == {"sample_whole": 1, "sample_crop_planes": 1}
+    assert sk.launch_counts() == {"sample_whole": 1, "sample_crop_planes": 1,
+                                  "sample_crop_planes_coords": 0, "sample_crop_cube": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5

@@ -1,7 +1,8 @@
-"""PyTorch port, sampling and decoding ops: the plain versions of the two
-sampling kernels against the JAX package's quad path and its Pallas
-kernel run in interpret mode, plus NMS/top-K with ties, soft-argmax and
-the heatmap renderer.  All on the CPU in float32.
+"""PyTorch port, sampling and decoding ops: the plain versions of the
+sampling kernels, in every crop route, against the JAX package's quad
+path and its Pallas kernel run in interpret mode, the crop-route table
+against the JAX package's kernel selection, plus NMS/top-K with ties,
+soft-argmax and the heatmap renderer.  All on the CPU in float32.
 
 Tolerances: samples of values in [0, 1] agree to 1e-5 (coordinates
 computed by the same op sequence differ by float32 rounding only);
@@ -15,7 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.test_torch_geometry import tiny_configs, tiny_rig
+from tests.test_torch_geometry import REPO, tiny_configs, tiny_rig
 
 
 def _jax_geom_and_port(**kw):
@@ -185,7 +186,157 @@ def test_wrappers_take_plain_version_on_cpu():
     hm = torch.rand(2, 8, 10, 3)
     pix = torch.rand(2, 50, 2) * 10
     torch.testing.assert_close(sk.sample_whole(hm, pix), sk.sample_whole_plain(hm, pix))
-    assert sk.launch_counts() == {"sample_whole": 0, "sample_crop_planes": 0}
+    assert sk.launch_counts() == {
+        "sample_whole": 0, "sample_crop_planes": 0,
+        "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
+    }
+
+
+def test_wrappers_refuse_inputs_that_require_grad():
+    """The kernels are forward only: a wrapper raises rather than detach."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    hm = torch.rand(2, 8, 10, 3, requires_grad=True)
+    with pytest.raises(ValueError, match="forward only"):
+        sk.sample_whole(hm, torch.rand(2, 50, 2) * 10)
+    masks = [torch.ones(1, 4, dtype=torch.uint8)] * 3
+    with pytest.raises(ValueError, match="forward only"):
+        sk.sample_crop_planes_coords(hm, torch.rand(1, 2, 64, 2), *masks,
+                                     torch.ones(1, dtype=torch.uint8))
+
+
+def _pallas_crop(jgeom, hm, cams, tl, bbox, valid, spec):
+    from faster_voxelpose_tpu.models.projection import project_individual_planes_pallas
+    from faster_voxelpose_tpu.ops.pallas_sampling import pack_heatmaps
+
+    return project_individual_planes_pallas(
+        jgeom, pack_heatmaps(jnp.asarray(hm), spec), jnp.asarray(cams),
+        jnp.asarray(tl), jnp.asarray(bbox), jnp.asarray(valid), spec,
+    )
+
+
+def test_crop_planes_coords_route_matches_pallas_kernel():
+    """Kernel row 3: the coords route (pixels from PyTorch, planes from the
+    sampler) against the Pallas kernel on precomputed coords
+    (fused_coords=False, interpret mode, exact)."""
+    from faster_voxelpose_tpu_torch.models.projection import project_individual_planes
+
+    jcfg, jgeom, pgeom = _jax_geom_and_port()
+    hm, cams, tl, bbox, valid = _crop_case(jcfg, jgeom, 6, True)
+    spec = _spec(jcfg, tile=(8, 8, 8), window_x=24, window_y=32, fused_coords=False)
+    ref = _pallas_crop(jgeom, hm, cams, tl, bbox, valid, spec)
+    ours = project_individual_planes(
+        pgeom, torch.as_tensor(hm), torch.as_tensor(cams), torch.as_tensor(tl),
+        torch.as_tensor(bbox), torch.as_tensor(valid), ("coords", "planes"),
+    )
+    for a, b in zip(ours, ref):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    assert float(ours[0][2].abs().max()) == 0.0  # the invalid slot
+
+
+@pytest.mark.parametrize("fused_coords", [True, False])
+def test_crop_cube_route_matches_pallas_kernel(fused_coords):
+    """Kernel row 4: the masked cube, from in-kernel projection or from
+    coords, then planes by max-reduction, against the Pallas kernel's cube
+    mode with 4x4x4 tiles (64 voxels, not a multiple of 128)."""
+    from faster_voxelpose_tpu_torch.models.projection import project_individual_planes
+
+    jcfg, jgeom, pgeom = _jax_geom_and_port()
+    hm, cams, tl, bbox, valid = _crop_case(jcfg, jgeom, 7, False)
+    spec = _spec(jcfg, tile=(4, 4, 4), window_x=24, window_y=32, fused_coords=fused_coords)
+    assert spec.samples % 128 != 0
+    ref = _pallas_crop(jgeom, hm, cams, tl, bbox, valid, spec)
+    route = ("project" if fused_coords else "coords", "cube")
+    ours = project_individual_planes(
+        pgeom, torch.as_tensor(hm), torch.as_tensor(cams), torch.as_tensor(tl),
+        torch.as_tensor(bbox), torch.as_tensor(valid), route,
+    )
+    for a, b in zip(ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+def test_crop_cube_plain_is_the_masked_cube():
+    """The cube mode's plain version: zeros outside the bbox mask and in
+    dead slots, and its max planes are the planes mode's."""
+    from faster_voxelpose_tpu_torch.models import projection as pj
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    jcfg, jgeom, pgeom = _jax_geom_and_port()
+    hm, cams, tl, bbox, valid = _crop_case(jcfg, jgeom, 8, False)
+    tl_t = torch.as_tensor(tl).to(torch.int32)
+    mx, my, mz = (m.to(torch.uint8) for m in pj.crop_axis_masks(pgeom, tl_t, torch.as_tensor(bbox)))
+    v = torch.as_tensor(valid).to(torch.uint8)
+    crop = pj.crop_projection(pgeom)
+    cams_t = torch.as_tensor(cams)
+    cube = sk.sample_crop_cube(torch.as_tensor(hm), mx, my, mz, v, cams=cams_t,
+                               centers_tl=tl_t, crop=crop)
+    pix = sk.crop_pixels(crop, cams_t, tl_t, pgeom.ind_voxels_per_axis)
+    cube_c = sk.sample_crop_cube(torch.as_tensor(hm), mx, my, mz, v, pix=pix)
+    torch.testing.assert_close(cube_c, cube, atol=1e-6, rtol=0)
+    keep = (mx[:, :, None, None].bool() & my[:, None, :, None].bool()
+            & mz[:, None, None, :].bool() & v[:, None, None, None].bool())
+    assert float(cube[~keep].abs().max()) == 0.0 and float(cube[keep].max()) > 0.0
+    planes = sk.sample_crop_planes(torch.as_tensor(hm), cams_t, tl_t, mx, my, mz, v, crop)
+    for a, b in zip((cube.amax(3), cube.amax(2), cube.amax(1)), planes):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+_ROUTE_CASES = [
+    {},
+    {"PALLAS_FUSED_COORDS": False},
+    {"PALLAS_TILE": (4, 4, 4)},
+    {"PALLAS_TILE": (4, 4, 4), "PALLAS_FUSED_COORDS": False},
+    {"PALLAS_TILE": (8, 8, 8)},
+    {"PALLAS_TILE": (16, 8, 4)},
+    {"PALLAS_TILE": (2, 2, 4)},
+    {"PALLAS_TILE": (8, 8, 6)},  # does not divide 64: quad path in JAX
+    {"PALLAS_TILE": (16, 16, 32), "PALLAS_WINDOW": (240, 128)},  # one window
+    {"PALLAS_WINDOW": (40, 120), "PALLAS_EXACT": True},
+    {"PALLAS_WINDOW": (256, 120), "PALLAS_EXACT": True},  # one window (exact rows)
+    {"PALLAS_WINDOW": (256, 120)},  # rows round up to 128: one window
+    {"SAMPLING_BACKEND": "quad", "PALLAS_FUSED_COORDS": False},
+    {"SAMPLING_BACKEND": "pallas", "PALLAS_TILE": (4, 4, 4)},
+]
+
+
+def test_crop_route_table_matches_jax_kernel_selection():
+    """resolve_crop_route against the JAX package's resolve_sampling_spec
+    plus the planes test of project_individual_planes_pallas (:518-519),
+    on the Panoptic profile under a table of sampling keys.  The JAX
+    resolver is asked as on a TPU (PALLAS_INTERPRET)."""
+    from faster_voxelpose_tpu.config import load_config as jax_load
+    from faster_voxelpose_tpu.models.faster_voxelpose import resolve_sampling_spec
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.models.projection import resolve_crop_route
+
+    seen = set()
+    for case in _ROUTE_CASES:
+        jcfg = jax_load(REPO / "configs/demo/panoptic_synthetic.yaml")
+        pcfg = panoptic_synthetic_profile()
+        for key, value in case.items():
+            setattr(jcfg.NETWORK, key, value)
+            setattr(pcfg.NETWORK, key, value)
+        jcfg.NETWORK.PALLAS_INTERPRET = True
+        spec = resolve_sampling_spec(jcfg)
+        if spec is None:
+            want = ("project", "planes")
+        else:
+            pow2 = not any(d & (d - 1) for d in spec.tile)
+            want = ("project" if spec.fused_coords else "coords",
+                    "planes" if pow2 and spec.samples == spec.padded_samples else "cube")
+        assert resolve_crop_route(pcfg) == want, case
+        seen.add(want)
+    assert len(seen) == 4  # every route is reached by some config
+
+
+def test_model_takes_the_configured_crop_route():
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    _, pcfg = tiny_configs(NETWORK__PALLAS_FUSED_COORDS=False, NETWORK__PALLAS_TILE=(8, 8, 8))
+    assert build_model(pcfg).jln.crop_route == ("coords", "planes")
+    _, pcfg = tiny_configs(NETWORK__PALLAS_TILE=(4, 4, 4), NETWORK__PALLAS_WINDOW=(8, 16))
+    assert build_model(pcfg).jln.crop_route == ("project", "cube")
 
 
 def test_nms_topk_ties_match_jax():
