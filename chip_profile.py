@@ -136,9 +136,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    from faster_voxelpose_tpu_torch.tools.timing import card_line
 
-    card = cs.card_line()
+    card = card_line()
     (train_profile if args.train else serve_profile)(args, card)
     return 0
 

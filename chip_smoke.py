@@ -29,7 +29,18 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    weights: 8 steps on one batch of 4 synthetic scenes from the port's
    generator, rendered on the card, must give finite losses and lower
    the detection loss (2D + 1D) below 0.9 of its first value; then 20
-   steps on fresh batches are timed.
+   steps on fresh batches are timed;
+7. window phase: the window kernel (windowed sampling as a dense
+   contraction, csrc/window.cu) in each of its nine instantiations against
+   its plain version on 64 blocks (1e-5), then the tools
+   `probe_sampling` and `sweep_sampling` at full scale (13.1M samples);
+8. mma phase: the bf16 tensor-core kernel (csrc/mma_window.cu) in its six
+   cases against its plain version (one bf16 ulp), then the tool
+   `microbench_mma` at 512 steps; its time must rise with K and with M
+   and stay under the card's peak;
+9. eval phase: `run_validation` on the first 500 held-out synthetic
+   scenes with the committed weights, held to AP@50 >= the snapshot's
+   record - 0.05 and MPJPE <= the record + 4 mm.
 The serving phase (PoseService with the committed panoptic_synthetic
 weights answering 24 rendered 1-6-person frames: the default route's
 launch counters rise on every request, someone is detected, the median
@@ -45,7 +56,6 @@ from __future__ import annotations
 
 import json
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -54,6 +64,9 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS, BF16_FLOPS = 495e12, 989e12  # its tensor cores, dense
+SAMPLING_CU = "faster_voxelpose_tpu_torch/csrc/sampling.cu"
+PALLAS = "faster_voxelpose_tpu/ops/pallas_sampling.py"
 TOL = 1e-5
 # float32 train step, card against CPU: between the sound reading and the
 # bf16 control's (train_parity_phase)
@@ -71,34 +84,10 @@ SKELETON = np.array([
 ], dtype=np.float64)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def time_ms(fn, reps=25, warm=3) -> float:
-    """Median of `reps` single-call times by CUDA events, after `warm` calls."""
-    import torch
-
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    """(least ms, what bounds it) of work that moves `nbytes` and does
+    `flops` operations of a type whose peak rate is `peak`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -196,7 +185,7 @@ def build_phase():
     from faster_voxelpose_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["sampling"])
+    libs = cuda_build.build_all(["sampling", "window", "mma_window"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -213,6 +202,7 @@ def whole_phase(cfg, geom, rig, hm, card):
     from faster_voxelpose_tpu_torch.geometry import project_to_norm_coords
     from faster_voxelpose_tpu_torch.models.projection import whole_pixels
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
 
     grid = torch.as_tensor(geom.whole_grid, device=hm.device)
     cams = torch.as_tensor(rig, device=hm.device)
@@ -237,7 +227,8 @@ def whole_phase(cfg, geom, rig, hm, card):
     nbytes = 4 * (V * H * W * J + V * N * 2 + N * J)
     flops = N * V * (12 + 8 * J) + 2 * N * J
     b_ms, b_by = bound(nbytes, flops)
-    row = dict(name="sample_whole", ms=time_ms(lambda: sk.sample_whole(hm, pix)),
+    row = dict(name="sample_whole", source=SAMPLING_CU, replaces=f"{PALLAS}:947", path="train",
+               ms=time_ms(lambda: sk.sample_whole(hm, pix)),
                plain_ms=time_ms(lambda: sk.sample_whole_plain(hm, pix)),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     print(f"kernel sample_whole: err {err:.3g} (library err {lib_err:.3g}) kernel_ms "
@@ -312,6 +303,7 @@ def crop_phase(cfg, geom, rig, hm, card, case):
 
     from faster_voxelpose_tpu_torch.geometry import project_to_norm_coords
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
 
     args = (hm, case["cams"], case["tl"], *case["masks"], case["crop"])
     out, ref = sk.sample_crop_planes(*args), sk.sample_crop_planes_plain(*args)
@@ -332,7 +324,8 @@ def crop_phase(cfg, geom, rig, hm, card, case):
     vk_t = torch.as_tensor(vk, device=hm.device)
     lib_err = max(float((a - b[vk_t]).abs().max()) for a, b in zip(library(), ref))
     b_ms, b_by = crop_bound(hm, case, geom, project=True, cube=False)
-    row = dict(name="sample_crop_planes", ms=time_ms(lambda: sk.sample_crop_planes(*args)),
+    row = dict(name="sample_crop_planes", source=SAMPLING_CU, replaces=f"{PALLAS}:1010",
+               path="train", ms=time_ms(lambda: sk.sample_crop_planes(*args)),
                plain_ms=time_ms(lambda: sk.sample_crop_planes_plain(*args)),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     V = hm.shape[0]
@@ -357,6 +350,7 @@ def coords_phase(cfg, geom, hm, card, case):
     import torch
 
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
 
     pix, masks = case["pix"], case["masks"]
     out = sk.sample_crop_planes_coords(hm, pix, *masks)
@@ -378,7 +372,8 @@ def coords_phase(cfg, geom, hm, card, case):
 
     lib_err = max(float((a - b[vk_t]).abs().max()) for a, b in zip(library(), ref))
     b_ms, b_by = crop_bound(hm, case, geom, project=False, cube=False)
-    row = dict(name="sample_crop_planes_coords",
+    row = dict(name="sample_crop_planes_coords", source=SAMPLING_CU, replaces=f"{PALLAS}:947",
+               path="route",
                ms=time_ms(lambda: sk.sample_crop_planes_coords(hm, pix, *masks)),
                plain_ms=time_ms(lambda: sk.sample_crop_coords_plain(hm, pix, *masks)),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
@@ -395,6 +390,7 @@ def cube_phase(cfg, geom, hm, card, case):
     import torch
 
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
 
     pix, masks = case["pix"], case["masks"]
     proj = dict(cams=case["cams"], centers_tl=case["tl"], crop=case["crop"])
@@ -427,7 +423,8 @@ def cube_phase(cfg, geom, hm, card, case):
     plain_ms = time_ms(plains["project"])
     b_ms, b_by = crop_bound(hm, case, geom, project=True, cube=True)
     bc_ms, bc_by = crop_bound(hm, case, geom, project=False, cube=True)
-    row = dict(name="sample_crop_cube", ms=times["project"], plain_ms=plain_ms,
+    row = dict(name="sample_crop_cube", source=SAMPLING_CU, replaces=f"{PALLAS}:1010", path="route",
+               ms=times["project"], plain_ms=plain_ms,
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
                max_abs_err=max(errs.values()), coords_ms=times["coords"], coords_bound_ms=bc_ms)
     print(f"kernel sample_crop_cube: err project {errs['project']:.3g} coords {errs['coords']:.3g} "
@@ -827,6 +824,310 @@ def serving_phase(cfg, rig, card, rng):
     return launches
 
 
+def library_window(hm, coords):
+    """grid_sample yardstick of the window kernel: a closure that samples
+    block coords (n, V, 2, S) bilinearly, takes the view mean and clamps,
+    -> (J, 1, n * S).  Layout changes are made once, outside the closure."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_voxelpose_tpu_torch.tools.probe_sampling import flat_pixels
+
+    V, H, W, J = hm.shape
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=hm.device)
+    norm = (flat_pixels(coords) * scale - 1.0)[:, None]  # (V, 1, n * S, 2)
+    hm_nchw = hm.permute(0, 3, 1, 2).contiguous()
+    return lambda: F.grid_sample(hm_nchw, norm, align_corners=True,
+                                 padding_mode="zeros").mean(0).clamp(0, 1)
+
+
+def window_full_err(hm, coords, cfg):
+    """Max error of the window kernel against its plain version on the
+    tool's own full-scale inputs, the ones its time was read on; held to
+    1e-5 like the 64-block check."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+
+    out = wk.window_sample(hm, coords, cfg)
+    err = float((out - wk.window_sample_plain(hm, coords, cfg)).abs().max())
+    if not (err <= TOL and torch.isfinite(out).all()):
+        raise AssertionError(f"window_sample {cfg} disagrees with its plain version on "
+                             f"{coords.shape[0]} blocks: {err}")
+    return err
+
+
+def window_row(name, replaces, cfg, ms, hm, coords, err, card, **extra):
+    """Table row of one window-kernel configuration timed at `ms` on
+    `coords`, `err` its error against the plain version on those coords:
+    the plain version and the grid_sample yardstick timed on the same
+    inputs, the function's bound (the heatmaps and coords read once, the
+    (NB, 16, S) output written once; a bilinear sample's operations as for
+    sample_whole) and beside it the time of the dense form's own
+    arithmetic at the peak rate of its precision (three products for
+    tf32x3)."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
+
+    V, H, W, J = hm.shape
+    NB, S = coords.shape[0], cfg.s
+    n = NB * S
+    b_ms, b_by = bound(4 * (hm.numel() + coords.numel() + NB * wk.JP * S),
+                       n * V * (12 + 8 * J) + 2 * n * J)
+    kw, ow = (cfg.xw, cfg.yw) if cfg.contract == "x" else (cfg.yw, cfg.xw)
+    dense_flops = 2 * (ow * wk.JP) * kw * S * V * NB
+    dense_rate = {"fp32": F32_FLOPS, "tf32x3": TF32_FLOPS / 3, "tf32": TF32_FLOPS}[cfg.prec]
+    library = library_window(hm, coords)
+    lib_err = float((library()[:, 0].reshape(J, NB, S).permute(1, 0, 2)
+                     - wk.window_sample(hm, coords, cfg)[:, :J]).abs().max())
+    row = dict(name=name, source="faster_voxelpose_tpu_torch/csrc/window.cu", replaces=replaces,
+               path="tools", ms=ms,
+               plain_ms=time_ms(lambda: wk.window_sample_plain(hm, coords, cfg), reps=5, warm=1),
+               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               dense_ops_ms=dense_flops / dense_rate * 1e3, config=cfg.label(), **extra)
+    print(f"kernel {name} [{cfg.label()}]: err {err:.3g} (kernel against library {lib_err:.3g}) "
+          f"kernel_ms {ms:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+          f"bound_ms {b_ms:.4f} ({b_by}) dense_ops_ms {row['dense_ops_ms']:.4f} "
+          f"({dense_flops / 1e9:.1f} GFLOP) blocks {NB} samples {n * V} | {card}")
+    return row
+
+
+def window_phase(card):
+    """Kernel rows 5 and 6.  Every instantiation of the window kernel
+    against its plain version on 64 blocks, at a spread every window covers
+    (6) and at the sweep's default (12), within 1e-5: the plain version
+    rounds its operands as the kernel does, so one tolerance serves the
+    three precisions.  Each one's error against the exact bilinear sampler
+    is printed; it is judged (1e-5) only for float32 at the covered spread.
+    Then the probe and the sweep run at full scale as a user would run
+    them, and every configuration is held against its plain version again
+    on the tool's own coords (10240 blocks of 256, 1e-5): that error is the
+    rows' `max_abs_err`.  Returns the two rows and the launches of the two
+    tools."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import probe_sampling as ps
+    from faster_voxelpose_tpu_torch.tools import sweep_sampling as sw
+
+    rng = np.random.RandomState(1)
+    hm = torch.as_tensor(rng.rand(ps.V, ps.H, ps.W, ps.J).astype(np.float32), device=CARD)
+    for spread in (6.0, 12.0):
+        for cfg in wk.SWEEP_CONFIGS:  # the probe's configuration is the first
+            coords = torch.as_tensor(sw.sweep_coords(64, cfg.s, spread, rng), device=CARD)
+            out, ref = wk.window_sample(hm, coords, cfg), wk.window_sample_plain(hm, coords, cfg)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            exact = float((out - ps.exact_reference(hm, coords)).abs().max())
+            print(f"window {cfg.label()} spread {spread:g}: against its plain version {err:.3g}, "
+                  f"against the exact sampler {exact:.3g}")
+            if not (err <= TOL and torch.isfinite(out).all()):
+                raise AssertionError(f"window_sample {cfg} disagrees with its plain version: {err}")
+            if spread <= 7 and cfg.prec == "fp32" and not exact <= TOL:
+                raise AssertionError(f"window_sample {cfg} differs from the exact sampler: {exact}")
+
+    sk.reset_launch_counts()
+    probe = ps.main([])
+    launches = {"window_sample": sk.launch_counts()["window_sample"]}
+    sk.reset_launch_counts()
+    rows_sweep = sw.main([])
+    launches["window_sample_sweep"] = sk.launch_counts()["window_sample"]
+
+    row5 = window_row("window_sample", "scripts/probe_pallas.py:117", probe["config"],
+                      probe["window_ms"], probe["heatmaps"], probe["coords"],
+                      window_full_err(probe["heatmaps"], probe["coords"], probe["config"]),
+                      card, gather_ms=probe["gather_ms"])
+    for r in rows_sweep:
+        r["full_err"] = window_full_err(r["heatmaps"], r["coords"], r["config"])
+        print(f"window {r['config'].label()} on the sweep's {r['blocks']} blocks: against its "
+              f"plain version {r['full_err']:.3g}")
+    exact_rows = [r for r in rows_sweep if r["err"] <= TOL]
+    if not exact_rows:
+        raise AssertionError("no sweep configuration agrees with the exact sampler")
+    best = min(exact_rows, key=lambda r: r["ms"])
+    configs = [dict(config=r["config"].label(), ms=r["ms"], ns_per_sample=r["ns_per_sample"],
+                    err_exact=r["err"], max_abs_err=r["full_err"]) for r in rows_sweep]
+    row6 = window_row("window_sample_sweep", "scripts/sweep_pallas.py:83", best["config"],
+                      best["ms"], best["heatmaps"], best["coords"], best["full_err"], card,
+                      configs=configs)
+    return [row5, row6], launches
+
+
+def mma_phase(card):
+    """Kernel row 7.  The six cases against the plain version on 8 steps:
+    the output is bf16, so the limit is one bf16 ulp of the value (2^-7
+    relative); the float32 sums inside differ only by the tensor cores'
+    order.  Then the microbenchmark at full scale, and the six cases
+    against the plain version again on the tool's own operands (512 steps,
+    the same seed), to the same limit: the row's `max_abs_err` is that of
+    the case whose time it reports.  That the product is
+    really computed (only 8 of its 640 rows are stored) shows in the time:
+    it must rise with K, rise with M, and stay under the card's bf16 peak."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
+
+    def compare(steps, seed):
+        """{(k, dyn): max abs error} of the six cases on `steps` steps of
+        operands made from `seed`."""
+        errs = {}
+        for k, dyn in mb.CASES:
+            lhs, rhs, oy = mb.make_operands(steps, k, CARD, seed=seed)
+            origin = oy if dyn else None
+            out = wk.mma_window(lhs, rhs, origin, k, mb.NMAT).float()
+            ref = wk.mma_window_plain(lhs, rhs, origin, k, mb.NMAT).float()
+            torch.cuda.synchronize()
+            rel = float(((out - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+            errs[(k, dyn)] = float((out - ref).abs().max())
+            print(f"mma_window K={k} dyn={int(dyn)} B={steps}: against its plain version rel "
+                  f"{rel:.3g} abs {errs[(k, dyn)]:.3g} (values up to {float(ref.max()):.3g})")
+            if not (rel <= 2.0 ** -7 and torch.isfinite(out).all()):
+                raise AssertionError(f"mma_window K={k} dyn={dyn} B={steps} disagrees with its "
+                                     f"plain version: {rel}")
+        return errs
+
+    compare(8, 1)
+    sk.reset_launch_counts()
+    cases = mb.main([])
+    launches = {"mma_window": sk.launch_counts()["mma_window"]}
+    full_errs = compare(mb.B, mb.SEED)  # the operands the tool timed
+
+    peak_tmacs = BF16_FLOPS / 2 / 1e12
+    by_case = {(c["k"], c["dyn"]): c for c in cases}
+    for c in cases:
+        if not c["tmacs"] < peak_tmacs:
+            raise AssertionError(f"mma_window K={c['k']}: {c['tmacs']} TMAC/s is above the peak")
+    for dyn in (False, True):
+        t = [by_case[(k, dyn)]["ms"] for k in (128, 64, 32)]
+        if not t[0] > t[1] > t[2]:
+            raise AssertionError(f"mma_window: time does not rise with K (dyn={dyn}): {t}")
+    k = 128
+    lhs, rhs, _ = mb.make_operands(mb.B, k, CARD)
+    half = lhs[:, :mb.M // 2].contiguous()
+    t_full = time_ms(lambda: wk.mma_window(lhs, rhs, None, k, mb.NMAT))
+    t_half = time_ms(lambda: wk.mma_window(half, rhs, None, k, mb.NMAT))
+    print(f"mma_window K={k}: M={mb.M} {t_full:.4f} ms, M={mb.M // 2} {t_half:.4f} ms "
+          f"({t_full / t_half:.3f}x) | {card}")
+    if not t_full > 1.3 * t_half:
+        raise AssertionError(f"mma_window: time does not rise with M: {t_full} against {t_half}")
+
+    # yardstick: one bmm of the full (M, K) x (K, N) product per step (the
+    # kernel repeats that product nmat times by design)
+    left = lhs[:k].t().expand(mb.B, mb.M, k)
+    b_ms, b_by = bound(2 * (lhs.numel() + mb.B * k * mb.N + mb.B * 8 * mb.N),
+                       2 * mb.M * k * mb.N * mb.NMAT * mb.B, BF16_FLOPS)
+    top = by_case[(k, False)]
+    row = dict(name="mma_window", source="faster_voxelpose_tpu_torch/csrc/mma_window.cu",
+               replaces="scripts/microbench_matmul.py:65", path="tools", ms=top["ms"],
+               plain_ms=time_ms(lambda: wk.mma_window_plain(lhs, rhs, None, k, mb.NMAT),
+                                reps=5, warm=1),
+               library_ms=time_ms(lambda: torch.bmm(left, rhs[:, :k])),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=full_errs[(k, False)],
+               cases=[dict({key: c[key] for key in ("k", "dyn", "ms", "us_per_product", "tmacs",
+                                                    "macs_timed")},
+                           max_abs_err=full_errs[(c["k"], c["dyn"])]) for c in cases])
+    print(f"kernel mma_window [K={k} static, B={mb.B}, nmat={mb.NMAT}]: err "
+          f"{row['max_abs_err']:.3g} kernel_ms "
+          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms (one bmm, one product) "
+          f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) | {card}")
+    return [row], launches
+
+
+def metric_table(message):
+    """{'ap@50': 0.8668, ...} from a Panoptic metric message."""
+    import re
+
+    return {k: float(v) for k, v in re.findall(r"(\S+@\S+): ([0-9.]+)", message)}
+
+
+EVAL_AP50_BELOW_RECORD = 0.025  # the bf16 control reads about 0.04 below, the port 0.015
+EVAL_MPJPE_ABOVE_RECORD = 1.5  # mm
+EVAL_DETECTED_PER_PERSON = (0.97, 1.01)  # duplicate proposals push the bf16 control to 1.02
+
+
+def eval_limits(res):
+    """The limits of the eval phase on one reading; returns the list of
+    those it breaks."""
+    got, rec = metric_table(res["message"]), metric_table(res["record"]["message"])
+    per_person = res["detected"] / res["people"]
+    lo, hi = EVAL_DETECTED_PER_PERSON
+    broken = []
+    if not got["ap@50"] >= rec["ap@50"] - EVAL_AP50_BELOW_RECORD:
+        broken.append(f"AP@50 {got['ap@50']} under the record's {rec['ap@50']} by more than "
+                      f"{EVAL_AP50_BELOW_RECORD}")
+    if not got["mpjpe@500mm"] <= rec["mpjpe@500mm"] + EVAL_MPJPE_ABOVE_RECORD:
+        broken.append(f"MPJPE {got['mpjpe@500mm']} mm over the record's {rec['mpjpe@500mm']} mm "
+                      f"by more than {EVAL_MPJPE_ABOVE_RECORD}")
+    if not lo <= per_person <= hi:
+        broken.append(f"{res['detected']} people detected where there are {res['people']} "
+                      f"({per_person:.4f}, outside {lo}..{hi})")
+    return broken
+
+
+def eval_phase(card, scenes=500):
+    """The evaluator on the first `scenes` held-out synthetic scenes with
+    the committed weights, bf16 conv stacks as served, against the
+    snapshot's own record (5000 scenes): AP@50 at least the record's less
+    0.025, MPJPE at most the record's plus 1.5 mm, and between 0.97 and
+    1.01 people detected for each one there is.  Two controls on the same
+    scenes, made here by turning the heads' float32 sums off (`blocks.Conv`,
+    `float32_out`): with every head rounded to bf16 the reading must break
+    those limits (duplicate proposals from a bf16 centre heatmap); with the
+    centre heatmap alone in float32 it is printed, to say what the other
+    four heads' float32 sums change.  Returns the launches of the first
+    run."""
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.checkpoint import load_best_npz
+    from faster_voxelpose_tpu_torch.models.faster_voxelpose import build_model
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools import validate
+
+    def control(float32_heads):
+        model = load_best_npz(str(validate.DEFAULT_CHECKPOINT / "model_best.npz"),
+                              build_model(panoptic_synthetic_profile()))
+        heads = {n: m for n, m in model.named_modules()
+                 if getattr(m, "out_dtype", None) not in (None, getattr(m, "dtype", None))}
+        if len(heads) != 5:
+            raise AssertionError(f"eval: expected five head layers with float32 sums: {list(heads)}")
+        for n, m in heads.items():
+            if n.rsplit(".", 1)[-1] not in float32_heads:
+                m.out_dtype = m.dtype
+        return validate.evaluate_snapshot(scenes=scenes, device=CARD, model=model)
+
+    def line(name, res):
+        return (f"eval [{name}]: {res['scenes']} held-out scenes, {res['detected']} people "
+                f"detected where there are {res['people']}, {res['frames_per_s']:.3f} frames/s "
+                f"(samples made on the host included) | {card}\n{res['message']}")
+
+    sk.reset_launch_counts()
+    res = validate.evaluate_snapshot(scenes=scenes, device=CARD)
+    launches = sk.launch_counts()
+    print(f"{line('as served', res)}\neval: launches {launches}\n"
+          f"eval: the snapshot's record ({res['record']['eval_set']}):\n{res['record']['message']}")
+    preds = res["preds"]
+    if preds.shape[0] != scenes or preds.shape[2:] != (15, 5) or not np.isfinite(preds).all():
+        raise AssertionError(f"eval: predictions of shape {preds.shape} or not finite")
+    for name in ("sample_whole", "sample_crop_planes"):
+        if launches[name] != scenes:
+            raise AssertionError(f"eval: {name} launched {launches[name]} times for {scenes} scenes")
+    broken = eval_limits(res)
+    if broken:
+        raise AssertionError("eval: " + "; ".join(broken))
+
+    print(line("control: only the centre heatmap's sums in float32", control(("hm_out",))))
+    rounded = control(())
+    broken = eval_limits(rounded)
+    print(line("control: every head rounded to bf16", rounded)
+          + f"\neval: the bf16 control breaks: {broken}")
+    if not broken:
+        raise AssertionError("eval: the control with every head rounded to bf16 passes the limits")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -843,6 +1144,7 @@ def main() -> int:
     from faster_voxelpose_tpu_torch.device import pin_float32
     from faster_voxelpose_tpu_torch.geometry import dome_rig
     from faster_voxelpose_tpu_torch.models.projection import make_projection_geometry
+    from faster_voxelpose_tpu_torch.tools.timing import card_line
 
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {card}")
@@ -868,28 +1170,23 @@ def main() -> int:
     paths["route"] = route_phase(cfg, rig, card, rng)
     train_parity_phase(card)
     paths["train"] = training_phase(card)
+    paths["tools"] = {}
+    for phase in (window_phase, mma_phase):
+        tool_rows, launches = phase(card)
+        rows += tool_rows
+        paths["tools"].update(launches)
+    paths["eval"] = eval_phase(card)
 
-    # launches: the run of the main path that reaches each kernel, training
-    # for the default route's kernels, the route phase for the others
-    main_path = {"sample_whole": "train", "sample_crop_planes": "train",
-                 "sample_crop_planes_coords": "route", "sample_crop_cube": "route"}
-    replaces = {"sample_whole": "faster_voxelpose_tpu/ops/pallas_sampling.py:947",
-                "sample_crop_planes": "faster_voxelpose_tpu/ops/pallas_sampling.py:1010",
-                "sample_crop_planes_coords": "faster_voxelpose_tpu/ops/pallas_sampling.py:947",
-                "sample_crop_cube": "faster_voxelpose_tpu/ops/pallas_sampling.py:1010"}
+    # launches: the run of the path that reaches each kernel (the row's
+    # `path`): training for the default route's kernels, the route phase
+    # for the crop sampler's other modes, the tools for the tuning kernels
     kernels = []
     for r in rows:
-        name = r["name"]
-        launches = paths[main_path[name]][name]
+        launches = paths[r["path"]][r["name"]]
         if launches <= 0:
-            raise AssertionError(f"{name} was not launched on its path")
-        kernels.append(dict(
-            name=name, route="cuda", source="faster_voxelpose_tpu_torch/csrc/sampling.cu",
-            replaces=replaces[name], launches=launches, max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], path=main_path[name],
-            launches_by_path={p: c.get(name, 0) for p, c in paths.items()},
-            **{k: r[k] for k in ("coords_ms", "coords_bound_ms") if k in r}))
+            raise AssertionError(f"{r['name']} was not launched on its path")
+        kernels.append(dict(r, route="cuda", launches=launches,
+                            launches_by_path={p: c.get(r["name"], 0) for p, c in paths.items()}))
     print(f"chip_smoke: every phase passed, {time.perf_counter() - t_start:.1f} s from start "
           "(torch import and kernel build included)")
     print(card)

@@ -281,6 +281,11 @@ class PoseDatasetBase:
             out.append((joints_2d, vis_2d))
         return out
 
+    def evaluate(self, preds: np.ndarray):
+        """(metric, message) of preds (N, K, J, 5) against the records;
+        each dataset brings its own protocol."""
+        raise NotImplementedError
+
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack per-sample dicts into batch arrays."""

@@ -1,4 +1,4 @@
-"""Synthetic training scenes (counterpart of
+"""Synthetic training and held-out scenes (counterpart of
 `faster_voxelpose_tpu/datasets/synthetic.py`, reference
 lib/dataset/synthetic.py): 1..MAX_PEOPLE poses from a pose bank, placed
 at random positions and rotations in the capture space with a retry loop
@@ -21,6 +21,7 @@ from ..config import Config
 from ..geometry.cameras import project_points_np
 from ..geometry.transforms import rotate_points
 from .base import FrameRecord, PoseDatasetBase, root_center
+from .evaluate import panoptic_metrics
 
 
 def load_cameras(path: str) -> Dict[int, dict]:
@@ -39,23 +40,28 @@ def load_cameras(path: str) -> Dict[int, dict]:
 
 
 class SyntheticDataset(PoseDatasetBase):
-    """reference Synthetic (synthetic.py:25-194), the training scenes
-    (seed cfg.TRAIN.SEED; the held-out scenes come with the evaluation
-    slice).  `pose_bank` and `cameras` default to the files named by
-    cfg.SYNTHETIC under cfg.DATASET.DATADIR."""
+    """reference Synthetic (synthetic.py:25-194).  The scenes come from
+    `seed`: by default cfg.TRAIN.SEED for the training set and
+    cfg.TRAIN.SEED + 10007 for the held-out set (`is_train` false), so the
+    two never share a scene.  `pose_bank` and `cameras` default to the
+    files named by cfg.SYNTHETIC under cfg.DATASET.DATADIR."""
 
     def __init__(
         self,
         cfg: Config,
+        is_train: bool = True,
         pose_bank: Optional[List[dict]] = None,
         cameras: Optional[Dict[int, dict]] = None,
+        seed: Optional[int] = None,
     ):
-        super().__init__(cfg, is_train=True)
+        super().__init__(cfg, is_train)
+        if seed is None:
+            seed = cfg.TRAIN.SEED if is_train else cfg.TRAIN.SEED + 10007
         self.heatmap_src = "gt"
         self.data_augmentation = cfg.SYNTHETIC.DATA_AUGMENTATION
         self.max_synthetic_people = cfg.SYNTHETIC.MAX_PEOPLE
         self.num_data = cfg.SYNTHETIC.NUM_DATA
-        self._gen_rng = np.random.RandomState(cfg.TRAIN.SEED)
+        self._gen_rng = np.random.RandomState(seed)
 
         if cameras is None:
             cameras = load_cameras(os.path.join(cfg.DATASET.DATADIR, cfg.SYNTHETIC.CAMERA_FILE))
@@ -111,6 +117,13 @@ class SyntheticDataset(PoseDatasetBase):
             )
         base = centers[rng.choice(len(centers))]
         return base + rng.normal(500, 50, 2) * rng.choice([1, -1], 2)
+
+    def evaluate(self, preds: np.ndarray):
+        """(mean AP, message) of preds (N, K, J, 5) over the generated
+        scenes, by the Panoptic protocol."""
+        gts = [(rec.joints_3d, rec.joints_3d_vis) for rec in self.records]
+        metric, msg, _ = panoptic_metrics(list(preds), gts)
+        return metric, msg
 
     @staticmethod
     def _bbox(pose_xy: np.ndarray, vis: np.ndarray) -> np.ndarray:

@@ -36,34 +36,50 @@ def _normal(*shape: int) -> nn.Parameter:
 
 
 class Conv(nn.Module):
-    """Convolution with 'SAME' padding (odd kernels), weight (O, I, *k)."""
+    """Convolution with 'SAME' padding (odd kernels), weight (O, I, *k).
+
+    With `float32_out` the operands are still rounded to the compute
+    dtype, but the sums are kept and returned in float32.  It is set on
+    every layer whose result the JAX package casts to float32 at once (the
+    heads' last layers).  On the CPU that package rounds such a result to
+    bf16 before the cast, so there the port departs from it, within one
+    bf16 rounding of the value.  The port follows the TPU instead, where
+    the snapshot's evaluation record was made: with a centre heatmap
+    rounded to bf16 the held-out scenes lose 0.03 AP to duplicate
+    proposals, and with float32 sums they land on the record (see
+    `CenterNet`)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, rank: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, float32_out: bool = False):
         super().__init__()
         self.rank, self.dtype, self.pad = rank, dtype, kernel // 2
+        self.out_dtype = torch.promote_types(dtype, torch.float32) if float32_out else dtype
         self.weight = _normal(cout, cin, *(kernel,) * rank)
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        dt = self.dtype
+        dt, out = self.dtype, self.out_dtype
         return _CONV[self.rank](
-            x.to(dt), self.weight.to(dt), self.bias.to(dt), padding=self.pad
+            x.to(dt).to(out), self.weight.to(dt).to(out), self.bias.to(dt).to(out),
+            padding=self.pad,
         )
 
 
 class Dense(nn.Module):
-    """Linear layer in the compute dtype, weight (O, I)."""
+    """Linear layer in the compute dtype, weight (O, I); `float32_out` as
+    for `Conv`."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+                 float32_out: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.out_dtype = torch.promote_types(dtype, torch.float32) if float32_out else dtype
         self.weight = _normal(cout, cin)
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        dt, out = self.dtype, self.out_dtype
+        return F.linear(x.to(dt).to(out), self.weight.to(dt).to(out), self.bias.to(dt).to(out))
 
 
 class BatchNorm(nn.Module):

@@ -2,7 +2,10 @@
 (1D height), WeightNet (plane-fusion weights) — counterparts of
 `faster_voxelpose_tpu/models/cnns.py` (reference cnns_2d.py:115-187,
 cnns_1d.py:112-143, weight_net.py:48-89), channels-first inside.  Each
-takes `train` and passes it to its BatchNorms.
+takes `train` and passes it to its BatchNorms.  Each head's last layer,
+whose result the JAX package casts to float32 at once, returns its
+float32 sums of the rounded operands (`blocks.Conv`, `float32_out`): one
+rule for all five.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ class P2PNet(nn.Module):
         super().__init__()
         self.front = UNetFront(cin, 2, dtype, width)
         self.encdec = EncoderDecoder(2, dtype, width)
-        self.output = Conv(scaled(32, width), cout, 1, 2, dtype)
+        self.output = Conv(scaled(32, width), cout, 1, 2, dtype, float32_out=True)
 
     def forward(self, x, train: bool = False):
         return self.output(self.encdec(self.front(x, train), train)).float()
@@ -40,9 +43,16 @@ class CenterNet(nn.Module):
         self.front = UNetFront(cin, 2, dtype, width)
         self.encdec = EncoderDecoder(2, dtype, width)
         self.hm_conv = Conv(c32, head, 3, 2, dtype)
-        self.hm_out = Conv(head, 1, 1, 2, dtype)
+        # The centre heatmap is where the float32 sums matter.  Rounded to
+        # bf16, neighbouring cells of a flat peak tie, the max-pool
+        # equality NMS keeps both, and one person is proposed twice: on the
+        # held-out synthetic scenes that cost 0.03 AP at every threshold
+        # against float32 and against the snapshot's own bf16 record, made
+        # on a TPU.  The JAX package on the CPU does round here; that the
+        # TPU does not is inferred from the record, not read from XLA.
+        self.hm_out = Conv(head, 1, 1, 2, dtype, float32_out=True)
         self.size_conv = Conv(c32, head, 3, 2, dtype)
-        self.size_out = Conv(head, 2, 1, 2, dtype)
+        self.size_out = Conv(head, 2, 1, 2, dtype, float32_out=True)
 
     def forward(self, cube, train: bool = False):
         x = cube.amax(dim=3).permute(0, 3, 1, 2).to(self.dtype)
@@ -59,7 +69,7 @@ class C2CNet(nn.Module):
         super().__init__()
         self.front = UNetFront(cin, 1, dtype, width)
         self.encdec = EncoderDecoder(1, dtype, width)
-        self.output = Conv(scaled(32, width), 1, 1, 1, dtype)
+        self.output = Conv(scaled(32, width), 1, 1, 1, dtype, float32_out=True)
 
     def forward(self, x, train: bool = False):
         return self.output(self.encdec(self.front(x, train), train))[:, 0].float()
@@ -75,7 +85,7 @@ class WeightNet(nn.Module):
         self.feat_conv = Conv(1, feat_channels, 3, 2, dtype)
         self.feat_bn = BatchNorm(feat_channels, dtype)
         self.fc1 = Dense(feat_channels, hidden_channels, dtype)
-        self.fc2 = Dense(hidden_channels, 1, dtype)
+        self.fc2 = Dense(hidden_channels, 1, dtype, float32_out=True)
 
     def forward(self, x, train: bool = False):
         M, J, H, W = x.shape

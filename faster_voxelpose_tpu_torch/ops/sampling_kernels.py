@@ -89,6 +89,9 @@ LAUNCHES: Dict[str, int] = {
     "sample_crop_planes": 0,
     "sample_crop_planes_coords": 0,
     "sample_crop_cube": 0,
+    # the tuning kernels of ops/window_kernels.py
+    "window_sample": 0,
+    "mma_window": 0,
 }
 
 

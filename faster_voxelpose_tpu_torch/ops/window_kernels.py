@@ -1,0 +1,298 @@
+"""The tuning kernels of the port: windowed sampling as a dense contraction
+and the tensor-core cost of its product, with their plain PyTorch versions.
+
+They are the counterparts of the three prototypes that chose the JAX
+package's production kernel on the TPU (window sizes, block size,
+matrix-unit precision), and the entry points under `tools/` run them to
+ask the same questions of an H100.  Each wrapper takes its plain version
+for tensors on the CPU, and for CUDA tensors launches its hand-written
+kernel (`csrc/window.cu`, `csrc/mma_window.cu`, built by
+`ops/cuda_build.py`) or raises.  Launches are counted in
+`sampling_kernels.LAUNCHES` under 'window_sample' and 'mma_window'.
+
+window_sample
+    Replaces `_sample_kernel` (scripts/probe_pallas.py:48, called at :117)
+    and `make_kernel(s, xw, yw, precision, contract)`
+    (scripts/sweep_pallas.py:30, called at :83).  Samples come in blocks of
+    S that share a heatmap window of XW x YW pixels per view; the window
+    origin is floor(min) of the block's coords, clipped into the image and
+    rounded down to a multiple of 8.  The bilinear weights are separable,
+    max(0, 1 - |x - xi|); the contracted axis is a matrix product against
+    the window, the other a multiply and sum; then the view mean and a
+    clamp.  A sample farther than XW - 9 (YW - 9) pixels from its block's
+    minimum may fall outside the window and reads less than the bilinear
+    value: that is the window's answer, and kernel and plain version agree
+    on it.  The TPU's three matrix-unit precisions map to `prec`:
+    'fp32' (HIGHEST, FFMA), 'tf32x3' (HIGH, operands split in two TF32
+    parts, three tensor-core products) and 'tf32' (DEFAULT, one product).
+    Bound on an H100, as a function: bytes (coords in, (NB, 16, S) out,
+    the packed heatmaps once: 282 MB at 10240 blocks of 256, about
+    0.084 ms at 3.35 TB/s).  The dense form itself does
+    2 * OW*16 * KW * S * V flops per block (242 GFLOP at 10240 blocks of
+    the 24 x 24 window: 3.6 ms at the float32 rate, 0.5 ms at one TF32
+    pass), so on this card the arithmetic, not the bytes, sets its time;
+    the tools print both.  Design: one block of 256 threads per sample
+    block, the view's window staged once in shared memory, the samples
+    walked in sub-tiles of 16 so that the product tile fits, wmma
+    m16n16k8 for the TF32 modes with the accumulator stored to shared
+    memory before the rows are regrouped by (pixel, joint).
+
+mma_window
+    Replaces the body of `bench` (scripts/microbench_matmul.py:31, called
+    at :65): per grid step b, `nmat` identical products of a (K, M) window
+    of a resident (128, M) bf16 buffer, at row 0 or at `oy[b]`, against
+    rhs[b, :K] (K, N) bf16, summed in float32; the first 8 rows of the
+    mean are written as bf16.  Bound on an H100: operations
+    (2 * M * K * N * nmat * B flops against 989 TFLOP/s: 0.87 ms at
+    K = 128, M = 640, N = 2048, B = 512; rhs is 268 MB, 0.08 ms).  Design:
+    one block per step, lhs resident in shared memory, rhs walked in
+    64-column chunks, wmma m16n16k16 with float32 accumulators; the tiles
+    whose rows are not written are kept alive by a store under a device
+    flag that is never set.
+
+Both kernels are forward only and raise on an input that requires grad.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .sampling_kernels import LAUNCHES, _check, _on_cpu, _raise_on, _stream
+
+JP = 16  # joints padded to 16; the padding channels read 0
+PRECISIONS = ("fp32", "tf32x3", "tf32")  # the TPU's HIGHEST, HIGH, DEFAULT
+CONTRACTS = ("x", "y")
+MMA_ROWS = 128  # rows of mma_window's lhs and of one rhs step
+
+
+@dataclass(frozen=True)
+class WindowConfig:
+    """One instantiation of the window kernel: samples per block, window
+    width and height, product precision and the contracted axis."""
+
+    s: int
+    xw: int
+    yw: int
+    prec: str = "fp32"
+    contract: str = "x"
+
+    def __post_init__(self):
+        if self.prec not in PRECISIONS or self.contract not in CONTRACTS:
+            raise ValueError(f"unknown precision or contract axis in {self}")
+
+    def label(self) -> str:
+        return f"S={self.s:4d} XW={self.xw} YW={self.yw} {self.prec:7s} {self.contract}"
+
+
+# the probe's configuration (scripts/probe_pallas.py:39-45, HIGHEST)
+PROBE_CONFIG = WindowConfig(256, 24, 24, "fp32", "x")
+# the sweep's nine (scripts/sweep_pallas.py:152-163), in its order
+SWEEP_CONFIGS: Tuple[WindowConfig, ...] = (
+    WindowConfig(256, 24, 24, "fp32", "x"),
+    WindowConfig(256, 24, 24, "tf32x3", "x"),
+    WindowConfig(256, 24, 24, "tf32", "x"),
+    WindowConfig(256, 24, 24, "tf32x3", "y"),
+    WindowConfig(256, 16, 40, "tf32x3", "y"),
+    WindowConfig(128, 16, 40, "tf32x3", "y"),
+    WindowConfig(256, 24, 40, "tf32x3", "y"),
+    WindowConfig(512, 24, 24, "tf32x3", "x"),
+    WindowConfig(512, 16, 40, "tf32x3", "y"),
+)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def pack_heatmap(heatmaps: torch.Tensor, contract: str) -> torch.Tensor:
+    """(V, H, W, J) -> joints padded to 16 and, for contract 'x',
+    (V, W, H*16) rows x, lanes y-major joint-minor; for 'y', (V, H, W*16)."""
+    V, H, W, J = heatmaps.shape
+    hmp = F.pad(heatmaps, (0, JP - J))
+    if contract == "x":
+        return hmp.permute(0, 2, 1, 3).reshape(V, W, H * JP).contiguous()
+    return hmp.reshape(V, H, W * JP).contiguous()
+
+
+def window_origin(lowest: torch.Tensor, limit: int) -> torch.Tensor:
+    """floor(min) clipped to [0, limit] and rounded down to a multiple of
+    8 (scripts/probe_pallas.py:60-63), as int64."""
+    return torch.div(lowest.floor().clamp(0.0, float(limit)).long(), 8, rounding_mode="floor") * 8
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32's 10 mantissa bits, nearest with ties away
+    from zero, by bit operations (what cvt.rna.tf32.f32 does on the card)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x as a TF32 value plus the TF32-rounded remainder."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _product(win: torch.Tensor, wk: torch.Tensor, eq: str, prec: str) -> torch.Tensor:
+    """The contraction `eq` of window and weights in float32, with the
+    operands rounded (and for 'tf32x3' split) as the kernel rounds them."""
+    if prec == "fp32":
+        return torch.einsum(eq, win, wk)
+    if prec == "tf32":
+        return torch.einsum(eq, tf32_round(win), tf32_round(wk))
+    (a_hi, a_lo), (b_hi, b_lo) = tf32_split(win), tf32_split(wk)
+    small = torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+    return torch.einsum(eq, a_hi, b_hi) + small
+
+
+def window_sample_plain(heatmaps: torch.Tensor, coords: torch.Tensor, cfg: WindowConfig,
+                        chunk: int = 128) -> torch.Tensor:
+    """heatmaps (V, H, W, J <= 16) f32, coords (NB, V, 2, S) f32 pixel
+    (x; y) -> (NB, 16, S) f32: the window kernel's arithmetic step by step
+    (origin, window slice, weights, product, the other axis, view mean,
+    clamp), `chunk` sample blocks at a time.  float32 matrix products must
+    run in full float32 (`device.pin_float32`)."""
+    V, H, W, J = heatmaps.shape
+    hmp = F.pad(heatmaps, (0, JP - J))
+    dev = heatmaps.device
+    views = torch.arange(V, device=dev)[None, :, None, None]
+    ax, ay = torch.arange(cfg.xw, device=dev), torch.arange(cfg.yw, device=dev)
+    outs = []
+    for c in coords.split(chunk):
+        x, y = c[:, :, 0], c[:, :, 1]  # (n, V, S)
+        xi = window_origin(x.amin(-1), W - cfg.xw)[..., None] + ax  # (n, V, XW)
+        yi = window_origin(y.amin(-1), H - cfg.yw)[..., None] + ay  # (n, V, YW)
+        wx = (1.0 - (x[:, :, None, :] - xi[..., None].float()).abs()).clamp_min(0.0)
+        wy = (1.0 - (y[:, :, None, :] - yi[..., None].float()).abs()).clamp_min(0.0)
+        win = hmp[views, yi[:, :, :, None], xi[:, :, None, :]]  # (n, V, YW, XW, 16)
+        if cfg.contract == "x":
+            t = _product(win, wx, "nvyxj,nvxs->nvyjs", cfg.prec)
+            per_view = (t * wy[:, :, :, None, :]).sum(2)  # (n, V, 16, S)
+        else:
+            t = _product(win, wy, "nvyxj,nvys->nvxjs", cfg.prec)
+            per_view = (t * wx[:, :, :, None, :]).sum(2)
+        acc = torch.zeros_like(per_view[:, 0])
+        for v in range(V):
+            acc = acc + per_view[:, v]
+        outs.append((acc * (1.0 / V)).clamp(0.0, 1.0))
+    return torch.cat(outs)
+
+
+def mma_window_plain(lhs: torch.Tensor, rhs: torch.Tensor, oy: Optional[torch.Tensor],
+                     k: int, nmat: int = 5) -> torch.Tensor:
+    """lhs (128, M) bf16, rhs (B, 128, N) bf16, oy (B,) int32 row origins
+    or None for row 0 -> (B, 8, N) bf16: the sum of `nmat` float32
+    products lhs[o:o+k].T @ rhs[b, :k] of the bf16 values, its first 8
+    rows times 1 / nmat."""
+    B = rhs.shape[0]
+    origin = torch.zeros(B, dtype=torch.long, device=rhs.device) if oy is None else oy.long()
+    rows = origin[:, None] + torch.arange(k, device=rhs.device)  # (B, k)
+    win = lhs.float()[rows]  # (B, k, M)
+    right = rhs[:, :k].float()
+    acc = torch.zeros((B, lhs.shape[1], rhs.shape[2]), dtype=torch.float32, device=rhs.device)
+    for _ in range(nmat):
+        acc = acc + torch.einsum("bkm,bkn->bmn", win, right)
+    return (acc[:, :8] * (1.0 / nmat)).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _window_lib():
+    from .cuda_build import load
+
+    lib = load("window")
+    if not getattr(lib, "_fvp_typed", False):
+        lib.fvp_window_sample.argtypes = [_P, _P, _P, _I, _I, _I, _I, _F] + [_I] * 5 + [_P]
+        lib.fvp_window_sample.restype = _I
+        lib._fvp_typed = True
+    return lib
+
+
+def _mma_lib():
+    from .cuda_build import load
+
+    lib = load("mma_window")
+    if not getattr(lib, "_fvp_typed", False):
+        lib.fvp_mma_window.argtypes = [_P] * 4 + [_I] * 6 + [_F, _P, _P, _P]
+        lib.fvp_mma_window.restype = _I
+        lib._fvp_typed = True
+    return lib
+
+
+def window_sample(heatmaps: torch.Tensor, coords: torch.Tensor, cfg: WindowConfig) -> torch.Tensor:
+    """heatmaps (V, H, W, J <= 16) f32, coords (NB, V, 2, S) f32 pixel
+    (x; y) -> (NB, 16, S) f32.  The heatmaps are packed for the contracted
+    axis here; only the configurations of PROBE_CONFIG and SWEEP_CONFIGS
+    are instantiated."""
+    if _on_cpu(heatmaps, coords):
+        return window_sample_plain(heatmaps, coords, cfg)
+    V, H, W, J = heatmaps.shape
+    NB = coords.shape[0]
+    _check(heatmaps, "heatmaps", torch.float32, (V, H, W, J))
+    _check(coords, "coords", torch.float32, (NB, V, 2, cfg.s))
+    if not (0 < J <= JP and 0 < V <= 8):
+        raise ValueError(f"window_sample takes 1..{JP} joints and 1..8 views, got {J} and {V}")
+    if W < cfg.xw or H < cfg.yw:
+        raise ValueError(f"a {cfg.xw} x {cfg.yw} window does not fit a {W} x {H} heatmap")
+    packed = pack_heatmap(heatmaps, cfg.contract)
+    out = torch.empty((NB, JP, cfg.s), dtype=torch.float32, device=heatmaps.device)
+    err = _window_lib().fvp_window_sample(
+        coords.data_ptr(), packed.data_ptr(), out.data_ptr(), NB, V, W, H, 1.0 / V,
+        cfg.s, cfg.xw, cfg.yw, PRECISIONS.index(cfg.prec), CONTRACTS.index(cfg.contract),
+        _stream(heatmaps.device),
+    )
+    if err == -1:
+        raise ValueError(f"window_sample: no kernel is instantiated for {cfg}")
+    _raise_on(err, "window_sample")
+    LAUNCHES["window_sample"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_scratch(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The keep-alive flag (one int32 holding 0) and its sink, one pair
+    per device."""
+    return (torch.zeros(1, dtype=torch.int32, device=device),
+            torch.empty(2048, dtype=torch.float32, device=device))
+
+
+def mma_window(lhs: torch.Tensor, rhs: torch.Tensor, oy: Optional[torch.Tensor],
+               k: int, nmat: int = 5) -> torch.Tensor:
+    """lhs (128, M) bf16, rhs (B, 128, N) bf16, oy (B,) int32 row origins
+    (multiples of 16 in [0, 128 - k]) or None for the static origin 0
+    -> (B, 8, N) bf16; M a multiple of 16, N of 64, k in (128, 64, 32).
+    A step whose origin is not such a multiple is written as NaN."""
+    args = (lhs, rhs) if oy is None else (lhs, rhs, oy)
+    if _on_cpu(*args):
+        return mma_window_plain(lhs, rhs, oy, k, nmat)
+    M, (B, _, N) = lhs.shape[1], rhs.shape
+    _check(lhs, "lhs", torch.bfloat16, (MMA_ROWS, M))
+    _check(rhs, "rhs", torch.bfloat16, (B, MMA_ROWS, N))
+    if oy is not None:
+        _check(oy, "oy", torch.int32, (B,))
+    if M % 16 or N % 64 or M <= 0 or nmat <= 0:
+        raise ValueError(f"mma_window: M {M} must be a multiple of 16, N {N} of 64, nmat > 0")
+    out = torch.empty((B, 8, N), dtype=torch.bfloat16, device=rhs.device)
+    flag, sink = _mma_scratch(rhs.device)
+    err = _mma_lib().fvp_mma_window(
+        lhs.data_ptr(), rhs.data_ptr(), None if oy is None else oy.data_ptr(), out.data_ptr(),
+        B, M, N, k, int(oy is not None), nmat, 1.0 / nmat, flag.data_ptr(), sink.data_ptr(),
+        _stream(rhs.device),
+    )
+    if err == -1:
+        raise ValueError(f"mma_window: no kernel is instantiated for K = {k}")
+    _raise_on(err, "mma_window")
+    LAUNCHES["mma_window"] += 1
+    return out

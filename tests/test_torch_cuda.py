@@ -7,7 +7,12 @@ machine that has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: 1e-5 on sampled values in [0, 1] (the kernels contract
-multiply-adds into FMAs, the plain version does not).
+multiply-adds into FMAs, the plain version does not).  The window
+kernel's TF32 modes are held to the same 1e-5, because their plain
+version rounds the operands as the kernel does.  The bf16 tensor-core
+kernel is held to one bf16 ulp of the value (2^-7 relative): its float32
+sums are taken in the tensor cores' order, and the result is rounded to
+bf16 once.
 """
 
 import numpy as np
@@ -200,6 +205,96 @@ def test_model_cuda_matches_cpu(dev):
         sk.reset_launch_counts()
         out = model.to(dev)(hm_t.to(dev), rig_t.to(dev))
     assert sk.launch_counts() == {"sample_whole": 1, "sample_crop_planes": 1,
-                                  "sample_crop_planes_coords": 0, "sample_crop_cube": 0}
+                                  "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
+                                  "window_sample": 0, "mma_window": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5
+
+
+# ---------------------------------------------------------------------------
+# the tuning kernels (ops/window_kernels.py)
+# ---------------------------------------------------------------------------
+
+
+def _window_case(cfg, spread, n_blocks=64, seed=0):
+    from faster_voxelpose_tpu_torch.tools import sweep_sampling as sw
+
+    rng = np.random.RandomState(seed)
+    hm = rng.rand(sw.V, sw.H, sw.W, sw.J).astype(np.float32)
+    return hm, sw.sweep_coords(n_blocks, cfg.s, spread, rng)
+
+
+@pytest.mark.parametrize("spread", [6.0, 12.0])
+@pytest.mark.parametrize("index", range(9))
+def test_window_kernel_matches_plain(dev, index, spread):
+    """Every instantiation against its plain version at a spread every
+    window covers and at one the 16-wide windows do not; where the window
+    covers the spread, float32 also agrees with the exact sampler."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools.probe_sampling import exact_reference
+
+    cfg = wk.SWEEP_CONFIGS[index]
+    hm, coords = (torch.as_tensor(a, device=dev) for a in _window_case(cfg, spread))
+    out = wk.window_sample(hm, coords, cfg)
+    torch.testing.assert_close(out, wk.window_sample_plain(hm, coords, cfg), atol=1e-5, rtol=0)
+    assert float(out[:, 15].abs().max()) == 0.0  # the padding channel
+    if spread <= 7 and cfg.prec in ("fp32", "tf32x3"):
+        torch.testing.assert_close(out, exact_reference(hm, coords), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+@pytest.mark.parametrize("k", [128, 64, 32])
+def test_mma_window_matches_plain(dev, k, dyn):
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+
+    lhs, rhs, oy = mb.make_operands(8, k, dev, seed=k)
+    origin = oy if dyn else None
+    out = wk.mma_window(lhs, rhs, origin, k, mb.NMAT)
+    ref = wk.mma_window_plain(lhs, rhs, origin, k, mb.NMAT)
+    assert out.shape == (8, 8, mb.N) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=0, rtol=2.0 ** -7)
+    # another nmat and narrower operands through the same kernel
+    lhs, rhs, oy = mb.make_operands(3, k, dev, seed=1, m=32, n=64)
+    origin = oy if dyn else None
+    torch.testing.assert_close(wk.mma_window(lhs, rhs, origin, k, 2).float(),
+                               wk.mma_window_plain(lhs, rhs, origin, k, 2).float(),
+                               atol=0, rtol=2.0 ** -7)
+
+
+def test_tuning_wrappers_check_and_count(dev):
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+
+    cfg = wk.PROBE_CONFIG
+    hm, coords = (torch.as_tensor(a, device=dev) for a in _window_case(cfg, 6.0, n_blocks=2))
+    sk.reset_launch_counts()
+    wk.window_sample(hm, coords, cfg)
+    assert sk.launch_counts()["window_sample"] == 1
+    with pytest.raises(ValueError, match="instantiated"):
+        wk.window_sample(hm, coords, wk.WindowConfig(256, 32, 24))
+    with pytest.raises(ValueError):
+        wk.window_sample(hm, coords[..., :128].contiguous(), cfg)  # S of another config
+    with pytest.raises(TypeError):
+        wk.window_sample(hm.double(), coords.double(), cfg)
+    with pytest.raises(ValueError):
+        wk.window_sample(hm, coords.cpu(), cfg)
+    with pytest.raises(ValueError, match="grad"):
+        wk.window_sample(hm.clone().requires_grad_(), coords, cfg)
+    assert sk.launch_counts()["window_sample"] == 1
+
+    lhs, rhs, oy = mb.make_operands(2, 64, dev)
+    wk.mma_window(lhs, rhs, oy, 64)
+    assert sk.launch_counts()["mma_window"] == 1
+    with pytest.raises(ValueError, match="instantiated"):
+        wk.mma_window(lhs, rhs, oy, 48)
+    with pytest.raises(TypeError):
+        wk.mma_window(lhs.float(), rhs, oy, 64)
+    with pytest.raises(ValueError):
+        wk.mma_window(lhs[:, :24].contiguous(), rhs, oy, 64)  # M not a multiple of 16
+    bad = oy.clone()
+    bad[1] = 8  # not a multiple of 16: that step reads NaN, the other is untouched
+    out = wk.mma_window(lhs, rhs, bad, 64)
+    assert torch.isnan(out[1].float()).all() and torch.isfinite(out[0].float()).all()
+    assert sk.launch_counts()["mma_window"] == 2

@@ -149,7 +149,15 @@ def test_port_imports_nothing_of_jax():
             "faster_voxelpose_tpu_torch/engine/loader.py",
             "faster_voxelpose_tpu_torch/engine/checkpoint.py",
             "faster_voxelpose_tpu_torch/datasets/synthetic.py",
-            "faster_voxelpose_tpu_torch/datasets/demo_data.py"} <= names
+            "faster_voxelpose_tpu_torch/datasets/demo_data.py",
+            "faster_voxelpose_tpu_torch/datasets/evaluate.py",
+            "faster_voxelpose_tpu_torch/engine/validator.py",
+            "faster_voxelpose_tpu_torch/ops/window_kernels.py",
+            "faster_voxelpose_tpu_torch/tools/timing.py",
+            "faster_voxelpose_tpu_torch/tools/probe_sampling.py",
+            "faster_voxelpose_tpu_torch/tools/sweep_sampling.py",
+            "faster_voxelpose_tpu_torch/tools/microbench_mma.py",
+            "faster_voxelpose_tpu_torch/tools/validate.py"} <= names
     assert not offenders, offenders
 
 
