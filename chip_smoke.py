@@ -13,7 +13,10 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    from either), on the card at main-path shapes against its plain
    PyTorch version (float32, max abs error <= 1e-5 on values in [0, 1]),
    timed beside its plain version, a grid_sample-based PyTorch yardstick
-   and its bound;
+   and its bound; the crop modes' planes equal bit for bit, and each crop
+   line prints the launch (grid, threads, shared memory) as the kernel's
+   source computes it, and an upper bound on the global atomics it
+   issues, computed from the masks;
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
 4. route phase: the served path answers the same 6 frames under the
@@ -191,7 +194,7 @@ def build_phase():
         log = lib.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "ptxas" in line:
+                if "ptxas" in line or "spill" in line:
                     print("  " + line.strip())
 
 
@@ -298,6 +301,36 @@ def crop_bound(hm, case, geom, project, cube):
     return bound(nbytes, flops)
 
 
+def crop_launch(hm, case, geom, project, cube):
+    """The crop sampler's launch on this run's case, as its source computes
+    it, and upper bounds, computed from the masks, on the global atomicMax
+    it issues.  It issues one per plane cell and joint whose reduction on
+    chip holds a value > 0, so at most: now, one per (column, z chunk) on
+    xy and per (tile, cell) on xz and yz with a live voxel; before this
+    kernel's tiling, one per live (voxel, joint).  The cube mode issues
+    none.  For the phase's own line only: no number here is measured."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    V, _, _, J = hm.shape
+    voxels = geom.ind_voxels_per_axis
+    geo = sk.crop_launch_geometry(V, J, case["K"], voxels, project=project, cube=cube)
+    counts = []  # per valid slot and axis: live voxels per tile along that axis
+    for m, n, t in zip(case["masks"][:3], voxels, geo["tile"]):
+        padded = np.zeros((case["K"], -(-n // t) * t), np.int64)
+        padded[:, :n] = m.cpu().numpy()
+        counts.append(padded[case["vk"]].reshape(len(case["vk"]), -1, t).sum(-1))
+    cx, cy, cz = counts
+    # sums over every (slot, tile x, tile y, z chunk)
+    xy = np.einsum("kx,ky,kz->", cx, cy, cz > 0)
+    xz = np.einsum("kx,ky,kz->", cx, cy > 0, cz)
+    yz = np.einsum("kx,ky,kz->", cx > 0, cy, cz)
+    atomics = 0 if cube else int(J * (xy + xz + yz))
+    before = 0 if cube else case["live"] * J
+    return (f"launch grid {geo['grid']} threads {geo['threads']} smem {geo['smem']} B "
+            f"tile {geo['tile']} global atomics at most {atomics} "
+            f"(before this tiling: at most {before})")
+
+
 def crop_phase(cfg, geom, rig, hm, card, case):
     import torch
 
@@ -324,6 +357,10 @@ def crop_phase(cfg, geom, rig, hm, card, case):
     vk_t = torch.as_tensor(vk, device=hm.device)
     lib_err = max(float((a - b[vk_t]).abs().max()) for a, b in zip(library(), ref))
     b_ms, b_by = crop_bound(hm, case, geom, project=True, cube=False)
+    again = sk.sample_crop_planes(*args)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("two launches of sample_crop_planes differ")
+    launch = crop_launch(hm, case, geom, project=True, cube=False)
     row = dict(name="sample_crop_planes", source=SAMPLING_CU, replaces=f"{PALLAS}:1010",
                path="train", ms=time_ms(lambda: sk.sample_crop_planes(*args)),
                plain_ms=time_ms(lambda: sk.sample_crop_planes_plain(*args)),
@@ -332,7 +369,7 @@ def crop_phase(cfg, geom, rig, hm, card, case):
     print(f"kernel sample_crop_planes: err {err:.3g} (library err {lib_err:.3g}) kernel_ms "
           f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
           f"bound_ms {b_ms:.4f} ({b_by}) K{case['K']} valid {len(vk)} live voxels {case['live']} "
-          f"samples {case['live'] * V} | {card}")
+          f"samples {case['live'] * V} | {launch} | {card}")
     return row
 
 
@@ -362,8 +399,8 @@ def coords_phase(cfg, geom, hm, card, case):
     # the same planes as the projecting kernel's, to the tolerance
     proj = sk.sample_crop_planes(hm, case["cams"], case["tl"], *masks, case["crop"])
     route_err = max(float((a - b).abs().max()) for a, b in zip(out, proj))
-    if not route_err <= TOL:
-        raise AssertionError(f"coords and project routes disagree: {route_err}")
+    if not all(torch.equal(a, b) for a, b in zip(out, proj)):
+        raise AssertionError(f"coords and project routes' planes differ: {route_err}")
     vk_t = torch.as_tensor(case["vk"], device=hm.device)
     norm = pixel_to_norm(pix[vk_t], geom).transpose(0, 1).reshape(hm.shape[0], -1, 2)
 
@@ -372,6 +409,7 @@ def coords_phase(cfg, geom, hm, card, case):
 
     lib_err = max(float((a - b[vk_t]).abs().max()) for a, b in zip(library(), ref))
     b_ms, b_by = crop_bound(hm, case, geom, project=False, cube=False)
+    launch = crop_launch(hm, case, geom, project=False, cube=False)
     row = dict(name="sample_crop_planes_coords", source=SAMPLING_CU, replaces=f"{PALLAS}:947",
                path="route",
                ms=time_ms(lambda: sk.sample_crop_planes_coords(hm, pix, *masks)),
@@ -380,7 +418,8 @@ def coords_phase(cfg, geom, hm, card, case):
     print(f"kernel sample_crop_planes_coords: err {err:.3g} (vs project route {route_err:.3g}, "
           f"library err {lib_err:.3g}) kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
           f"library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) coords "
-          f"{tuple(pix.shape)} {pix.numel() * 4 / 1e6:.1f} MB | {card}")
+          f"{tuple(pix.shape)} {pix.numel() * 4 / 1e6:.1f} MB | "
+          f"{launch} | {card}")
     return row
 
 
@@ -423,6 +462,7 @@ def cube_phase(cfg, geom, hm, card, case):
     plain_ms = time_ms(plains["project"])
     b_ms, b_by = crop_bound(hm, case, geom, project=True, cube=True)
     bc_ms, bc_by = crop_bound(hm, case, geom, project=False, cube=True)
+    launch = crop_launch(hm, case, geom, project=True, cube=True)
     row = dict(name="sample_crop_cube", source=SAMPLING_CU, replaces=f"{PALLAS}:1010", path="route",
                ms=times["project"], plain_ms=plain_ms,
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
@@ -431,7 +471,7 @@ def cube_phase(cfg, geom, hm, card, case):
           f"(library err {lib_err:.3g}) kernel_ms project {times['project']:.4f} coords "
           f"{times['coords']:.4f} plain_ms {plain_ms:.4f} library_ms {row['library_ms']:.4f} "
           f"bound_ms project {b_ms:.4f} ({b_by}) coords {bc_ms:.4f} ({bc_by}) cube "
-          f"{tuple(cube.shape)} {cube.numel() * 4 / 1e6:.1f} MB | {card}")
+          f"{tuple(cube.shape)} {cube.numel() * 4 / 1e6:.1f} MB | {launch} | {card}")
     return row
 
 

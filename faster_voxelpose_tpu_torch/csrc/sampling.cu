@@ -23,14 +23,34 @@
 // near-camera bins, so there is no slow path.  Heatmaps are channels-last
 // (V, H, W, J) float32: the J values of one corner are contiguous, and
 // threads are laid out (voxel, joint) so that the lanes of one voxel read
-// neighbouring joints.  Each launch returns cudaGetLastError().
+// neighbouring joints.  The crop sampler works out each (voxel, view)'s
+// pixel and corner taps once, in one lane, and hands them to the voxel's
+// joint lanes through shared memory; its tiles and plane reductions are
+// described above crop_kernel.  Each launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// The crop sampler's block tile: kTX x kTY columns (x, y) of kTZ voxels
+// along z, one column chunk per warp at a time (kTZ = 32: one voxel per
+// lane when the taps are made).  Small tiles give many short blocks, which
+// balance across the SMs when the bbox masks cut tiles at their edges, and
+// keep shared memory small, which leaves L1 to the heatmap gathers; the
+// price is more global atomics per live voxel on the xz and yz planes.
+constexpr int kTX = 4, kTY = 4, kTZ = 32;
+constexpr int kTS = kTX + kTY + kTZ;  // projection products per (view, row)
+// Views whose corner loads a joint lane issues before it sums any: all of
+// them for rigs of up to 8 cameras.  The gathers hit L2, so the time of a
+// voxel is a few L2 round trips, not one per view.
+constexpr int kViews = 8;
+// fvp_sample_crop's return when the views and joints need more dynamic
+// shared memory than a block of the device may have (no CUDA error is -1)
+constexpr int kErrSharedMemory = -1;
 
 // Constants of the in-kernel voxel -> pixel projection (the counterpart
 // of the JAX package's FusedProj, ops/pallas_sampling.py:455).
@@ -50,30 +70,46 @@ int lane_shift_for(int J) {
   return s;
 }
 
-// Bilinear sample of joint j at pixel (x, y) of one view; corners outside
-// the image weigh zero (zeros padding).  Summed (x0,y0), (x1,y0), (x0,y1),
-// (x1,y1), as the plain version sums.
-__device__ __forceinline__ float bilinear(const float* __restrict__ hm, int H,
-                                          int W, int J, int j, float x,
-                                          float y) {
+// The bilinear taps of pixel (x, y) in an H x W image: the flat pixel
+// index of corner (x0, y0), which corners lie inside the image (bits 0-3:
+// (x0,y0), (x1,y0), (x0,y1), (x1,y1)) and the weights of x1 and y1 as
+// float bits.  The index matters only where a corner is inside, so the
+// corner is clamped before the conversion and no coordinate overflows.
+__device__ __forceinline__ int4 make_tap(float x, float y, int H, int W) {
   const float x0 = floorf(x), y0 = floorf(y);
   const float x1 = x0 + 1.0f, y1 = y0 + 1.0f;
-  const float wx1 = x - x0, wx0 = 1.0f - wx1;
-  const float wy1 = y - y0, wy0 = 1.0f - wy1;
   const float wmax = (float)(W - 1), hmax = (float)(H - 1);
   const bool inx0 = x0 >= 0.0f && x0 <= wmax, inx1 = x1 >= 0.0f && x1 <= wmax;
   const bool iny0 = y0 >= 0.0f && y0 <= hmax, iny1 = y1 >= 0.0f && y1 <= hmax;
-  const int ix0 = inx0 ? (int)x0 : 0, ix1 = inx1 ? (int)x1 : 0;
-  const int iy0 = iny0 ? (int)y0 : 0, iy1 = iny1 ? (int)y1 : 0;
-  const float v00 = (inx0 && iny0) ? __ldg(hm + ((size_t)iy0 * W + ix0) * J + j) : 0.0f;
-  const float v01 = (inx1 && iny0) ? __ldg(hm + ((size_t)iy0 * W + ix1) * J + j) : 0.0f;
-  const float v10 = (inx0 && iny1) ? __ldg(hm + ((size_t)iy1 * W + ix0) * J + j) : 0.0f;
-  const float v11 = (inx1 && iny1) ? __ldg(hm + ((size_t)iy1 * W + ix1) * J + j) : 0.0f;
-  const float w00 = (inx0 && iny0) ? wx0 * wy0 : 0.0f;
-  const float w01 = (inx1 && iny0) ? wx1 * wy0 : 0.0f;
-  const float w10 = (inx0 && iny1) ? wx0 * wy1 : 0.0f;
-  const float w11 = (inx1 && iny1) ? wx1 * wy1 : 0.0f;
-  return v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11;
+  const int ix0 = (int)fminf(fmaxf(x0, -1.0f), wmax);
+  const int iy0 = (int)fminf(fmaxf(y0, -1.0f), hmax);
+  const int in = (int)(inx0 && iny0) | (int)(inx1 && iny0) << 1 |
+                 (int)(inx0 && iny1) << 2 | (int)(inx1 && iny1) << 3;
+  return make_int4(iy0 * W + ix0, in, __float_as_int(x - x0), __float_as_int(y - y0));
+}
+
+// Joint j of one view at a tap, in two steps so that a caller can have
+// the loads of several views in flight before it sums any: the four
+// corners' values (zero outside the image: zeros padding), then their sum
+// (x0,y0), (x1,y0), (x0,y1), (x1,y1) with the bilinear weights, as the
+// plain version sums.
+__device__ __forceinline__ float4 tap_load(const float* __restrict__ hm, int W,
+                                           int J, int j, int4 tap) {
+  const ptrdiff_t i00 = (ptrdiff_t)tap.x * J + j, row = (ptrdiff_t)W * J;
+  return make_float4((tap.y & 1) ? __ldg(hm + i00) : 0.0f,
+                     (tap.y & 2) ? __ldg(hm + i00 + J) : 0.0f,
+                     (tap.y & 4) ? __ldg(hm + i00 + row) : 0.0f,
+                     (tap.y & 8) ? __ldg(hm + i00 + row + J) : 0.0f);
+}
+
+__device__ __forceinline__ float tap_sum(int4 tap, float4 c) {
+  const float wx1 = __int_as_float(tap.z), wx0 = 1.0f - wx1;
+  const float wy1 = __int_as_float(tap.w), wy0 = 1.0f - wy1;
+  const float w00 = (tap.y & 1) ? wx0 * wy0 : 0.0f;
+  const float w01 = (tap.y & 2) ? wx1 * wy0 : 0.0f;
+  const float w10 = (tap.y & 4) ? wx0 * wy1 : 0.0f;
+  const float w11 = (tap.y & 8) ? wx1 * wy1 : 0.0f;
+  return c.x * w00 + c.y * w01 + c.z * w10 + c.w * w11;
 }
 
 __device__ __forceinline__ float clamp01(float v) {
@@ -89,17 +125,13 @@ __device__ __forceinline__ float clamp01(float v) {
 #define SUB __fsub_rn
 #define DIV __fdiv_rn
 
-// World point -> heatmap pixel for one packed camera c[21], op for op as
-// project_points + project_to_norm_coords + norm_to_pixel
-// (geometry/cameras.py, geometry/grids.py).
-__device__ __forceinline__ void project_pixel(const float* c, float wx,
-                                              float wy, float wz,
-                                              const CropConsts& k, float& px,
-                                              float& py) {
-  const float xt0 = SUB(wx, c[9]), xt1 = SUB(wy, c[10]), xt2 = SUB(wz, c[11]);
-  const float xc0 = ADD(ADD(MUL(xt0, c[0]), MUL(xt1, c[1])), MUL(xt2, c[2]));
-  const float xc1 = ADD(ADD(MUL(xt0, c[3]), MUL(xt1, c[4])), MUL(xt2, c[5]));
-  const float xc2 = ADD(ADD(MUL(xt0, c[6]), MUL(xt1, c[7])), MUL(xt2, c[8]));
+// Camera-frame point (xc0, xc1, xc2) of one packed camera c[21] -> heatmap
+// pixel, op for op as the rest of project_points + project_to_norm_coords
+// + norm_to_pixel (geometry/cameras.py, geometry/grids.py).
+__device__ __forceinline__ void camera_to_pixel(const float* c, float xc0,
+                                                float xc1, float xc2,
+                                                const CropConsts& k, float& px,
+                                                float& py) {
   const float den = ADD(xc2, 1e-5f);
   const float y0 = DIV(xc0, den), y1 = DIV(xc1, den);
   const float r2 = ADD(MUL(y0, y0), MUL(y1, y1));
@@ -135,30 +167,44 @@ sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
   float acc = 0.0f;
   for (int v = 0; v < V; ++v) {
     const float2 p = p2[(size_t)v * N + n];
-    acc += bilinear(hm + v * view, H, W, J, lane, p.x, p.y);
+    const int4 tap = make_tap(p.x, p.y, H, W);
+    acc += tap_sum(tap, tap_load(hm + v * view, W, J, lane, tap));
   }
   out[(size_t)n * J + lane] = clamp01(acc / (float)V);
 }
 
-// One block per (x slab, slot), lanes over joints; the block walks the
-// slab's (y, z) voxels.  Two template switches share this body:
+// The crop sampler.  One block per (tile, slot): a tile is kTX x kTY
+// columns (x, y) by kTZ voxels along z, blockIdx.x = (tile x * nty +
+// tile y) * nzc + z chunk.  A dead slot, or a tile whose x, y or z masks
+// keep nothing, returns at once (in cube mode after writing its zeros).
+// Each warp walks the tile's columns; in a column it compacts the voxels
+// that the masks keep (a ballot), each of their lanes makes the voxel's
+// taps in every view into shared memory, and then the joint lanes (1 <<
+// lane_shift per voxel, 32 >> lane_shift voxels at a time) sample,
+// average and clamp.  Masked columns and voxels cost no iteration, and
+// any uint8 masks work, intervals or not.  Two template switches:
 //
-//   kCoords  false: each voxel's pixel in each view is projected here from
-//                   the rig and the crop origin (project_pixel);
-//            true:  it is read from precomputed coords pix (K, V, N, 2),
-//                   N = vx * vy * vz voxels in (x, y, z) order.  Dead
-//                   slots, masked slabs and masked voxels read no coords.
-//   kCube    false: xy (max over z) and xz (max over y) reduce in shared
-//                   memory, yz (max over x) across blocks with atomicMax
-//                   into the zero-initialised output.  Every value is >= 0
+//   kCoords  false: the pixel is projected here.  xc_r = (p_r0[x] +
+//                   p_r1[y]) + p_r2[z] with p_ra[i] = (origin_a + (tl_a +
+//                   i) * step_a - cam_a) * R[r][a]: each product depends on
+//                   one axis index only, so the block computes them once
+//                   (s_prod) and each voxel adds them in project_points'
+//                   order, bit for bit the unfactored pixel; the divide,
+//                   distortion and affine run once per (voxel, view).
+//            true:  it is read from pix (K, V, N, 2), N = vx * vy * vz
+//                   voxels in (x, y, z) order; masked voxels read nothing.
+//   kCube    false: xy (max over z) is taken in registers over a column
+//                   chunk and leaves with one atomicMax per (column,
+//                   chunk, joint); xz (max over y) and yz (max over x)
+//                   reduce over the tile in shared memory and leave with
+//                   one atomicMax per (tile, cell, joint) holding a value
+//                   > 0, into the zero-filled output.  Every value is >= 0
 //                   after the clamp and the mask, so the int order of the
 //                   float bits is the float order; +0.0f turns a -0.0 into
-//                   +0.0 before the compare.  Dead slots, masked slabs and
-//                   masked voxels write nothing: their planes stay 0,
-//                   which is what the max of masked (zero) values gives.
+//                   +0.0.  Max is order-free: the planes are deterministic.
 //            true:  the bbox-masked cube (K, vx, vy, vz, J) is written
-//                   whole, zeros for dead slots, masked slabs and masked
-//                   voxels, so the output needs no zero fill.
+//                   whole, zeros for dead slots and masked tiles, columns
+//                   and voxels, so the output needs no zero fill.
 template <bool kCoords, bool kCube>
 __global__ void __launch_bounds__(kThreads)
 crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
@@ -168,81 +214,174 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
             CropConsts kc, float* __restrict__ out_xy,
             float* __restrict__ out_xz, float* __restrict__ out_yz,
             float* __restrict__ out_cube, int V, int H, int W, int J, int vx,
-            int vy, int vz, int lane_shift) {
-  const int x = blockIdx.x, k = blockIdx.y;
-  const size_t slab = (size_t)vy * vz;  // voxels of one x slab
-  float* cube = kCube ? out_cube + ((size_t)k * vx + x) * slab * J : nullptr;
-  if (!valid[k] || !mx[(size_t)k * vx + x]) {
+            int vy, int vz, int nty, int nzc, int lane_shift) {
+  const int k = blockIdx.y, t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int tile = blockIdx.x / nzc;
+  const int x0 = tile / nty * kTX, y0 = tile % nty * kTY, z0 = blockIdx.x % nzc * kTZ;
+  const int nx = min(kTX, vx - x0), ny = min(kTY, vy - y0), nz = min(kTZ, vz - z0);
+  const uint8_t* mxk = mx + (size_t)k * vx;
+  const uint8_t* myk = my + (size_t)k * vy;
+  const uint8_t* mzk = mz + (size_t)k * vz;
+  // the cube chunk (nz, J) of tile column c, contiguous
+  auto column = [&](int c) {
+    return out_cube + ((((size_t)k * vx + x0 + c / kTY) * vy + y0 + c % kTY) * vz + z0) * J;
+  };
+
+  // valid[k] is the same for the whole block, and so is each vote
+  const bool live = valid[k] && __syncthreads_or(t < nx && mxk[x0 + t]) &&
+                    __syncthreads_or(t < ny && myk[y0 + t]) &&
+                    __syncthreads_or(t < nz && mzk[z0 + t]);
+  if (!live) {
     if (kCube)
-      for (size_t i = threadIdx.x; i < slab * J; i += blockDim.x) cube[i] = 0.0f;
+      for (int c = warp; c < kTX * kTY; c += kWarps) {
+        if (c / kTY >= nx || c % kTY >= ny) continue;
+        float* col = column(c);
+        for (int e = lane; e < nz * J; e += 32) col[e] = 0.0f;
+      }
     return;
   }
 
-  extern __shared__ float smem[];
-  float* s_cams = smem;                               // V * 21 (projection)
-  int* s_xy = reinterpret_cast<int*>(smem + V * 21);  // vy * J (planes)
-  int* s_xz = s_xy + vy * J;                          // vz * J (planes)
-  if (!kCoords)
-    for (int i = threadIdx.x; i < V * 21; i += blockDim.x) s_cams[i] = cams[i];
+  extern __shared__ int4 smem[];
+  int4* s_tap = smem;                                          // kWarps * V * 32
+  int* s_z = reinterpret_cast<int*>(s_tap + kWarps * V * 32);  // kWarps * 32
+  float* s_cam = reinterpret_cast<float*>(s_z + kWarps * 32);  // V * 21 (projection)
+  float* s_prod = s_cam + (kCoords ? 0 : V * 21);              // V * 3 * kTS (projection)
+  int* s_xz = reinterpret_cast<int*>(s_prod + (kCoords ? 0 : V * 3 * kTS));  // kTX * kTZ * J
+  int* s_yz = s_xz + kTX * kTZ * J;                                          // kTY * kTZ * J
+  if (!kCoords) {
+    for (int i = t; i < V * 21; i += kThreads) s_cam[i] = cams[i];
+    for (int i = t; i < V * 3 * kTS; i += kThreads) {
+      const int v = i / (3 * kTS), r = i / kTS % 3, s = i % kTS;
+      const int a = s < kTX ? 0 : s < kTX + kTY ? 1 : 2;
+      const int idx = tl[3 * k + a] + (a == 0 ? x0 + s : a == 1 ? y0 + s - kTX : z0 + s - kTX - kTY);
+      const float w = ADD(kc.origin[a], MUL((float)idx, kc.step[a]));
+      s_prod[i] = MUL(SUB(w, cams[21 * v + 9 + a]), cams[21 * v + 3 * r + a]);
+    }
+  }
   if (!kCube)
-    for (int i = threadIdx.x; i < (vy + vz) * J; i += blockDim.x) s_xy[i] = 0;
+    for (int i = t; i < (kTX + kTY) * kTZ * J; i += kThreads) s_xz[i] = 0;
   __syncthreads();
 
-  const int lane = threadIdx.x & ((1 << lane_shift) - 1);
-  const int per_iter = blockDim.x >> lane_shift;
-  const uint8_t* myk = my + (size_t)k * vy;
-  const uint8_t* mzk = mz + (size_t)k * vz;
-  const size_t view = (size_t)H * W * J;
-  const size_t n_vox = (size_t)vx * slab;
-  const float2* pk = kCoords ? reinterpret_cast<const float2*>(pix) +
-                                   (size_t)k * V * n_vox + (size_t)x * slab
-                             : nullptr;
-  const float wx = kCoords ? 0.0f : ADD(kc.origin[0], MUL((float)(tl[3 * k] + x), kc.step[0]));
-  const int tly = kCoords ? 0 : tl[3 * k + 1], tlz = kCoords ? 0 : tl[3 * k + 2];
+  const int lanes = 1 << lane_shift, per_step = 32 >> lane_shift;
+  const int j = lane & (lanes - 1), g = lane >> lane_shift;
+  int4* tap = s_tap + warp * V * 32;
+  int* zof = s_z + warp * 32;
+  const size_t view = (size_t)H * W * J, n_vox = (size_t)vx * vy * vz;
+  const unsigned chunk = nz == 32 ? ~0u : (1u << nz) - 1u;
 
-  for (int i = threadIdx.x >> lane_shift; i < (int)slab; i += per_iter) {
-    const int y = i / vz, z = i - y * vz;
-    if (lane >= J) continue;
-    if (!myk[y] || !mzk[z]) {
-      if (kCube) cube[(size_t)i * J + lane] = 0.0f;
-      continue;
+  for (int c = warp; c < kTX * kTY; c += kWarps) {
+    const int xl = c / kTY, yl = c % kTY;
+    if (xl >= nx || yl >= ny) continue;
+    const int x = x0 + xl, y = y0 + yl;
+    const bool in = lane < nz && mxk[x] && myk[y] && mzk[z0 + lane];
+    const unsigned kept = __ballot_sync(~0u, in);
+    float* col = kCube ? column(c) : nullptr;
+    if (kCube) {  // zeros for the chunk's masked voxels
+      if (!kept)
+        for (int e = lane; e < nz * J; e += 32) col[e] = 0.0f;
+      else
+        for (unsigned dead = chunk & ~kept; dead; dead &= dead - 1u)
+          if (lane < J) col[(__ffs(dead) - 1) * J + lane] = 0.0f;
     }
-    float wy = 0.0f, wz = 0.0f;
-    if (!kCoords) {
-      wy = ADD(kc.origin[1], MUL((float)(tly + y), kc.step[1]));
-      wz = ADD(kc.origin[2], MUL((float)(tlz + z), kc.step[2]));
-    }
-    float acc = 0.0f;
-    for (int v = 0; v < V; ++v) {
-      float px, py;
-      if (kCoords) {
-        const float2 p = pk[(size_t)v * n_vox + i];
-        px = p.x;
-        py = p.y;
-      } else {
-        project_pixel(s_cams + 21 * v, wx, wy, wz, kc, px, py);
+    if (!kept) continue;
+
+    if (in) {  // this lane's voxel: its taps in every view
+      const int q = __popc(kept & ((1u << lane) - 1u));
+      zof[q] = lane;
+      for (int v = 0; v < V; ++v) {
+        float px, py;
+        if (kCoords) {
+          const float2 p = reinterpret_cast<const float2*>(pix)
+              [((size_t)k * V + v) * n_vox + ((size_t)x * vy + y) * vz + z0 + lane];
+          px = p.x;
+          py = p.y;
+        } else {
+          const float* pr = s_prod + v * 3 * kTS;
+          const float xc0 = ADD(ADD(pr[xl], pr[kTX + yl]), pr[kTX + kTY + lane]);
+          pr += kTS;
+          const float xc1 = ADD(ADD(pr[xl], pr[kTX + yl]), pr[kTX + kTY + lane]);
+          pr += kTS;
+          const float xc2 = ADD(ADD(pr[xl], pr[kTX + yl]), pr[kTX + kTY + lane]);
+          camera_to_pixel(s_cam + 21 * v, xc0, xc1, xc2, kc, px, py);
+        }
+        tap[v * 32 + q] = make_tap(px, py, H, W);
       }
-      acc += bilinear(hm + v * view, H, W, J, lane, px, py);
     }
-    const float r = clamp01(acc / (float)V) + 0.0f;
-    if (kCube) {
-      cube[(size_t)i * J + lane] = r;
-    } else if (r > 0.0f) {
-      const int bits = __float_as_int(r);
-      atomicMax(&s_xy[y * J + lane], bits);
-      atomicMax(&s_xz[z * J + lane], bits);
-      atomicMax(reinterpret_cast<int*>(out_yz) +
-                    (((size_t)k * vy + y) * vz + z) * J + lane,
-                bits);
+    __syncwarp();
+
+    float m_xy = 0.0f;  // this lane's max over its voxels of the chunk
+    if (j < J) {
+      const int n = __popc(kept);
+      for (int s = g; s < n; s += per_step) {
+        float acc = 0.0f;
+        for (int v0 = 0; v0 < V; v0 += kViews) {  // kViews views' loads in flight
+          float4 c[kViews];
+#pragma unroll
+          for (int u = 0; u < kViews; ++u)
+            if (v0 + u < V) c[u] = tap_load(hm + (v0 + u) * view, W, J, j, tap[(v0 + u) * 32 + s]);
+#pragma unroll
+          for (int u = 0; u < kViews; ++u)
+            if (v0 + u < V) acc += tap_sum(tap[(v0 + u) * 32 + s], c[u]);
+        }
+        const float r = clamp01(acc / (float)V) + 0.0f;
+        const int zl = zof[s];
+        if (kCube) {
+          col[zl * J + j] = r;
+        } else if (r > 0.0f) {
+          m_xy = fmaxf(m_xy, r);
+          atomicMax(&s_xz[(xl * kTZ + zl) * J + j], __float_as_int(r));
+          atomicMax(&s_yz[(yl * kTZ + zl) * J + j], __float_as_int(r));
+        }
+      }
     }
+    if (!kCube) {
+      for (int o = lanes; o < 32; o <<= 1) m_xy = fmaxf(m_xy, __shfl_xor_sync(~0u, m_xy, o));
+      if (g == 0 && j < J && m_xy > 0.0f)
+        atomicMax(reinterpret_cast<int*>(out_xy) + (((size_t)k * vx + x) * vy + y) * J + j,
+                  __float_as_int(m_xy));
+    }
+    __syncwarp();  // the next column's taps overwrite this one's
   }
   if (kCube) return;
   __syncthreads();
 
-  float* oxy = out_xy + ((size_t)k * vx + x) * vy * J;
-  float* oxz = out_xz + ((size_t)k * vx + x) * vz * J;
-  for (int i = threadIdx.x; i < vy * J; i += blockDim.x) oxy[i] = __int_as_float(s_xy[i]);
-  for (int i = threadIdx.x; i < vz * J; i += blockDim.x) oxz[i] = __int_as_float(s_xz[i]);
+  // xz rows (xl, zl), then yz rows (yl, zl): one atomicMax per cell and
+  // joint that holds a value
+  for (int row = warp; row < (kTX + kTY) * kTZ; row += kWarps) {
+    const bool xz = row < kTX * kTZ;
+    const int a = (xz ? row : row - kTX * kTZ) / kTZ, zl = row % kTZ;
+    if (a >= (xz ? nx : ny) || zl >= nz || lane >= J) continue;
+    const int bits = s_xz[row * J + lane];
+    if (bits <= 0) continue;
+    int* dst = xz ? reinterpret_cast<int*>(out_xz) + (((size_t)k * vx + x0 + a) * vz + z0 + zl) * J
+                  : reinterpret_cast<int*>(out_yz) + (((size_t)k * vy + y0 + a) * vz + z0 + zl) * J;
+    atomicMax(dst + lane, bits);
+  }
+}
+
+// Launch geometry of the crop sampler: grid (tiles, K), threads, dynamic
+// shared memory in bytes.
+struct CropLaunch {
+  unsigned tiles, nty, nzc;
+  size_t smem;
+};
+
+CropLaunch crop_launch(int V, int J, int vx, int vy, int vz, int from_coords, int cube) {
+  const unsigned ntx = (vx + kTX - 1) / kTX, nty = (vy + kTY - 1) / kTY,
+                 nzc = (vz + kTZ - 1) / kTZ;
+  size_t smem = 16 * (size_t)kWarps * V * 32 + 4 * (size_t)kWarps * 32;
+  if (!from_coords) smem += 4 * ((size_t)V * 21 + (size_t)V * 3 * kTS);
+  if (!cube) smem += 4 * (size_t)(kTX + kTY) * kTZ * J;
+  return {ntx * nty * nzc, nty, nzc, smem};
+}
+
+// The most dynamic shared memory a block of the current device may have
+// (its opt-in limit).
+cudaError_t max_smem(int* bytes) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 }  // namespace
@@ -261,13 +400,29 @@ int fvp_sample_whole(const float* hm, const float* pix, float* out, int V,
   return (int)cudaGetLastError();
 }
 
+// The crop sampler's launch: out[0] blocks along x, out[1] = K along y,
+// out[2] threads per block, out[3] dynamic shared memory in bytes, out[4]
+// the most a block of the current device may have, out[5..7] the tile
+// (kTX, kTY, kTZ).  Returns the CUDA error of reading the device.
+int fvp_crop_launch_geometry(int V, int J, int K, int vx, int vy, int vz,
+                             int from_coords, int cube, long long* out) {
+  const CropLaunch l = crop_launch(V, J, vx, vy, vz, from_coords, cube);
+  int most = 0;
+  const cudaError_t e = max_smem(&most);
+  const long long geometry[8] = {l.tiles, K, kThreads, (long long)l.smem,
+                                 most, kTX, kTY, kTZ};
+  for (int i = 0; i < 8; ++i) out[i] = geometry[i];
+  return (int)e;
+}
+
 // The crop sampler in its four modes.  heatmaps (V, H, W, J); mx (K, vx),
 // my (K, vy), mz (K, vz), valid (K,) uint8.  from_coords = 0: cams (V, 21),
 // tl (K, 3) int32 and consts (21 host floats in CropConsts order) give the
 // pixels; from_coords = 1: pix (K, V, vx*vy*vz, 2) gives them.  cube = 0:
 // outputs (K, vx, vy, J), (K, vx, vz, J), (K, vy, vz, J), zero-filled;
 // cube = 1: output (K, vx, vy, vz, J), any contents.  Unused pointers may
-// be null.
+// be null.  Returns kErrSharedMemory (-1) when V and J need more shared
+// memory than a block may have, else the launch's CUDA error.
 int fvp_sample_crop(const float* hm, const float* cams, const int* tl,
                     const float* pix, const uint8_t* mx, const uint8_t* my,
                     const uint8_t* mz, const uint8_t* valid,
@@ -276,19 +431,30 @@ int fvp_sample_crop(const float* hm, const float* cams, const int* tl,
                     int K, int vx, int vy, int vz, int from_coords, int cube,
                     void* stream) {
   if (K <= 0) return (int)cudaGetLastError();
+  const CropLaunch l = crop_launch(V, J, vx, vy, vz, from_coords, cube);
+  int most = 0;
+  const cudaError_t e = max_smem(&most);
+  if (e != cudaSuccess) return (int)e;
+  if (l.smem > (size_t)most) return kErrSharedMemory;
   CropConsts kc;
   float* dst = reinterpret_cast<float*>(&kc);
   for (int i = 0; i < (int)(sizeof(CropConsts) / sizeof(float)); ++i)
     dst[i] = from_coords ? 0.0f : consts[i];
   const int shift = lane_shift_for(J);
-  const size_t smem =
-      sizeof(float) * ((size_t)V * 21 + (cube ? 0 : (size_t)(vy + vz) * J));
-  const dim3 grid((unsigned)vx, (unsigned)K);
+  const dim3 grid(l.tiles, (unsigned)K);
   const cudaStream_t st = (cudaStream_t)stream;
-#define FVP_CROP(C, Q)                                                     \
-  crop_kernel<C, Q><<<grid, kThreads, smem, st>>>(                         \
-      hm, cams, tl, pix, mx, my, mz, valid, kc, out_xy, out_xz, out_yz,    \
-      out_cube, V, H, W, J, vx, vy, vz, shift)
+#define FVP_CROP(C, Q)                                                          \
+  do {                                                                          \
+    if (l.smem > 48 * 1024) {                                                   \
+      const cudaError_t a = cudaFuncSetAttribute(                               \
+          crop_kernel<C, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,       \
+          (int)l.smem);                                                         \
+      if (a != cudaSuccess) return (int)a;                                      \
+    }                                                                           \
+    crop_kernel<C, Q><<<grid, kThreads, l.smem, st>>>(                          \
+        hm, cams, tl, pix, mx, my, mz, valid, kc, out_xy, out_xz, out_yz,       \
+        out_cube, V, H, W, J, vx, vy, vz, (int)l.nty, (int)l.nzc, shift);       \
+  } while (0)
   if (from_coords) {
     if (cube) FVP_CROP(true, true); else FVP_CROP(true, false);
   } else {

@@ -32,14 +32,28 @@ sample_crop_planes
     joint) against the bytes it must move (heatmaps in, three planes out,
     ~17 MB); which one wins depends on how much of each crop the bbox
     masks keep, so `chip_smoke.py` counts both from the run's own masks.
-    The gathers are L2 traffic (13.1M samples x 4 corners x J x 4 B, about
-    3 GB at K = 10), not device-memory traffic, which is why the real time
-    sits far above the bound.  Design: one block per (slot, x slab); xy
-    and xz reduce in shared memory, yz across blocks with atomicMax on the
-    float bits (all values are >= 0); dead slots, masked slabs and masked
-    voxels are skipped.  The projection rounds after every operation,
-    as the plain version does: near a camera an FMA's missing rounding
-    moves a sample by more than the 1e-5 tolerance.
+    The gathers are L2 traffic (3.5M live (voxel, view) samples x 4
+    corners x J x 4 B, about 0.85 GB at K = 10), not device-memory
+    traffic, which is why the real time sits far above the bound.
+    Design (`csrc/sampling.cu`, above crop_kernel): one block of 256
+    threads per (slot, 4 x 4 x 32 tile), so the threads at work follow the
+    live voxels; dead slots and tiles the masks empty return at once.  A
+    warp walks its tile's (x, y) columns; in each it compacts the voxels
+    the masks keep, and each of their lanes projects its voxel into every
+    view once: the camera-frame coordinates are sums of per-axis products
+    that the block computes once, added in `project_points`' order, so
+    the pixel is bit for bit the unfactored one; then the divide,
+    distortion and affine, rounding after every operation as the plain
+    version does (near a camera an FMA's missing rounding moves a sample
+    by more than the 1e-5 tolerance).  The lane leaves the four corner
+    taps in shared memory, and the voxel's joint lanes issue all views'
+    corner loads before they sum any.  The planes reduce on chip: xy in
+    registers over a column, xz and yz in shared memory over the tile,
+    then one atomicMax on the float bits (all values are >= 0) per
+    (tile, cell, joint) holding a value: at most 5,967,480 global atomics
+    at the Panoptic case of `chip_smoke.py`, against at most one per live
+    (voxel, joint), 10,520,280, before (upper bounds that `chip_smoke.py`
+    computes from the masks).  Any uint8 masks work, intervals or not.
 
 sample_crop_planes_coords
     Replaces `sample_tiles(..., emit_planes=True, valid, mask)` on
@@ -52,8 +66,8 @@ sample_crop_planes_coords
     on an H100: the coords of the live voxels (8 B per voxel and view)
     and the planes against the same gathers' operations, counted by
     `chip_smoke.py` from the masks.  Design: the same device code as
-    sample_crop_planes (one template); dead slots, masked slabs and masked
-    voxels read no coords.
+    sample_crop_planes (one template), the taps made from the coords;
+    dead slots, masked tiles and masked voxels read no coords.
 
 sample_crop_cube
     Replaces the masked cube mode of `sample_tiles` / `sample_tiles_fused`
@@ -64,8 +78,9 @@ sample_crop_cube
     whose planes the caller takes by max-reduction.  Bound on an H100:
     bytes; it must write the whole cube (157 MB at K = 10, about 47 us),
     plus the coords when it reads them.  Design: the same template, with
-    every cube element written once (zeros for dead slots and masked
-    voxels), so the output needs no zero fill.
+    every cube element written once (zeros for dead slots, masked tiles,
+    columns and voxels), a column's z run contiguous, so the output needs
+    no zero fill.
 
 Every kernel here is forward only: no gradient reaches the samplers in
 training (the heatmaps are data, the proposals are detached), and each
@@ -260,6 +275,8 @@ def _lib():
         lib.fvp_sample_whole.restype = _I
         lib.fvp_sample_crop.argtypes = [_P] * 13 + [_I] * 10 + [_P]
         lib.fvp_sample_crop.restype = _I
+        lib.fvp_crop_launch_geometry.argtypes = [_I] * 8 + [_P]
+        lib.fvp_crop_launch_geometry.restype = _I
         lib._fvp_typed = True
     return lib
 
@@ -320,6 +337,25 @@ def sample_whole(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# fvp_sample_crop's return when V and J need more shared memory per
+# block than the device has
+_ERR_SHARED_MEMORY = -1
+
+
+def crop_launch_geometry(V: int, J: int, K: int, voxels: Tuple[int, int, int], *,
+                         project: bool, cube: bool) -> Dict[str, object]:
+    """The crop sampler's launch for these shapes, as the kernel's source
+    computes it: grid (tiles, K), threads per block, dynamic shared
+    memory and the most a block of the current CUDA device may have, in
+    bytes, and the block tile (x, y, z).  For reports and tests; the
+    launch itself does not call it."""
+    out = (ctypes.c_longlong * 8)()
+    err = _lib().fvp_crop_launch_geometry(V, J, K, *voxels, int(not project), int(cube), out)
+    _raise_on(err, "crop_launch_geometry")
+    return dict(grid=(out[0], out[1]), threads=out[2], smem=out[3], smem_max=out[4],
+                tile=tuple(out[5:8]))
+
+
 def _launch_crop(name, heatmaps, mx, my, mz, valid, *, cams=None, centers_tl=None,
                  crop=None, pix=None, cube=False):
     """Check the inputs of one crop-sampler mode, allocate its outputs and
@@ -340,8 +376,8 @@ def _launch_crop(name, heatmaps, mx, my, mz, valid, *, cams=None, centers_tl=Non
         consts = np.zeros(21, np.float32)
     if not 0 < J <= 32:
         raise ValueError(f"{name} takes 1..32 joints, got {J}")
-    if 4 * (V * 21 + (0 if cube else (vy + vz) * J)) > 48 * 1024:
-        raise ValueError(f"{name}: planes exceed the kernel's 48 KB of shared memory")
+    if K > 65535:
+        raise ValueError(f"{name} takes at most 65535 slots, got {K}")
     kw = dict(dtype=torch.float32, device=heatmaps.device)
     if cube:
         out = (torch.empty((K, vx, vy, vz, J), **kw),)
@@ -356,6 +392,9 @@ def _launch_crop(name, heatmaps, mx, my, mz, valid, *, cams=None, centers_tl=Non
         V, H, W, J, K, vx, vy, vz, int(pix is not None), int(cube),
         _stream(heatmaps.device),
     )
+    if err == _ERR_SHARED_MEMORY:
+        raise ValueError(f"{name}: {V} views and {J} joints need more shared memory per "
+                         "block than the device has")
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return out[0] if cube else out

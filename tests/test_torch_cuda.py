@@ -134,6 +134,122 @@ def test_coords_and_cube_modes_match_plain(dev, profile):
         assert torch.equal(a, b)
 
 
+def _edge_case(dev, voxels, J, seed=0, views=3):
+    """K = 4 crops of `voxels` on the tiny geometry's projection, J joints,
+    `views` cameras: slot 0 with masks that are not intervals, slot 1 dead,
+    slot 2 with one live voxel, slot 3 with interval masks right next to a
+    camera."""
+    from faster_voxelpose_tpu_torch.models import projection as pj
+
+    cfg = tiny_cfg()
+    cfg.DATASET.CAMERA_NUM = views
+    geom, rig, _, centers, _, _ = _case(cfg, seed, K=4)
+    rng = np.random.RandomState(seed)
+    V, (W, H) = cfg.DATASET.CAMERA_NUM, cfg.DATASET.HEATMAP_SIZE
+    hm = torch.as_tensor(rng.rand(V, H, W, J).astype(np.float32), device=dev)
+    tl, _ = pj.compute_crop_origin(geom, torch.as_tensor(centers, device=dev))
+    masks = [torch.as_tensor(rng.rand(4, n) < 0.6, device=dev).to(torch.uint8) for n in voxels]
+    for m, n in zip(masks, voxels):
+        m[2] = 0
+        m[2, n // 2] = 1
+        m[3] = 0
+        m[3, n // 4: n - 2] = 1
+    valid = torch.tensor([1, 0, 1, 1], dtype=torch.uint8, device=dev)
+    return hm, torch.as_tensor(rig, device=dev), tl.contiguous(), masks, valid, pj.crop_projection(geom)
+
+
+def _crop_modes(hm, cams, tl, masks, valid, crop, voxels):
+    """Every crop-sampler mode on one input, with its plain version:
+    {mode: (kernel output, plain output)}."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    pix = sk.crop_pixels(crop, cams, tl, voxels)
+    proj = dict(cams=cams, centers_tl=tl, crop=crop)
+    return {
+        "planes": (sk.sample_crop_planes(hm, cams, tl, *masks, valid, crop),
+                   sk.sample_crop_planes_plain(hm, cams, tl, *masks, valid, crop)),
+        "planes_coords": (sk.sample_crop_planes_coords(hm, pix, *masks, valid),
+                          sk.sample_crop_coords_plain(hm, pix, *masks, valid)),
+        "cube": ((sk.sample_crop_cube(hm, *masks, valid, **proj),),
+                 (sk.sample_crop_planes_plain(hm, cams, tl, *masks, valid, crop, cube=True),)),
+        "cube_coords": ((sk.sample_crop_cube(hm, *masks, valid, pix=pix),),
+                        (sk.sample_crop_coords_plain(hm, pix, *masks, valid, cube=True),)),
+    }
+
+
+def _hold_crop_modes(hm, cams, tl, masks, valid, crop, voxels):
+    """Every crop-sampler mode against its plain version at 1e-5, zeros
+    for the dead slot 1, at most one live voxel in slot 2; two launches
+    give the same planes bit for bit, and so do the cube's max planes."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    modes = _crop_modes(hm, cams, tl, masks, valid, crop, voxels)
+    for mode, (out, ref) in modes.items():
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=lambda m: f"{mode}: {m}")
+            assert float(a[1].abs().max()) == 0.0, mode  # the dead slot
+    cube = modes["cube"][0][0]
+    assert int((cube[2] != 0).any(-1).sum()) <= 1 and float(cube[0].max()) > 0.0
+    again = sk.sample_crop_planes(hm, cams, tl, *masks, valid, crop)
+    for a, b, c in zip(modes["planes"][0], again, (cube.amax(3), cube.amax(2), cube.amax(1))):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# (16, 16, 16) and (24, 40, 8) fill every x, y tile and cut z; (18, 22, 40)
+# and (5, 7, 33) cut every axis, with a partial last z chunk after a full one
+_EDGE_VOXELS = [(16, 16, 16), (24, 40, 8), (18, 22, 40), (5, 7, 33)]
+
+
+@pytest.mark.parametrize("J", [1, 15, 16, 32])
+@pytest.mark.parametrize("voxels", _EDGE_VOXELS)
+def test_crop_modes_at_tile_edges(dev, voxels, J):
+    """The crop sampler's tiling against its plain versions: crop sizes
+    that are not multiples of the block tile, masks that are not
+    intervals, a dead slot and a slot with one live voxel, 1 to 32
+    joints."""
+    _hold_crop_modes(*_edge_case(dev, voxels, J), voxels)
+
+
+def test_crop_modes_above_48kb_of_shared_memory(dev):
+    """Ten views: the planes modes need more than the 48 KB of dynamic
+    shared memory a launch gets by default, so the kernel raises its
+    limit; every mode still matches its plain version."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    voxels = (18, 22, 40)
+    for project in (True, False):
+        geo = sk.crop_launch_geometry(10, 15, 4, voxels, project=project, cube=False)
+        assert 48 * 1024 < geo["smem"] <= geo["smem_max"]
+    _hold_crop_modes(*_edge_case(dev, voxels, 15, views=10), voxels)
+
+
+@pytest.mark.parametrize("voxels", _EDGE_VOXELS)
+def test_crop_modes_with_every_slot_dead(dev, voxels):
+    """No valid slot: every mode returns zeros without touching a pixel."""
+    hm, cams, tl, masks, valid, crop = _edge_case(dev, voxels, 15, seed=1)
+    modes = _crop_modes(hm, cams, tl, masks, torch.zeros_like(valid), crop, voxels)
+    for mode, (out, ref) in modes.items():
+        for a, b in zip(out, ref):
+            assert float(a.abs().max()) == 0.0 and float(b.abs().max()) == 0.0, mode
+
+
+def test_crop_launch_geometry(dev):
+    """The launch that the kernel's source computes: one block per tile
+    and slot, the shared memory within what a block has."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    for project in (True, False):
+        for cube in (True, False):
+            geo = sk.crop_launch_geometry(5, 15, 10, (64, 64, 64), project=project, cube=cube)
+            tx, ty, tz = geo["tile"]
+            assert geo["grid"] == (-(-64 // tx) * -(-64 // ty) * -(-64 // tz), 10)
+            assert 0 < geo["smem"] <= geo["smem_max"] and geo["threads"] % 32 == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        hm = torch.rand(200, 4, 4, 32, device=dev)
+        m = torch.ones(1, 8, dtype=torch.uint8, device=dev)
+        sk.sample_crop_planes_coords(hm, torch.zeros(1, 200, 512, 2, device=dev), m, m, m, m[:, 0])
+
+
 def test_model_routes_agree_on_the_card(dev):
     """The tiny model under the default, coords and cube routes: each
     launches its own crop kernel once and the poses agree."""

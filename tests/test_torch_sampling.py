@@ -283,6 +283,78 @@ def test_crop_cube_plain_is_the_masked_cube():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+def _factored_crop_pixels(crop, cams, tl, voxels):
+    """crop_pixels with the camera-frame coordinates summed from per-axis
+    products, as the crop kernel sums them: xc_r = (p_r0[x] + p_r1[y]) +
+    p_r2[z], p_ra[i] = (origin_a + (tl_a + i) * step_a - cam_t_a) * R[r][a];
+    then the rest of project_points, project_to_norm_coords and
+    norm_to_pixel, op for op.  (K, V, vx*vy*vz, 2)."""
+    from faster_voxelpose_tpu_torch.geometry.grids import reciprocal_f32
+
+    K, V = tl.shape[0], cams.shape[0]
+    prods = []  # per axis a: (K, V, 3 rows, v_a)
+    for a in range(3):
+        idx = tl[:, a, None] + torch.arange(voxels[a], dtype=tl.dtype)
+        xt = (crop.origin[a] + idx.float() * crop.step[a])[:, None, :] - cams[None, :, 9 + a, None]
+        prods.append(xt[:, :, None, :] * cams[None, :, a:9:3, None])
+    xc = (prods[0][..., :, None, None] + prods[1][..., None, :, None]) + prods[2][..., None, None, :]
+    x0, x1, x2 = (xc[:, :, r].reshape(K, V, -1) for r in range(3))
+    c = [cams[None, :, i, None] for i in range(21)]
+    y0 = x0 / (x2 + 1e-5)
+    y1 = x1 / (x2 + 1e-5)
+    r2 = y0 * y0 + y1 * y1
+    d = 1 + c[16] * r2 + c[17] * r2 * r2 + c[18] * r2 * r2 * r2
+    u = y0 * d + 2 * c[19] * y0 * y1 + c[20] * (r2 + 2 * y0 * y0)
+    v = y1 * d + 2 * c[20] * y0 * y1 + c[19] * (r2 + 2 * y1 * y1)
+    ox = (u * c[12] + c[14]).clamp(-1.0, float(max(crop.ori_image_size)))
+    oy = (v * c[13] + c[15]).clamp(-1.0, float(max(crop.ori_image_size)))
+    t = crop.resize_transform
+    x = ox * t[0] + oy * t[1] + t[2]
+    y = ox * t[3] + oy * t[4] + t[5]
+    (w, h), (iw, ih) = crop.heatmap_size, crop.image_size
+    x = x * float(w) * reciprocal_f32(iw)
+    y = y * float(h) * reciprocal_f32(ih)
+    x = (x * reciprocal_f32(w - 1) * 2.0 - 1.0).clamp(-1.1, 1.1)
+    y = (y * reciprocal_f32(h - 1) * 2.0 - 1.0).clamp(-1.1, 1.1)
+    return torch.stack([(x + 1.0) * 0.5 * float(w - 1), (y + 1.0) * 0.5 * float(h - 1)], dim=-1)
+
+
+@pytest.mark.parametrize("profile", ["tiny", "panoptic"])
+def test_factored_crop_projection_is_bit_exact(profile):
+    """The premise of the crop kernel's projection: hoisting the nine
+    per-axis products of each view and adding them in project_points'
+    order gives crop_pixels' pixels bit for bit, on crops inside the
+    space, clipped by its edges and right next to a camera."""
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.models import projection as pj
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    if profile == "tiny":
+        jcfg, _, geom = _jax_geom_and_port()
+        cams = _near_camera_rig(jcfg)
+        center = np.asarray(jcfg.CAPTURE_SPEC.SPACE_CENTER, np.float32)
+        half = np.asarray(jcfg.CAPTURE_SPEC.SPACE_SIZE, np.float32) / 2
+    else:
+        cfg = panoptic_synthetic_profile()
+        geom = pj.make_projection_geometry(cfg)
+        center = np.asarray(cfg.CAPTURE_SPEC.SPACE_CENTER, np.float32)
+        half = np.asarray(cfg.CAPTURE_SPEC.SPACE_SIZE, np.float32) / 2
+        cams = dome_rig(1, cfg.DATASET.CAMERA_NUM, space_center=tuple(center))[0]
+        cams[0, 9:12] = center + np.array([0.0, -700.0, 0.0], np.float32)
+    rng = np.random.RandomState(11)
+    centers = center + rng.uniform(-0.5, 0.5, (4, 3)).astype(np.float32) * half
+    centers[1] = center + half * np.array([0.98, -0.97, -0.9], np.float32)  # the space's corner
+    centers[2] = cams[0, 9:12] + np.array([120.0, 80.0, -250.0], np.float32)  # at a camera
+    centers[3] = cams[1, 9:12] + np.array([-60.0, 40.0, 90.0], np.float32)
+    tl, _ = pj.compute_crop_origin(geom, torch.as_tensor(centers))
+    crop, cams_t = pj.crop_projection(geom), torch.as_tensor(cams)
+    want = sk.crop_pixels(crop, cams_t, tl, geom.ind_voxels_per_axis)
+    got = _factored_crop_pixels(crop, cams_t, tl, geom.ind_voxels_per_axis)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
 _ROUTE_CASES = [
     {},
     {"PALLAS_FUSED_COORDS": False},
