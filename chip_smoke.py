@@ -33,14 +33,16 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    generator, rendered on the card, must give finite losses and lower
    the detection loss (2D + 1D) below 0.9 of its first value; then 20
    steps on fresh batches are timed;
-7. window phase: the window kernel (windowed sampling as a dense
-   contraction, csrc/window.cu) in each of its nine instantiations against
-   its plain version on 64 blocks (1e-5), then the tools
+7. window phase: the window kernel (windowed sampling from the live taps
+   of a footprint staged in shared memory, csrc/window.cu) in each of its
+   nine instantiations against its plain version on 64 blocks at spreads
+   6 and 12 and on blocks at the image's edges (1e-5), then the tools
    `probe_sampling` and `sweep_sampling` at full scale (13.1M samples);
 8. mma phase: the bf16 tensor-core kernel (csrc/mma_window.cu) in its six
    cases against its plain version (one bf16 ulp), then the tool
    `microbench_mma` at 512 steps; its time must rise with K and with M
-   and stay under the card's peak;
+   and stay under the card's peak; its yardstick is one bmm of the five
+   products of every step concatenated along K;
 9. eval phase: `run_validation` on the first 500 held-out synthetic
    scenes with the committed weights, held to AP@50 >= the snapshot's
    record - 0.05 and MPJPE <= the record + 4 mm.
@@ -67,7 +69,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-TF32_FLOPS, BF16_FLOPS = 495e12, 989e12  # its tensor cores, dense
+BF16_FLOPS = 989e12  # its tensor cores, dense
 SAMPLING_CU = "faster_voxelpose_tpu_torch/csrc/sampling.cu"
 PALLAS = "faster_voxelpose_tpu/ops/pallas_sampling.py"
 TOL = 1e-5
@@ -864,6 +866,53 @@ def serving_phase(cfg, rig, card, rng):
     return launches
 
 
+def window_footprint(coords, cfg, width, height):
+    """coords (NB, V, 2, S) -> (NB, V, 4) int64: per block and view the
+    pixels x lo, x hi, y lo, y hi (inclusive) whose values the window
+    kernel stages (csrc/window.cu), floor(min) .. floor(max) + 1 of the
+    block's coords on each axis clipped to the window; lo > hi where no
+    tap of the view lies inside it."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops.window_kernels import window_origin
+
+    bounds = []
+    for c, size, win in ((coords[:, :, 0], width, cfg.xw), (coords[:, :, 1], height, cfg.yw)):
+        lowest = c.amin(-1)
+        o = window_origin(lowest, size - win).to(c.dtype)
+        bounds.append(torch.minimum(torch.maximum(lowest.floor(), o), o + win))
+        bounds.append(torch.maximum(torch.minimum(c.amax(-1).floor() + 1, o + win - 1), o - 1))
+    return torch.stack(bounds, -1).long()
+
+
+def staged_bytes(coords, cfg, width, height):
+    """Bytes the window kernel copies into shared memory for `coords`: its
+    footprints' pixels times 64 (16 float32 joints), computed on the host."""
+    f = window_footprint(coords, cfg, width, height)
+    nx, ny = (f[..., 1] - f[..., 0] + 1).clamp_min(0), (f[..., 3] - f[..., 2] + 1).clamp_min(0)
+    return int((nx * ny).sum()) * 64
+
+
+def edge_coords(s, rng, views=5, width=240, height=128):
+    """(6, views, 2, s) float32 block coords at the image's edges: blocks
+    that run past the left, right, top and bottom edges (window origins
+    clipped at 0 and at W - XW or H - YW), one of samples on integer
+    pixels up to the last column and row, and one wholly past the right
+    edge, where no tap lies inside any window."""
+    coords = np.empty((6, views, 2, s), np.float32)
+    mid = rng.uniform([[30], [30]], [[width - 30], [height - 30]], (6, views, 2, 1))
+    coords[:] = mid + rng.uniform(-5, 5, (6, views, 2, s))
+    coords[0, :, 0] = rng.uniform(-6, 4, (views, s))
+    coords[1, :, 0] = rng.uniform(width - 5, width + 5, (views, s))
+    coords[2, :, 1] = rng.uniform(-6, 4, (views, s))
+    coords[3, :, 1] = rng.uniform(height - 5, height + 5, (views, s))
+    coords[4, :, 0] = rng.randint(width - 12, width, (views, s))
+    coords[4, :, 1] = rng.randint(height - 12, height, (views, s))
+    coords[4, :, :, 0] = (width - 1, height - 1)
+    coords[5, :, 0] = rng.uniform(width + 1, width + 9, (views, s))
+    return coords
+
+
 def library_window(hm, coords):
     """grid_sample yardstick of the window kernel: a closure that samples
     block coords (n, V, 2, S) bilinearly, takes the view mean and clamps,
@@ -901,11 +950,11 @@ def window_row(name, replaces, cfg, ms, hm, coords, err, card, **extra):
     """Table row of one window-kernel configuration timed at `ms` on
     `coords`, `err` its error against the plain version on those coords:
     the plain version and the grid_sample yardstick timed on the same
-    inputs, the function's bound (the heatmaps and coords read once, the
-    (NB, 16, S) output written once; a bilinear sample's operations as for
-    sample_whole) and beside it the time of the dense form's own
-    arithmetic at the peak rate of its precision (three products for
-    tf32x3)."""
+    inputs, and the function's bound (the heatmaps and coords read once,
+    the (NB, 16, S) output written once; a bilinear sample's operations as
+    for sample_whole).  The phase's own line also prints the bytes the
+    kernel stages in shared memory for these coords, computed on the host
+    from its footprints, not measured."""
     from faster_voxelpose_tpu_torch.ops import window_kernels as wk
     from faster_voxelpose_tpu_torch.tools.timing import time_ms
 
@@ -914,9 +963,6 @@ def window_row(name, replaces, cfg, ms, hm, coords, err, card, **extra):
     n = NB * S
     b_ms, b_by = bound(4 * (hm.numel() + coords.numel() + NB * wk.JP * S),
                        n * V * (12 + 8 * J) + 2 * n * J)
-    kw, ow = (cfg.xw, cfg.yw) if cfg.contract == "x" else (cfg.yw, cfg.xw)
-    dense_flops = 2 * (ow * wk.JP) * kw * S * V * NB
-    dense_rate = {"fp32": F32_FLOPS, "tf32x3": TF32_FLOPS / 3, "tf32": TF32_FLOPS}[cfg.prec]
     library = library_window(hm, coords)
     lib_err = float((library()[:, 0].reshape(J, NB, S).permute(1, 0, 2)
                      - wk.window_sample(hm, coords, cfg)[:, :J]).abs().max())
@@ -924,20 +970,23 @@ def window_row(name, replaces, cfg, ms, hm, coords, err, card, **extra):
                path="tools", ms=ms,
                plain_ms=time_ms(lambda: wk.window_sample_plain(hm, coords, cfg), reps=5, warm=1),
                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-               dense_ops_ms=dense_flops / dense_rate * 1e3, config=cfg.label(), **extra)
+               config=cfg.label(), **extra)
+    staged = staged_bytes(coords, cfg, W, H)
     print(f"kernel {name} [{cfg.label()}]: err {err:.3g} (kernel against library {lib_err:.3g}) "
           f"kernel_ms {ms:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-          f"bound_ms {b_ms:.4f} ({b_by}) dense_ops_ms {row['dense_ops_ms']:.4f} "
-          f"({dense_flops / 1e9:.1f} GFLOP) blocks {NB} samples {n * V} | {card}")
+          f"bound_ms {b_ms:.4f} ({b_by}) blocks {NB} samples {n * V}; staged in shared memory "
+          f"{staged / 1e6:.1f} MB per launch (computed from the footprints, not measured) | {card}")
     return row
 
 
 def window_phase(card):
     """Kernel rows 5 and 6.  Every instantiation of the window kernel
     against its plain version on 64 blocks, at a spread every window covers
-    (6) and at the sweep's default (12), within 1e-5: the plain version
-    rounds its operands as the kernel does, so one tolerance serves the
-    three precisions.  Each one's error against the exact bilinear sampler
+    (6) and at the sweep's default (12), and on the six blocks of
+    `edge_coords` (origins clipped at both ends of each axis, integer
+    pixels, a block with no tap inside its windows), within 1e-5: the
+    plain version rounds its operands as the kernel does, so one tolerance
+    serves the three precisions.  Each one's error against the exact bilinear sampler
     is printed; it is judged (1e-5) only for float32 at the covered spread.
     Then the probe and the sweep run at full scale as a user would run
     them, and every configuration is held against its plain version again
@@ -953,18 +1002,21 @@ def window_phase(card):
 
     rng = np.random.RandomState(1)
     hm = torch.as_tensor(rng.rand(ps.V, ps.H, ps.W, ps.J).astype(np.float32), device=CARD)
-    for spread in (6.0, 12.0):
+    draws = {"spread 6": lambda s: sw.sweep_coords(64, s, 6.0, rng),
+             "spread 12": lambda s: sw.sweep_coords(64, s, 12.0, rng),
+             "edges": lambda s: edge_coords(s, rng)}
+    for label, draw in draws.items():
         for cfg in wk.SWEEP_CONFIGS:  # the probe's configuration is the first
-            coords = torch.as_tensor(sw.sweep_coords(64, cfg.s, spread, rng), device=CARD)
+            coords = torch.as_tensor(draw(cfg.s), device=CARD)
             out, ref = wk.window_sample(hm, coords, cfg), wk.window_sample_plain(hm, coords, cfg)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             exact = float((out - ps.exact_reference(hm, coords)).abs().max())
-            print(f"window {cfg.label()} spread {spread:g}: against its plain version {err:.3g}, "
+            print(f"window {cfg.label()} {label}: against its plain version {err:.3g}, "
                   f"against the exact sampler {exact:.3g}")
             if not (err <= TOL and torch.isfinite(out).all()):
                 raise AssertionError(f"window_sample {cfg} disagrees with its plain version: {err}")
-            if spread <= 7 and cfg.prec == "fp32" and not exact <= TOL:
+            if label == "spread 6" and cfg.prec == "fp32" and not exact <= TOL:
                 raise AssertionError(f"window_sample {cfg} differs from the exact sampler: {exact}")
 
     sk.reset_launch_counts()
@@ -980,8 +1032,10 @@ def window_phase(card):
                       card, gather_ms=probe["gather_ms"])
     for r in rows_sweep:
         r["full_err"] = window_full_err(r["heatmaps"], r["coords"], r["config"])
+        staged = staged_bytes(r["coords"], r["config"], ps.W, ps.H)
         print(f"window {r['config'].label()} on the sweep's {r['blocks']} blocks: against its "
-              f"plain version {r['full_err']:.3g}")
+              f"plain version {r['full_err']:.3g}; staged in shared memory {staged / 1e6:.1f} MB "
+              f"per launch (computed from the footprints, not measured)")
     exact_rows = [r for r in rows_sweep if r["err"] <= TOL]
     if not exact_rows:
         raise AssertionError("no sweep configuration agrees with the exact sampler")
@@ -1055,9 +1109,23 @@ def mma_phase(card):
     if not t_full > 1.3 * t_half:
         raise AssertionError(f"mma_window: time does not rise with M: {t_full} against {t_half}")
 
-    # yardstick: one bmm of the full (M, K) x (K, N) product per step (the
-    # kernel repeats that product nmat times by design)
+    # yardstick: the sum of a step's nmat (M, K) x (K, N) products is one
+    # (M, nmat K) x (nmat K, N) product of the operands concatenated along
+    # K, so one bmm over the steps forms all of them with the kernel's
+    # operations (the concatenated operands are made once, outside the
+    # timed call).  Beside it, printed only: the same products stacked
+    # along the batch, each written out, and one product per step
     left = lhs[:k].t().expand(mb.B, mb.M, k)
+    left_cat = lhs[:k].t().repeat(1, mb.NMAT).expand(mb.B, mb.M, mb.NMAT * k)
+    right_cat = rhs[:, None, :k].expand(mb.B, mb.NMAT, k, mb.N).reshape(mb.B, mb.NMAT * k, mb.N)
+    lib_ms = time_ms(lambda: torch.bmm(left_cat, right_cat))
+    lib_err = float((torch.bmm(left_cat[:8], right_cat[:8])[:, :8].float() / mb.NMAT
+                     - wk.mma_window_plain(lhs, rhs[:8], None, k, mb.NMAT).float()).abs().max())
+    del right_cat
+    stacked = rhs[:, None, :k].expand(mb.B, mb.NMAT, k, mb.N).reshape(mb.B * mb.NMAT, k, mb.N)
+    stacked_ms = time_ms(lambda: torch.bmm(left[:1].expand(mb.B * mb.NMAT, mb.M, k), stacked))
+    del stacked
+    one_ms = time_ms(lambda: torch.bmm(left, rhs[:, :k]))
     b_ms, b_by = bound(2 * (lhs.numel() + mb.B * k * mb.N + mb.B * 8 * mb.N),
                        2 * mb.M * k * mb.N * mb.NMAT * mb.B, BF16_FLOPS)
     top = by_case[(k, False)]
@@ -1065,15 +1133,16 @@ def mma_phase(card):
                replaces="scripts/microbench_matmul.py:65", path="tools", ms=top["ms"],
                plain_ms=time_ms(lambda: wk.mma_window_plain(lhs, rhs, None, k, mb.NMAT),
                                 reps=5, warm=1),
-               library_ms=time_ms(lambda: torch.bmm(left, rhs[:, :k])),
-               bound_ms=b_ms, bound_by=b_by, max_abs_err=full_errs[(k, False)],
+               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=full_errs[(k, False)],
                cases=[dict({key: c[key] for key in ("k", "dyn", "ms", "us_per_product", "tmacs",
                                                     "macs_timed")},
                            max_abs_err=full_errs[(c["k"], c["dyn"])]) for c in cases])
     print(f"kernel mma_window [K={k} static, B={mb.B}, nmat={mb.NMAT}]: err "
-          f"{row['max_abs_err']:.3g} kernel_ms "
-          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms (one bmm, one product) "
-          f"{row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) | {card}")
+          f"{row['max_abs_err']:.3g} kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+          f"library_ms (one bmm, the {mb.NMAT} products of a step concatenated along K) "
+          f"{lib_ms:.4f} (its 8 rows against the plain version {lib_err:.3g}; the {mb.NMAT} "
+          f"products stacked along the batch {stacked_ms:.4f}, one product per step "
+          f"{one_ms:.4f}) bound_ms {b_ms:.4f} ({b_by}) | {card}")
     return [row], launches
 
 

@@ -1,4 +1,5 @@
-// Windowed bilinear sampling as a dense contraction, for Hopper (sm_90a).
+// Windowed bilinear sampling for Hopper (sm_90a): the live taps of each
+// block's footprint, staged in shared memory by bulk asynchronous copies.
 //
 // One kernel template with a plain C interface, loaded with ctypes by
 // faster_voxelpose_tpu_torch/ops/window_kernels.py, which also holds its
@@ -11,241 +12,377 @@
 //                      at :117) and make_kernel (scripts/sweep_pallas.py:30,
 //                      called at :83).
 //
-// Samples come in blocks of S that share a small heatmap window.  Per
-// block and view: the window origin is floor(min) of the block's pixel
-// coordinates, clipped so that the window stays inside the image and
-// rounded down to a multiple of 8 (the TPU's slicing alignment; it decides
-// which samples fall outside the window, so it is kept); the bilinear
-// weights are separable, max(0, 1 - |x - xi|); the contracted axis (x or y)
-// is a matrix product of the window (KW x OW*16) against its weights
-// (KW x S), the other axis a multiply and sum over the OW groups of 16
-// joint rows; then the view mean and a clamp to [0, 1].
+// The function.  Samples come in blocks of S that share a heatmap window of
+// XW x YW pixels per view.  Per block and view the window origin is
+// floor(min) of the block's pixel coordinates, clipped so that the window
+// stays inside the image and rounded down to a multiple of 8 (the TPU's
+// slicing alignment; it decides which samples fall outside the window, so
+// it is kept).  The bilinear weights are separable, max(0, 1 - |c - p|),
+// and a pixel outside the window weighs nothing.  The contracted axis (x or
+// y) is summed first, its window values and weights rounded as PREC says;
+// then the other axis, each product rounded before it is added; then the
+// views in order, times 1 / V, clamped to [0, 1].
 //
-// A thread block of 256 threads takes one sample block.  The window of one
-// view (at most 40 x 392 floats) is staged in shared memory once and the S
-// samples are walked in sub-tiles of 16, because the product of a whole
-// block (OW*16 x S floats) would not fit the 227 KB a block may have: per
-// sub-tile the weights are written, the product goes to a (OW*16 x 16)
-// tile in shared memory, and one thread per (joint, sample) contracts the
-// other axis and adds into the block's (16 x S) accumulator.
+// The prototypes form that sum as a dense product of the window against
+// its weights: KW multiply-adds per contracted row, of which two weights
+// are non-zero.  This kernel takes only those: for each sample and axis the
+// pixels floor(c) and floor(c) + 1 that lie inside the window, so 4 taps
+// per (sample, view, joint).  The zero terms drop out exactly: in the dense
+// chain fmaf(w, 0, a) == a and s + 0 == s, so in ascending pixel order the
+// contracted sum is fmaf(w1, b1, w0 * b0); in the TF32 modes the products
+// of rounded operands are exact in float32.  Tensor cores have nothing left
+// to contract.  What sets the time is the device-memory traffic the
+// function needs (each block's coords in, its (16, S) output out: the
+// bound) and the per-tap instructions that take the taps from shared
+// memory; the TF32 modes' roundings of each window value add to the
+// latter.
 //
-// PREC selects how the product is formed:
-//   0 fp32    FFMA, 4 window rows x 1 sample per thread
-//   1 tf32x3  wmma m16n16k8: both operands split into two TF32 parts,
-//             lo*hi + hi*lo accumulated apart from hi*hi and added last
-//   2 tf32    wmma m16n16k8 on the operands rounded to TF32
-// wmma's accumulator layout is opaque, so the product is stored to shared
-// memory before the rows are regrouped as (window row, joint).
+// Design.  One block of 256 threads per sample block.  The block's coords
+// give each view's window origin and the footprint of its taps: the pixels
+// floor(min) .. floor(max) + 1 on each axis, clipped to the window.
+// Heatmaps come in one packed layout for both contract axes, (V, H, W, 16)
+// with joint 15 zero, so one footprint row is one contiguous run of 64-byte
+// pixels: warp 0 copies each row into shared memory with one
+// cp.async.bulk, completing on the view's mbarrier.  The footprints are
+// packed in view order into one arena, wrapping to its start, and a view
+// is copied as soon as the last earlier view whose place it takes has been
+// summed: as many views are in flight as the arena holds (all five at the
+// tools' spreads of 10 and 12 pixels, two when footprints fill a 24 x 24
+// window).  The arena holds one window at least and two at most, and
+// otherwise what lets three blocks share an SM of the device, read at
+// launch (its shared memory per SM, less each block's reserved and static
+// shared memory): on an H100 (228 KB per SM, 1 KB reserved per block, 384
+// bytes static) 73,728 bytes for 24 x 24 and 76,416 for 16 x 40 and
+// 24 x 40.  A thread takes 4 joints (one float4) of S / 64 samples, four
+// neighbouring threads one sample, and keeps its sums in registers across
+// the views.
 //
-// The launch returns cudaGetLastError(), or the error of the shared-memory
-// attribute call, or -1 for a configuration that is not instantiated.
+// PREC selects the rounding of the contracted axis:
+//   0 fp32    float32 operands
+//   1 tf32x3  window values and weights split into TF32 hi and lo parts,
+//             hi*hi + (lo*hi + hi*lo)
+//   2 tf32    operands rounded to TF32
+//
+// The launch returns cudaGetLastError(), or the error of a device or
+// function attribute call (cudaErrorInvalidValue where one window does not
+// fit a block's shared memory), or -1 for a configuration that is not
+// instantiated.
 
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int JP = 16;  // joints padded to 16
-constexpr int NS = 16;  // samples per sub-tile: one wmma tile wide
+constexpr int JP = 16;                    // joints padded to 16: a pixel is 64 bytes
+constexpr int kPixelBytes = JP * sizeof(float);
+constexpr int kPerSample = JP / 4;        // threads per sample, one float4 of joints each
+constexpr int kSampleStride = kThreads / kPerSample;
+constexpr int kMaxViews = 8;
 
 constexpr int PREC_FP32 = 0, PREC_TF32X3 = 1, PREC_TF32 = 2;
 constexpr int CONTRACT_X = 0;
 
-static_assert(JP * NS == kThreads, "one (joint, sample) output per thread");
+constexpr int kBlocksPerSm = 3;  // the arena is sized for three blocks per SM
 
-template <int S, int XW, int YW, int CONTRACT>
-struct Shape {
-  static constexpr int KW = CONTRACT == CONTRACT_X ? XW : YW;  // contracted axis
-  static constexpr int OW = CONTRACT == CONTRACT_X ? YW : XW;  // the other axis
-  static constexpr int M = OW * JP;    // product rows: (other-axis pixel, joint)
-  static constexpr int LDW = M + 8;    // window row stride, floats
-  static constexpr int LDT = NS + 4;   // product tile row stride
-  static constexpr int LDB = NS + 8;   // weight tile row stride
-  static constexpr int N_WIN = KW * LDW;
-  static constexpr int N_T = M * LDT;
-  static constexpr int N_WK = KW * LDB;
-  static constexpr int N_WO = OW * LDB;
-  static constexpr int N_ACC = JP * S;
-  static_assert(S % NS == 0 && KW % 8 == 0 && OW % 8 == 0, "tile sizes");
-  // every region starts on a 32-byte boundary, as wmma loads need
-  static_assert(N_WIN % 8 == 0 && N_T % 8 == 0 && N_WK % 8 == 0 && N_WO % 8 == 0,
-                "alignment");
-  static size_t smem_bytes(int V) {
-    return sizeof(float) * ((size_t)N_WIN + N_T + N_WK + N_WO + N_ACC +
-                            (size_t)V * 2 * S) + sizeof(int) * 2 * (size_t)V;
+// Round to TF32 (10 mantissa bits), nearest with ties away from zero, low
+// 13 bits cleared: what cvt.rna.tf32.f32 gives, by the bit operations of
+// the plain version.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// The contracted axis at one joint: window values b0, b1 at the pixels
+// floor(c), floor(c) + 1 with weights w0, w1 (0 for a pixel outside the
+// window), in the dense chain's order.  In the TF32 modes B0, B1 are the
+// values rounded to TF32 and b0l, b1l (tf32x3) the rounded remainders;
+// W0, W1, w0l, w1l the same of the weights.
+template <int PREC>
+struct Weights {
+  float w0, w1, W0, W1, w0l, w1l;
+  __device__ __forceinline__ Weights(float a, float b) : w0(a), w1(b) {
+    if (PREC != PREC_FP32) {
+      W0 = tf32_rna(a);
+      W1 = tf32_rna(b);
+    }
+    if (PREC == PREC_TF32X3) {
+      w0l = tf32_rna(a - W0);
+      w1l = tf32_rna(b - W1);
+    }
   }
 };
 
-// Round to TF32 (10 mantissa bits), nearest with ties away from zero, low
-// 13 bits cleared: what cvt.rna.tf32.f32 gives and the plain version
-// repeats with bit operations.
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float(__float_as_uint(wmma::__float_to_tf32(x)) & 0xffffe000u);
+template <int PREC>
+__device__ __forceinline__ float contract2(const Weights<PREC>& w, float B0, float B1, float b0l,
+                                           float b1l) {
+  if (PREC == PREC_FP32) return fmaf(w.w1, B1, __fmul_rn(w.w0, B0));
+  const float hi = fmaf(w.W1, B1, __fmul_rn(w.W0, B0));  // products of TF32 values are exact
+  if (PREC == PREC_TF32) return hi;
+  const float lo_hi = fmaf(b1l, w.W1, __fmul_rn(b0l, w.W0));
+  const float hi_lo = fmaf(B1, w.w1l, __fmul_rn(B0, w.w0l));
+  return __fadd_rn(hi, __fadd_rn(lo_hi, hi_lo));
+}
+
+// The two taps of coordinate c on one axis whose live pixels are
+// [lo, hi]: weights (0 outside) and offsets into the footprint (0 outside).
+struct Taps {
+  float w0, w1;
+  int i0, i1;
+};
+
+__device__ __forceinline__ Taps taps(float c, float lo, float hi) {
+  const float p = floorf(c), q = p + 1.0f;
+  const bool l0 = p >= lo && p <= hi, l1 = q >= lo && q <= hi;
+  Taps t;
+  t.w0 = l0 ? fmaxf(0.0f, 1.0f - fabsf(c - p)) : 0.0f;
+  t.w1 = l1 ? fmaxf(0.0f, 1.0f - fabsf(c - q)) : 0.0f;
+  t.i0 = l0 ? (int)(p - lo) : 0;
+  t.i1 = l1 ? (int)(q - lo) : 0;
+  return t;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Where each view's footprint lies in the arena and when it may be copied.
+struct Plan {
+  float fp[kMaxViews][4];   // x lo, x hi, y lo, y hi (pixels, inclusive)
+  int off[kMaxViews];       // first pixel in the arena
+  int nx[kMaxViews], ny[kMaxViews];
+  uint32_t after[kMaxViews + 1];  // views to copy once view c - 1 is summed
+  uint64_t bars[kMaxViews];
+};
+
+// Warp 0: copy the views of `mask`, one bulk copy per footprint row of
+// nx pixels; an empty footprint completes its barrier at once.
+__device__ __forceinline__ void stage_views(uint32_t mask, int lane, Plan& pl, const float* hm,
+                                            float* arena, int W, int H) {
+  for (; mask; mask &= mask - 1) {
+    const int v = __ffs(mask) - 1, nx = pl.nx[v], ny = pl.ny[v];
+    const int x0 = nx ? (int)pl.fp[v][0] : 0, y0 = ny ? (int)pl.fp[v][2] : 0;
+    if (lane == 0) mbar_arrive_expect_tx(&pl.bars[v], (uint32_t)(nx * ny * JP * sizeof(float)));
+    __syncwarp();
+    float* dst = arena + (size_t)pl.off[v] * JP;
+    for (int r = lane; r < ny; r += 32)
+      bulk_copy(dst + r * nx * JP, hm + (((size_t)v * H + y0 + r) * W + x0) * JP,
+                (uint32_t)(nx * JP * sizeof(float)), &pl.bars[v]);
+  }
 }
 
 template <int S, int XW, int YW, int PREC, int CONTRACT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 window_sample_kernel(const float* __restrict__ coords,  // (NB, V, 2, S)
-                     const float* __restrict__ hm,      // packed, see below
-                     float* __restrict__ out,           // (NB, JP, S)
-                     int V, int W, int H, float inv_v) {
-  using C = Shape<S, XW, YW, CONTRACT>;
-  constexpr int KW = C::KW, OW = C::OW, M = C::M;
-  constexpr int LDW = C::LDW, LDT = C::LDT, LDB = C::LDB;
-  extern __shared__ __align__(128) float smem[];
-  float* win = smem;
-  float* t = win + C::N_WIN;
-  float* wk = t + C::N_T;
-  float* wo = wk + C::N_WK;
-  float* acc = wo + C::N_WO;
-  float* crd = acc + C::N_ACC;
-  int* org = reinterpret_cast<int*>(crd + (size_t)V * 2 * S);
+                     const float* __restrict__ hm,      // (V, H, W, 16)
+                     float* __restrict__ out,           // (NB, 16, S)
+                     int V, int W, int H, float inv_v,
+                     int arena_pixels) {  // the dynamic shared memory, in pixels
+  static_assert(S % 128 == 0, "a warp reads its coords row in float4s");
+  constexpr int kItems = S / kSampleStride;  // samples per thread
+  extern __shared__ __align__(128) float arena[];
+  __shared__ Plan pl;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* cb = coords + (size_t)blockIdx.x * V * 2 * S;
-  for (int i = tid; i < V * 2 * S; i += kThreads) crd[i] = cb[i];
-  for (int i = tid; i < JP * S; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
 
-  // window origins: row r = 2 v + c of the block's coords, c = 0 for x
+  // window origin and footprint: row r = 2 v + c of the block's coords
   for (int r = warp; r < 2 * V; r += kWarps) {
-    float m = INFINITY;
-    for (int i = lane; i < S; i += 32) m = fminf(m, crd[r * S + i]);
-    for (int o = 16; o; o >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float* row = cb + (size_t)r * S;
+    float mn = INFINITY, mx = -INFINITY;
+    for (int i = lane * 4; i < S; i += 128) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(row + i));
+      mn = fminf(mn, fminf(fminf(q.x, q.y), fminf(q.z, q.w)));
+      mx = fmaxf(mx, fmaxf(fmaxf(q.x, q.y), fmaxf(q.z, q.w)));
+    }
+    for (int o = 16; o; o >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
     if (lane == 0) {
-      const float hi = (float)((r & 1) ? H - YW : W - XW);
-      const int o = (int)fminf(fmaxf(floorf(m), 0.0f), hi);
-      org[r] = (o / 8) * 8;
+      const int c = r & 1, width = c ? YW : XW;
+      const float limit = (float)(c ? H - YW : W - XW);
+      const int o = ((int)fminf(fmaxf(floorf(mn), 0.0f), limit) / 8) * 8;
+      pl.fp[r >> 1][2 * c] = fminf(fmaxf(floorf(mn), (float)o), (float)(o + width));
+      pl.fp[r >> 1][2 * c + 1] =
+          fmaxf(fminf(floorf(mx) + 1.0f, (float)(o + width - 1)), (float)(o - 1));
     }
   }
   __syncthreads();
 
-  // packed heatmaps: contract x -> (V, W, H*JP), contract y -> (V, H, W*JP)
-  const int rows = CONTRACT == CONTRACT_X ? W : H;
-  const int cols = (CONTRACT == CONTRACT_X ? H : W) * JP;
+  // the plan: footprints packed in view order, wrapping to the arena's
+  // start; a view is copied once the last earlier view it overlaps is
+  // summed, so that as many views are in flight as the arena holds
+  if (tid == 0) {
+    int cur = 0;
+    for (int c = 0; c <= V; ++c) pl.after[c] = 0;
+    for (int v = 0; v < V; ++v) {
+      mbar_init(&pl.bars[v], 1);
+      const float* f = pl.fp[v];
+      const bool any = f[0] <= f[1] && f[2] <= f[3];
+      const int nx = any ? (int)f[1] - (int)f[0] + 1 : 0, ny = any ? (int)f[3] - (int)f[2] + 1 : 0;
+      const int size = nx * ny;
+      if (cur + size > arena_pixels) cur = 0;
+      pl.off[v] = cur;
+      pl.nx[v] = nx;
+      pl.ny[v] = ny;
+      int dep = -1;
+      for (int u = v - 1; u >= 0 && size; --u) {
+        const int su = pl.nx[u] * pl.ny[u];
+        if (su && pl.off[u] < cur + size && cur < pl.off[u] + su) {
+          dep = u;
+          break;
+        }
+      }
+      pl.after[dep + 1] |= 1u << v;
+      cur += size;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) stage_views(pl.after[0], lane, pl, hm, arena, W, H);
+
+  const int g = tid % kPerSample, s_first = tid / kPerSample;
+  float4 acc[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
   for (int v = 0; v < V; ++v) {
-    const int ox = org[2 * v], oy = org[2 * v + 1];
-    const int ok = CONTRACT == CONTRACT_X ? ox : oy;
-    const int oo = CONTRACT == CONTRACT_X ? oy : ox;
-    const float* xs = crd + (2 * v) * S;
-    const float* ck = CONTRACT == CONTRACT_X ? xs : xs + S;
-    const float* co = CONTRACT == CONTRACT_X ? xs + S : xs;
-
-    // stage the window: KW rows of M contiguous floats
-    const float* src = hm + ((size_t)v * rows + ok) * cols + (size_t)oo * JP;
-    for (int i = tid; i < KW * (M / 4); i += kThreads) {
-      const int k = i / (M / 4), m4 = i % (M / 4);
-      const float4 val = __ldg(reinterpret_cast<const float4*>(src + (size_t)k * cols) + m4);
-      *reinterpret_cast<float4*>(win + k * LDW + m4 * 4) = val;
+    mbar_wait(&pl.bars[v], 0);
+    const int nx = pl.nx[v];
+    // an empty footprint adds 0 to every sum; otherwise a tap outside it
+    // reads the footprint's first pixel, which this view's copy wrote, with
+    // weight 0
+    if (nx) {
+      const float xlo = pl.fp[v][0], xhi = pl.fp[v][1], ylo = pl.fp[v][2], yhi = pl.fp[v][3];
+      const float4* src = reinterpret_cast<const float4*>(arena + (size_t)pl.off[v] * JP) + g;
+      const float* xs = cb + (size_t)(2 * v) * S;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int s = s_first + k * kSampleStride;
+        const Taps tx = taps(__ldg(xs + s), xlo, xhi), ty = taps(__ldg(xs + S + s), ylo, yhi);
+        // pixel (ix, iy) of the footprint: JP / 4 float4 each, rows of nx
+        const int q00 = (ty.i0 * nx + tx.i0) * kPerSample, q10 = (ty.i0 * nx + tx.i1) * kPerSample;
+        const int q01 = (ty.i1 * nx + tx.i0) * kPerSample, q11 = (ty.i1 * nx + tx.i1) * kPerSample;
+        // (other-axis pixel o, contracted pixel k) pairs, and their weights
+        constexpr bool cx = CONTRACT == CONTRACT_X;
+        const int a0 = q00, a1 = cx ? q10 : q01;  // o = 0
+        const int b0 = cx ? q01 : q10, b1 = q11;  // o = 1
+        const Weights<PREC> wk = cx ? Weights<PREC>(tx.w0, tx.w1) : Weights<PREC>(ty.w0, ty.w1);
+        const float o0 = cx ? ty.w0 : tx.w0, o1 = cx ? ty.w1 : tx.w1;
+        float4 A0 = src[a0], A1 = src[a1], B0 = src[b0], B1 = src[b1];
+        float4 A0l, A1l, B0l, B1l;  // tf32x3: the rounded remainders
+#define FVP_ROUND(m)                                                                   \
+  if (PREC != PREC_FP32) {                                                             \
+    const float a0f = A0.m, a1f = A1.m, b0f = B0.m, b1f = B1.m;                        \
+    A0.m = tf32_rna(a0f), A1.m = tf32_rna(a1f), B0.m = tf32_rna(b0f), B1.m = tf32_rna(b1f); \
+    if (PREC == PREC_TF32X3) {                                                         \
+      A0l.m = tf32_rna(a0f - A0.m), A1l.m = tf32_rna(a1f - A1.m);                      \
+      B0l.m = tf32_rna(b0f - B0.m), B1l.m = tf32_rna(b1f - B1.m);                      \
+    }                                                                                  \
+  }
+#define FVP_JOINT(m)                                                                  \
+  FVP_ROUND(m)                                                                        \
+  acc[k].m = __fadd_rn(acc[k].m,                                                      \
+                       __fadd_rn(__fmul_rn(contract2<PREC>(wk, A0.m, A1.m, A0l.m, A1l.m), o0), \
+                                 __fmul_rn(contract2<PREC>(wk, B0.m, B1.m, B0l.m, B1l.m), o1)))
+        FVP_JOINT(x);
+        FVP_JOINT(y);
+        FVP_JOINT(z);
+        FVP_JOINT(w);
+#undef FVP_JOINT
+#undef FVP_ROUND
+      }
     }
-
-    for (int s0 = 0; s0 < S; s0 += NS) {
-      // separable weights of this sub-tile; 1 - |d| has no product, so
-      // nothing contracts into an FMA
-      for (int i = tid; i < (KW + OW) * NS; i += kThreads) {
-        const int r = i / NS, n = i % NS;
-        if (r < KW) {
-          wk[r * LDB + n] = fmaxf(0.0f, 1.0f - fabsf(ck[s0 + n] - (float)(ok + r)));
-        } else {
-          const int q = r - KW;
-          wo[q * LDB + n] = fmaxf(0.0f, 1.0f - fabsf(co[s0 + n] - (float)(oo + q)));
-        }
+    if (pl.after[v + 1]) {
+      __syncthreads();  // every thread is done with the views the next copies overwrite
+      if (warp == 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        stage_views(pl.after[v + 1], lane, pl, hm, arena, W, H);
       }
-      __syncthreads();  // weights, and on the first sub-tile the window
-
-      // t (M x NS) = window^T (M x KW) . wk (KW x NS)
-      if (PREC == PREC_FP32) {
-        for (int i = tid; i < (M / 4) * NS; i += kThreads) {
-          const int n = i % NS, mg = i / NS;
-          float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-          for (int k = 0; k < KW; ++k) {
-            const float4 w4 = *reinterpret_cast<const float4*>(win + k * LDW + mg * 4);
-            const float b = wk[k * LDB + n];
-            a0 = fmaf(w4.x, b, a0);
-            a1 = fmaf(w4.y, b, a1);
-            a2 = fmaf(w4.z, b, a2);
-            a3 = fmaf(w4.w, b, a3);
-          }
-          float* dst = t + (mg * 4) * LDT + n;
-          dst[0] = a0;
-          dst[LDT] = a1;
-          dst[2 * LDT] = a2;
-          dst[3 * LDT] = a3;
-        }
-      } else {
-        for (int mt = warp; mt < M / 16; mt += kWarps) {
-          wmma::fragment<wmma::accumulator, 16, 16, 8, float> c, c_small;
-          wmma::fill_fragment(c, 0.0f);
-          wmma::fill_fragment(c_small, 0.0f);
-#pragma unroll
-          for (int k0 = 0; k0 < KW; k0 += 8) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::col_major> a, a_lo;
-            wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> b, b_lo;
-            wmma::load_matrix_sync(a, win + k0 * LDW + mt * 16, LDW);
-            wmma::load_matrix_sync(b, wk + k0 * LDB, LDB);
-#pragma unroll
-            for (int i = 0; i < a.num_elements; ++i) {
-              const float full = a.x[i];
-              a.x[i] = tf32_rna(full);
-              a_lo.x[i] = tf32_rna(full - a.x[i]);
-            }
-#pragma unroll
-            for (int i = 0; i < b.num_elements; ++i) {
-              const float full = b.x[i];
-              b.x[i] = tf32_rna(full);
-              b_lo.x[i] = tf32_rna(full - b.x[i]);
-            }
-            if (PREC == PREC_TF32X3) {
-              wmma::mma_sync(c_small, a_lo, b, c_small);
-              wmma::mma_sync(c_small, a, b_lo, c_small);
-            }
-            wmma::mma_sync(c, a, b, c);
-          }
-          if (PREC == PREC_TF32X3) {
-#pragma unroll
-            for (int i = 0; i < c.num_elements; ++i) c.x[i] += c_small.x[i];
-          }
-          wmma::store_matrix_sync(t + mt * 16 * LDT, c, LDT, wmma::mem_row_major);
-        }
-      }
-      __syncthreads();
-
-      // the other axis: rows of t are (pixel o, joint j); each product
-      // rounds before it is added, as the plain version's multiply and sum
-      {
-        const int j = tid / NS, n = tid % NS;
-        float sum = 0.0f;
-#pragma unroll
-        for (int o = 0; o < OW; ++o)
-          sum = __fadd_rn(sum, __fmul_rn(t[(o * JP + j) * LDT + n], wo[o * LDB + n]));
-        acc[j * S + s0 + n] += sum;
-      }
-      __syncthreads();  // t, wk, wo and (after the last sub-tile) win are free
     }
   }
 
   float* ob = out + (size_t)blockIdx.x * JP * S;
-  for (int i = tid; i < JP * S; i += kThreads)
-    ob[i] = fminf(fmaxf(__fmul_rn(acc[i], inv_v), 0.0f), 1.0f);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int s = s_first + k * kSampleStride;
+    const float4 a = acc[k];
+    ob[(4 * g + 0) * S + s] = fminf(fmaxf(__fmul_rn(a.x, inv_v), 0.0f), 1.0f);
+    ob[(4 * g + 1) * S + s] = fminf(fmaxf(__fmul_rn(a.y, inv_v), 0.0f), 1.0f);
+    ob[(4 * g + 2) * S + s] = fminf(fmaxf(__fmul_rn(a.z, inv_v), 0.0f), 1.0f);
+    ob[(4 * g + 3) * S + s] = fminf(fmaxf(__fmul_rn(a.w, inv_v), 0.0f), 1.0f);
+  }
+}
+
+// The arena of `kern` on the current device, in pixels: what lets
+// kBlocksPerSm blocks share an SM, but at least one window and at most two,
+// and no more than a block may opt in to.
+cudaError_t arena_size(const void* kern, int window, int* pixels) {
+  int dev = 0, per_sm = 0, reserved = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+  if (e != cudaSuccess) return e;
+  const int fixed = (int)fa.sharedSizeBytes;
+  const int budget = (per_sm / kBlocksPerSm - reserved - fixed) / kPixelBytes;
+  const int most = (optin - fixed) / kPixelBytes;
+  *pixels = std::min(std::min(std::max(budget, window), 2 * window), most);
+  return *pixels < window ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 template <int S, int XW, int YW, int PREC, int CONTRACT>
-int launch(const float* coords, const float* hm, float* out, int nb, int V,
-           int W, int H, float inv_v, cudaStream_t st) {
-  using C = Shape<S, XW, YW, CONTRACT>;
-  const size_t smem = C::smem_bytes(V);
+int launch(const float* coords, const float* hm, float* out, int nb, int V, int W, int H,
+           float inv_v, cudaStream_t st) {
   auto kern = window_sample_kernel<S, XW, YW, PREC, CONTRACT>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int pixels = 0;
+  cudaError_t e = arena_size((const void*)kern, XW * YW, &pixels);
+  const size_t smem = (size_t)pixels * kPixelBytes;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<(unsigned)nb, kThreads, smem, st>>>(coords, hm, out, V, W, H, inv_v);
+  kern<<<(unsigned)nb, kThreads, smem, st>>>(coords, hm, out, V, W, H, inv_v, pixels);
   return (int)cudaGetLastError();
 }
 
@@ -253,17 +390,19 @@ int launch(const float* coords, const float* hm, float* out, int nb, int V,
 
 extern "C" {
 
-// coords (NB, V, 2, S) pixel (x; y); hm packed (V, W, H*16) for contract = 0
-// (x) or (V, H, W*16) for contract = 1 (y), joint 15 zero; out (NB, 16, S).
-// prec: 0 fp32, 1 tf32x3, 2 tf32.  inv_v is float32 1 / V.
-int fvp_window_sample(const float* coords, const float* hm, float* out, int nb,
-                      int V, int W, int H, float inv_v, int S, int XW, int YW,
-                      int prec, int contract, void* stream) {
+// coords (NB, V, 2, S) pixel (x; y), V <= 8; hm packed (V, H, W, 16), joint
+// 15 zero, for either contract axis (0 x, 1 y); out (NB, 16, S).  prec: 0
+// fp32, 1 tf32x3, 2 tf32.  inv_v is float32 1 / V.  coords and hm 16-byte
+// aligned.
+int fvp_window_sample(const float* coords, const float* hm, float* out, int nb, int V, int W,
+                      int H, float inv_v, int S, int XW, int YW, int prec, int contract,
+                      void* stream) {
   if (nb <= 0) return (int)cudaGetLastError();
+  if (V < 1 || V > kMaxViews) return -1;
   const cudaStream_t st = (cudaStream_t)stream;
-#define FVP_WINDOW(s, xw, yw, p, c)                                         \
-  if (S == s && XW == xw && YW == yw && prec == p && contract == c)         \
-    return launch<s, xw, yw, p, c>(coords, hm, out, nb, V, W, H, inv_v, st)
+#define FVP_WINDOW(s, xw, yw, p, c)                                 \
+  if (S == s && XW == xw && YW == yw && prec == p && contract == c) \
+  return launch<s, xw, yw, p, c>(coords, hm, out, nb, V, W, H, inv_v, st)
   FVP_WINDOW(256, 24, 24, PREC_FP32, 0);  // also the probe's configuration
   FVP_WINDOW(256, 24, 24, PREC_TF32X3, 0);
   FVP_WINDOW(256, 24, 24, PREC_TF32, 0);

@@ -1,5 +1,5 @@
-"""The tuning kernels of the port: windowed sampling as a dense contraction
-and the tensor-core cost of its product, with their plain PyTorch versions.
+"""The tuning kernels of the port: windowed sampling and the tensor-core
+cost of a windowed product, with their plain PyTorch versions.
 
 They are the counterparts of the three prototypes that chose the JAX
 package's production kernel on the TPU (window sizes, block size,
@@ -17,25 +17,33 @@ window_sample
     S that share a heatmap window of XW x YW pixels per view; the window
     origin is floor(min) of the block's coords, clipped into the image and
     rounded down to a multiple of 8.  The bilinear weights are separable,
-    max(0, 1 - |x - xi|); the contracted axis is a matrix product against
-    the window, the other a multiply and sum; then the view mean and a
-    clamp.  A sample farther than XW - 9 (YW - 9) pixels from its block's
-    minimum may fall outside the window and reads less than the bilinear
-    value: that is the window's answer, and kernel and plain version agree
-    on it.  The TPU's three matrix-unit precisions map to `prec`:
-    'fp32' (HIGHEST, FFMA), 'tf32x3' (HIGH, operands split in two TF32
-    parts, three tensor-core products) and 'tf32' (DEFAULT, one product).
+    max(0, 1 - |x - xi|); the prototypes contract one axis as a matrix
+    product against the window and the other as a multiply and sum; then
+    the view mean and a clamp.  A sample farther than XW - 9 (YW - 9)
+    pixels from its block's minimum may fall outside the window and reads
+    less than the bilinear value: that is the window's answer, and kernel
+    and plain version agree on it.  The TPU's three matrix-unit precisions
+    map to `prec`, the rounding of the contracted axis's operands: 'fp32'
+    (HIGHEST), 'tf32x3' (HIGH: operands split in two TF32 parts, hi*hi +
+    (lo*hi + hi*lo)) and 'tf32' (DEFAULT: operands rounded to TF32).
     Bound on an H100, as a function: bytes (coords in, (NB, 16, S) out,
     the packed heatmaps once: 282 MB at 10240 blocks of 256, about
-    0.084 ms at 3.35 TB/s).  The dense form itself does
-    2 * OW*16 * KW * S * V flops per block (242 GFLOP at 10240 blocks of
-    the 24 x 24 window: 3.6 ms at the float32 rate, 0.5 ms at one TF32
-    pass), so on this card the arithmetic, not the bytes, sets its time;
-    the tools print both.  Design: one block of 256 threads per sample
-    block, the view's window staged once in shared memory, the samples
-    walked in sub-tiles of 16 so that the product tile fits, wmma
-    m16n16k8 for the TF32 modes with the accumulator stored to shared
-    memory before the rows are regrouped by (pixel, joint).
+    0.084 ms at 3.35 TB/s).  Design: of the dense product's KW weights per
+    contracted row two are non-zero, at floor(c) and floor(c) + 1, and the
+    zero terms drop out of the sum exactly, so the kernel takes only those
+    2 x 2 taps per (sample, view, joint), in the dense chain's order.  One
+    block of 256 threads per sample block; per view the footprint of the
+    block's taps (floor(min) .. floor(max) + 1 per axis, clipped to the
+    window) is copied into shared memory by bulk asynchronous copies, one
+    per footprint row of 64-byte pixels, into an arena that holds as many
+    views' footprints as fit (all five at the tools' spreads), each copied
+    as soon as the place it takes is free; the arena is sized at launch
+    from the device's shared memory for three blocks per SM.  Four threads
+    per sample, one float4 of joints each.  Its time is set by
+    the device-memory traffic of the bound (coords in, output out) and the
+    per-tap instructions; the TF32 modes' roundings add to the latter.
+    The wrapper packs the heatmaps as (V, H, W, 16) for both contract axes
+    (`pack_heatmap`).
 
 mma_window
     Replaces the body of `bench` (scripts/microbench_matmul.py:31, called
@@ -111,14 +119,12 @@ SWEEP_CONFIGS: Tuple[WindowConfig, ...] = (
 # ---------------------------------------------------------------------------
 
 
-def pack_heatmap(heatmaps: torch.Tensor, contract: str) -> torch.Tensor:
-    """(V, H, W, J) -> joints padded to 16 and, for contract 'x',
-    (V, W, H*16) rows x, lanes y-major joint-minor; for 'y', (V, H, W*16)."""
+def pack_heatmap(heatmaps: torch.Tensor) -> torch.Tensor:
+    """(V, H, W, J) -> (V, H, W*16), joints padded to 16: the window
+    kernel's layout for both contract axes (the sweep prototype's layout
+    for contract 'y')."""
     V, H, W, J = heatmaps.shape
-    hmp = F.pad(heatmaps, (0, JP - J))
-    if contract == "x":
-        return hmp.permute(0, 2, 1, 3).reshape(V, W, H * JP).contiguous()
-    return hmp.reshape(V, H, W * JP).contiguous()
+    return F.pad(heatmaps, (0, JP - J)).reshape(V, H, W * JP).contiguous()
 
 
 def window_origin(lowest: torch.Tensor, limit: int) -> torch.Tensor:
@@ -233,9 +239,9 @@ def _mma_lib():
 
 def window_sample(heatmaps: torch.Tensor, coords: torch.Tensor, cfg: WindowConfig) -> torch.Tensor:
     """heatmaps (V, H, W, J <= 16) f32, coords (NB, V, 2, S) f32 pixel
-    (x; y) -> (NB, 16, S) f32.  The heatmaps are packed for the contracted
-    axis here; only the configurations of PROBE_CONFIG and SWEEP_CONFIGS
-    are instantiated."""
+    (x; y) -> (NB, 16, S) f32.  The heatmaps are packed here
+    (`pack_heatmap`); only the configurations of PROBE_CONFIG and
+    SWEEP_CONFIGS are instantiated."""
     if _on_cpu(heatmaps, coords):
         return window_sample_plain(heatmaps, coords, cfg)
     V, H, W, J = heatmaps.shape
@@ -246,7 +252,9 @@ def window_sample(heatmaps: torch.Tensor, coords: torch.Tensor, cfg: WindowConfi
         raise ValueError(f"window_sample takes 1..{JP} joints and 1..8 views, got {J} and {V}")
     if W < cfg.xw or H < cfg.yw:
         raise ValueError(f"a {cfg.xw} x {cfg.yw} window does not fit a {W} x {H} heatmap")
-    packed = pack_heatmap(heatmaps, cfg.contract)
+    if coords.data_ptr() % 16:
+        raise ValueError("window_sample: coords must start on 16 bytes")
+    packed = pack_heatmap(heatmaps)
     out = torch.empty((NB, JP, cfg.s), dtype=torch.float32, device=heatmaps.device)
     err = _window_lib().fvp_window_sample(
         coords.data_ptr(), packed.data_ptr(), out.data_ptr(), NB, V, W, H, 1.0 / V,

@@ -4,10 +4,11 @@ scripts/probe_pallas.py):
     python3 -m faster_voxelpose_tpu_torch.tools.probe_sampling [--blocks N] [--device cpu]
 
 The JLN's 13.1M bilinear samples per frame (K = 10 crops of 64^3 voxels,
-5 views) as a dense contraction: blocks of 256 samples share a 24 x 24
-heatmap window, the x interpolation is a matrix product against the
-window and the y interpolation a multiply and sum (`ops/window_kernels.py`,
-float32).  First the kernel is held against the exact bilinear sampler on
+5 views) sampled from a staged window: blocks of 256 samples share a
+24 x 24 heatmap window, x interpolated first and then y, the prototype's
+float32 arithmetic (`ops/window_kernels.py`: the kernel stages each
+block's footprint in shared memory and takes each sample's 2 x 2 live
+taps from it).  First the kernel is held against the exact bilinear sampler on
 64 blocks (1e-5), then it is timed at 10240 blocks beside the baseline,
 the port's gather kernel `sample_whole` on the same coordinates flattened
 to (5, N, 2), and the ratio is printed.

@@ -358,6 +358,43 @@ def test_window_kernel_matches_plain(dev, index, spread):
         torch.testing.assert_close(out, exact_reference(hm, coords), atol=1e-5, rtol=0)
 
 
+_WINDOW_EDGES = ["edges", "spread30", "views1", "views8", "joints1"]
+
+
+@pytest.mark.parametrize("case", _WINDOW_EDGES)
+@pytest.mark.parametrize("index", range(9))
+def test_window_kernel_at_its_edges(dev, index, case):
+    """Every instantiation against its plain version (1e-5) where its
+    footprints are unusual: blocks past each image edge (origins clipped
+    at 0 and at W - XW, H - YW), samples on integer pixels up to the last
+    column and row, a block past the right edge (nothing staged: zeros), a
+    spread of 30 (the footprint fills the window and every config cuts),
+    1 and 8 views, 1 joint.  Two launches equal bit for bit."""
+    from chip_smoke import edge_coords
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import sweep_sampling as sw
+    from faster_voxelpose_tpu_torch.tools.probe_sampling import exact_reference
+
+    cfg = wk.SWEEP_CONFIGS[index]
+    rng = np.random.RandomState(index)
+    V = {"views1": 1, "views8": 8}.get(case, sw.V)
+    J = 1 if case == "joints1" else sw.J
+    hm = torch.as_tensor(rng.rand(V, sw.H, sw.W, J).astype(np.float32), device=dev)
+    if case == "spread30":
+        coords = sw.sweep_coords(64, cfg.s, 30.0, rng)
+    else:
+        coords = edge_coords(cfg.s, rng, views=V)
+    coords = torch.as_tensor(coords, device=dev)
+    out = wk.window_sample(hm, coords, cfg)
+    torch.testing.assert_close(out, wk.window_sample_plain(hm, coords, cfg), atol=1e-5, rtol=0)
+    assert torch.equal(out, wk.window_sample(hm, coords, cfg))
+    assert float(out[:, J:].abs().max()) == 0.0  # the padding channels
+    if case == "spread30":
+        assert float((out - exact_reference(hm, coords)).abs().max()) > 1e-2
+    else:
+        assert float(out[5].abs().max()) == 0.0 and float(out[:5].max()) > 0.1
+
+
 @pytest.mark.parametrize("dyn", [False, True])
 @pytest.mark.parametrize("k", [128, 64, 32])
 def test_mma_window_matches_plain(dev, k, dyn):
