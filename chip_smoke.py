@@ -38,11 +38,15 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    nine instantiations against its plain version on 64 blocks at spreads
    6 and 12 and on blocks at the image's edges (1e-5), then the tools
    `probe_sampling` and `sweep_sampling` at full scale (13.1M samples);
-8. mma phase: the bf16 tensor-core kernel (csrc/mma_window.cu) in its six
-   cases against its plain version (one bf16 ulp), then the tool
+8. mma phase: the bf16 tensor-core kernel (csrc/mma_window.cu: wgmma on
+   tiles staged by TMA) with its ptxas registers and spills, the HGMMA
+   instructions in its SASS (cuobjdump; none, or no cuobjdump, fails) and
+   its launch plan for each K held against the kernel's own layout; its
+   six cases against its plain version (one bf16 ulp), then the tool
    `microbench_mma` at 512 steps; its time must rise with K and with M
-   and stay under the card's peak; its yardstick is one bmm of the five
-   products of every step concatenated along K;
+   and stay under the card's peak, and each case prints its share of its
+   bound; its yardstick is one bmm of the five products of every step
+   concatenated along K;
 9. eval phase: `run_validation` on the first 500 held-out synthetic
    scenes with the committed weights, held to AP@50 >= the snapshot's
    record - 0.05 and MPJPE <= the record + 4 mm.
@@ -1048,22 +1052,84 @@ def window_phase(card):
     return [row5, row6], launches
 
 
+def mma_build_report():
+    """What the build says of csrc/mma_window.cu: ptxas registers and
+    spills of each instantiation, and the count of HGMMA (wgmma)
+    instructions in the built library's SASS, by the toolkit's
+    cuobjdump.  Raises if cuobjdump is missing or finds no HGMMA, or if an
+    instantiation uses more registers than the launch plan counts on
+    (`window_kernels.MMA_REGS`)."""
+    import re
+    import subprocess
+
+    from faster_voxelpose_tpu_torch.ops import cuda_build
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+
+    lib = cuda_build.library_path("mma_window")
+    log = lib.with_suffix(".log").read_text()
+    entries = re.findall(r"Compiling entry function '[^']*mma_window_kernelILi(\d+)ELb(\d)E[^']*'"
+                         r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+                         r".*?Used (\d+) registers", log, re.S)
+    for k, dyn, stores, loads, regs in entries:
+        print(f"mma_window ptxas K={k} dyn={dyn}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B")
+    if len(entries) != 6:
+        raise AssertionError(f"mma_window: {len(entries)} instantiations in the ptxas report, not 6")
+    regs = max(int(e[4]) for e in entries)
+    if regs > wk.MMA_REGS:
+        raise AssertionError(f"mma_window: {regs} registers per thread, the plan counts on "
+                             f"{wk.MMA_REGS}")
+    injected = log.count("warpgroup.arrive is injected")
+    serialized = log.count("serialized")
+    print(f"mma_window ptxas: warpgroup.arrive injected {injected} times, wgmma serialized "
+          f"{serialized} times")
+    cuobjdump = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.is_file():
+        raise AssertionError(f"mma_window: no cuobjdump beside nvcc ({cuobjdump})")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    print(f"mma_window SASS ({cuobjdump.name} -sass): {hgmma} HGMMA instructions")
+    if hgmma <= 0:
+        raise AssertionError("mma_window: the built library holds no HGMMA instruction")
+
+
 def mma_phase(card):
-    """Kernel row 7.  The six cases against the plain version on 8 steps:
-    the output is bf16, so the limit is one bf16 ulp of the value (2^-7
-    relative); the float32 sums inside differ only by the tensor cores'
-    order.  Then the microbenchmark at full scale, and the six cases
-    against the plain version again on the tool's own operands (512 steps,
-    the same seed), to the same limit: the row's `max_abs_err` is that of
-    the case whose time it reports.  That the product is
-    really computed (only 8 of its 640 rows are stored) shows in the time:
-    it must rise with K, rise with M, and stay under the card's bf16 peak."""
+    """Kernel row 7.  The build report (ptxas registers and spills, HGMMA
+    count), and the launch plan of each K at the tool's shapes, held
+    against the kernel's own layout and occupancy; both are printed on
+    their own lines, not in the row.  The six cases against the plain
+    version on 8 steps: the output is bf16, so the limit is one bf16 ulp
+    of the value (2^-7 relative); the float32 sums inside differ only by
+    the tensor cores' order.  Then the microbenchmark at full scale, and
+    the six cases against the plain version again on the tool's own
+    operands (512 steps, the same seed), to the same limit: the row's
+    `max_abs_err` is that of the case whose time it reports.  That the
+    product is really computed (only 8 of its 640 rows are stored) shows
+    in the time: it must rise with K, rise with M, and stay under the
+    card's bf16 peak; each case's share of its bound is printed."""
     import torch
 
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
     from faster_voxelpose_tpu_torch.ops import window_kernels as wk
     from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
     from faster_voxelpose_tpu_torch.tools.timing import time_ms
+
+    mma_build_report()
+    device = wk.mma_device(torch.cuda.current_device())
+    for k in (128, 64, 32):
+        plan = wk.mma_plan(mb.M, mb.N, k, mb.B, *device)
+        layout = wk.mma_kernel_layout(k, plan.a_stages)
+        print(f"mma_window plan K={k} (M={mb.M}, N={mb.N}, B={mb.B}; {device[0]} SMs, "
+              f"{device[1]} B shared memory per SM, {device[2]} B per block): tile "
+              f"{plan.tile_m}x{plan.tile_n}, {plan.a_stages} A + {wk.MMA_B_STAGES} B stages, "
+              f"{plan.smem} B dynamic shared memory, {plan.blocks_per_sm} block per SM, grid "
+              f"{plan.grid}, {plan.tiles_per_step} tiles per step; the kernel's own (tile, "
+              f"threads, shared memory, B stages, blocks per SM) {layout}")
+        if layout != (plan.tile_m, plan.tile_n, wk.MMA_THREADS, plan.smem, wk.MMA_B_STAGES,
+                      plan.blocks_per_sm):
+            raise AssertionError(f"mma_window: the plan {plan} disagrees with the kernel's "
+                                 f"layout {layout}")
 
     def compare(steps, seed):
         """{(k, dyn): max abs error} of the six cases on `steps` steps of
@@ -1095,6 +1161,10 @@ def mma_phase(card):
     for c in cases:
         if not c["tmacs"] < peak_tmacs:
             raise AssertionError(f"mma_window K={c['k']}: {c['tmacs']} TMAC/s is above the peak")
+        c["bound_ms"], _ = bound(2 * (mb.M * wk.MMA_ROWS + mb.B * c["k"] * mb.N + mb.B * 8 * mb.N),
+                                 2 * mb.M * c["k"] * mb.N * mb.NMAT * mb.B, BF16_FLOPS)
+        print(f"mma_window K={c['k']} dyn={int(c['dyn'])}: {c['ms']:.4f} ms against its bound "
+              f"{c['bound_ms']:.4f} ms: {c['bound_ms'] / c['ms']:.3f} of it | {card}")
     for dyn in (False, True):
         t = [by_case[(k, dyn)]["ms"] for k in (128, 64, 32)]
         if not t[0] > t[1] > t[2]:
@@ -1135,7 +1205,7 @@ def mma_phase(card):
                                 reps=5, warm=1),
                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=full_errs[(k, False)],
                cases=[dict({key: c[key] for key in ("k", "dyn", "ms", "us_per_product", "tmacs",
-                                                    "macs_timed")},
+                                                    "macs_timed", "bound_ms")},
                            max_abs_err=full_errs[(c["k"], c["dyn"])]) for c in cases])
     print(f"kernel mma_window [K={k} static, B={mb.B}, nmat={mb.NMAT}]: err "
           f"{row['max_abs_err']:.3g} kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "

@@ -53,10 +53,13 @@ mma_window
     mean are written as bf16.  Bound on an H100: operations
     (2 * M * K * N * nmat * B flops against 989 TFLOP/s: 0.87 ms at
     K = 128, M = 640, N = 2048, B = 512; rhs is 268 MB, 0.08 ms).  Design:
-    one block per step, lhs resident in shared memory, rhs walked in
-    64-column chunks, wmma m16n16k16 with float32 accumulators; the tiles
-    whose rows are not written are kept alive by a store under a device
-    flag that is never set.
+    a persistent, warp-specialised kernel; a producer thread stages tiles
+    of 128 window rows and of 256 rhs columns by TMA in 128-byte swizzle
+    into two rings on mbarriers, and two consumer warpgroups issue
+    wgmma m64n256k16 on them, all nmat products of a tile on the same
+    staged operands.  `mma_plan` sizes the rings from the device's shared
+    memory and the grid from its SM count; the wrapper passes the plan to
+    the kernel.
 
 Both kernels are forward only and raise on an input that requires grad.
 """
@@ -77,6 +80,7 @@ JP = 16  # joints padded to 16; the padding channels read 0
 PRECISIONS = ("fp32", "tf32x3", "tf32")  # the TPU's HIGHEST, HIGH, DEFAULT
 CONTRACTS = ("x", "y")
 MMA_ROWS = 128  # rows of mma_window's lhs and of one rhs step
+MMA_KS = (128, 64, 32)  # the window heights mma_window is instantiated for
 
 
 @dataclass(frozen=True)
@@ -209,6 +213,93 @@ def mma_window_plain(lhs: torch.Tensor, rhs: torch.Tensor, oy: Optional[torch.Te
 
 
 # ---------------------------------------------------------------------------
+# mma_window's launch plan (csrc/mma_window.cu takes it as given)
+# ---------------------------------------------------------------------------
+
+MMA_TILE_M, MMA_TILE_N = 128, 256  # two consumer warpgroups of m64n256k16
+MMA_THREADS = 384  # one producer and two consumer warpgroups
+MMA_REGS = 168  # registers per thread under __launch_bounds__(384, 1)
+MMA_B_STAGES = 2  # the kernel's kBStages
+MMA_MAX_A_STAGES = 8
+MMA_ALIGN = 1024  # the stage buffers start on a 128-byte swizzle atom
+SMEM_RESERVED_PER_BLOCK = 1024  # what an H100 keeps of each block's shared memory
+REGS_PER_SM = 65_536
+
+
+@dataclass(frozen=True)
+class MmaPlan:
+    """One launch of mma_window: the tile (rows, columns), the stages of
+    its A ring (the B ring has MMA_B_STAGES), dynamic shared memory per
+    block, blocks per SM, the persistent grid, and the row and column
+    tiles of one step."""
+
+    tile_m: int
+    tile_n: int
+    a_stages: int
+    smem: int
+    blocks_per_sm: int
+    grid: int
+    m_tiles: int
+    n_tiles: int
+
+    @property
+    def tiles_per_step(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def mma_smem_bytes(k: int, a_stages: int) -> int:
+    """Dynamic shared memory of the kernel's layout: slack to align the
+    stage buffers, the A stages (128 x k bf16), the B stages (256 x k
+    bf16), two 8-byte barriers per stage."""
+    return (MMA_ALIGN + (a_stages * MMA_TILE_M + MMA_B_STAGES * MMA_TILE_N) * k * 2
+            + 16 * (a_stages + MMA_B_STAGES))
+
+
+@functools.lru_cache(maxsize=64)
+def mma_plan(M: int, N: int, K: int, B: int, sm_count: int, smem_per_sm: int,
+             smem_per_block: int) -> MmaPlan:
+    """The launch for lhs (128, M), rhs (B, 128, N), window height K on a
+    device with `sm_count` SMs of `smem_per_sm` bytes of shared memory, of
+    which one block may ask for `smem_per_block` (`mma_device` reads all
+    three): as many A stages (up to 8) as a block's shared memory holds
+    beside the two B stages, blocks per SM as shared memory and
+    MMA_REGS registers per thread allow, and one persistent block per
+    such slot, or per tile where there are fewer tiles.  On the card,
+    `mma_kernel_layout` holds the shared memory and blocks per SM
+    against the kernel as built."""
+    limit = min(smem_per_sm - SMEM_RESERVED_PER_BLOCK, smem_per_block)
+    free = limit - mma_smem_bytes(K, 0)
+    a_stages = min(MMA_MAX_A_STAGES, free // (MMA_TILE_M * K * 2 + 16))
+    if a_stages < 1:
+        raise ValueError(f"mma_window: K = {K} leaves no A stage in {limit} bytes")
+    smem = mma_smem_bytes(K, a_stages)
+    blocks = min(smem_per_sm // (smem + SMEM_RESERVED_PER_BLOCK),
+                 REGS_PER_SM // (MMA_THREADS * MMA_REGS))
+    m_tiles, n_tiles = -(-M // MMA_TILE_M), -(-N // MMA_TILE_N)
+    return MmaPlan(MMA_TILE_M, MMA_TILE_N, a_stages, smem, blocks,
+                   min(B * n_tiles * m_tiles, sm_count * blocks), m_tiles, n_tiles)
+
+
+def mma_schedule(plan: MmaPlan, B: int, block: int) -> list:
+    """The tiles block `block` computes, in the kernel's order, as (step,
+    first column, first row): of the T = B * n_tiles * m_tiles tiles in
+    (step, column tile, row tile) order, those from block * T // grid to
+    (block + 1) * T // grid.  A block loads a column tile once for its
+    run of that unit's row tiles.  This is a copy of the kernel's walk
+    (csrc/mma_window.cu, `first` and `last`) for the CPU tests of the
+    plan; the card tests that compare the kernel with its plain version
+    on ragged tiles and on a grid that wraps over the steps
+    (tests/test_torch_cuda.py) are what hold it against the kernel."""
+    total = B * plan.n_tiles * plan.m_tiles
+    tiles = []
+    for t in range(total * block // plan.grid, total * (block + 1) // plan.grid):
+        u, mt = divmod(t, plan.m_tiles)
+        b, nt = divmod(u, plan.n_tiles)
+        tiles.append((b, nt * plan.tile_n, mt * plan.tile_m))
+    return tiles
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -231,8 +322,12 @@ def _mma_lib():
 
     lib = load("mma_window")
     if not getattr(lib, "_fvp_typed", False):
-        lib.fvp_mma_window.argtypes = [_P] * 4 + [_I] * 6 + [_F, _P, _P, _P]
+        lib.fvp_mma_window.argtypes = [_P] * 4 + [_I] * 6 + [_F] + [_I] * 3 + [_P]
         lib.fvp_mma_window.restype = _I
+        lib.fvp_mma_layout.argtypes = [_I, _I, _P]
+        lib.fvp_mma_layout.restype = _I
+        lib.fvp_mma_device.argtypes = [_P, _P, _P]
+        lib.fvp_mma_device.restype = _I
         lib._fvp_typed = True
     return lib
 
@@ -269,11 +364,35 @@ def window_sample(heatmaps: torch.Tensor, coords: torch.Tensor, cfg: WindowConfi
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_scratch(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The keep-alive flag (one int32 holding 0) and its sink, one pair
-    per device."""
-    return (torch.zeros(1, dtype=torch.int32, device=device),
-            torch.empty(2048, dtype=torch.float32, device=device))
+def mma_device(index: int) -> Tuple[int, int, int]:
+    """(SM count, shared memory per SM, the most shared memory one block
+    may opt in to, in bytes) of CUDA device `index`, as the kernel's
+    library reads them: the last three arguments of `mma_plan`."""
+    sm, smem, block = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        err = _mma_lib().fvp_mma_device(ctypes.byref(sm), ctypes.byref(smem), ctypes.byref(block))
+    _raise_on(err, "mma_window's device query")
+    return sm.value, smem.value, block.value
+
+
+def mma_kernel_layout(k: int, a_stages: int) -> Tuple[int, int, int, int, int, int]:
+    """The kernel's own (tile rows, tile columns, threads, dynamic shared
+    memory, B stages, blocks per SM) for these A stages on the current
+    device, the last by the runtime's occupancy calculator on the kernel
+    as built: what a plan is held against."""
+    out = (ctypes.c_int * 6)()
+    err = _mma_lib().fvp_mma_layout(k, a_stages, out)
+    if err == -1:
+        raise ValueError(f"mma_window: no kernel is instantiated for K = {k}")
+    _raise_on(err, "mma_window's occupancy query")
+    return tuple(out)
+
+
+_MMA_ERRORS = {
+    -2: "the plan's A stages do not fit its shared memory",
+    -3: "the CUDA driver has no cuTensorMapEncodeTiled",
+    -4: "a TMA tensor map could not be encoded",
+}
 
 
 def mma_window(lhs: torch.Tensor, rhs: torch.Tensor, oy: Optional[torch.Tensor],
@@ -292,15 +411,19 @@ def mma_window(lhs: torch.Tensor, rhs: torch.Tensor, oy: Optional[torch.Tensor],
         _check(oy, "oy", torch.int32, (B,))
     if M % 16 or N % 64 or M <= 0 or nmat <= 0:
         raise ValueError(f"mma_window: M {M} must be a multiple of 16, N {N} of 64, nmat > 0")
+    if lhs.data_ptr() % 16 or rhs.data_ptr() % 16:
+        raise ValueError("mma_window: lhs and rhs must start on 16 bytes (TMA)")
+    plan = mma_plan(M, N, k, B, *mma_device(rhs.device.index))
     out = torch.empty((B, 8, N), dtype=torch.bfloat16, device=rhs.device)
-    flag, sink = _mma_scratch(rhs.device)
     err = _mma_lib().fvp_mma_window(
         lhs.data_ptr(), rhs.data_ptr(), None if oy is None else oy.data_ptr(), out.data_ptr(),
-        B, M, N, k, int(oy is not None), nmat, 1.0 / nmat, flag.data_ptr(), sink.data_ptr(),
-        _stream(rhs.device),
+        B, M, N, k, int(oy is not None), nmat, 1.0 / nmat, plan.a_stages, plan.grid,
+        plan.smem, _stream(rhs.device),
     )
     if err == -1:
         raise ValueError(f"mma_window: no kernel is instantiated for K = {k}")
+    if err in _MMA_ERRORS:
+        raise RuntimeError(f"mma_window: {_MMA_ERRORS[err]}")
     _raise_on(err, "mma_window")
     LAUNCHES["mma_window"] += 1
     return out

@@ -415,6 +415,99 @@ def test_mma_window_matches_plain(dev, k, dyn):
                                atol=0, rtol=2.0 ** -7)
 
 
+def _mma_close(out, ref):
+    torch.testing.assert_close(out.float(), ref.float(), atol=0, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+@pytest.mark.parametrize("k", [128, 64, 32])
+@pytest.mark.parametrize("m", [16, 32, 80, 320, 640])
+def test_mma_window_ragged_tiles(dev, m, k, dyn):
+    """Row tiles of 128 in two warpgroups of 64 against M = 16 ... 640
+    (partial and wholly empty halves), column tiles of 256 against
+    N = 64, 192, 2048 (zero-filled and unloaded boxes), at nmat 1, 2, 5."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+
+    for n, nmat in ((64, 1), (192, 2), (2048, 5)):
+        lhs, rhs, oy = mb.make_operands(3, k, dev, seed=m + n + k, m=m, n=n)
+        origin = oy if dyn else None
+        _mma_close(wk.mma_window(lhs, rhs, origin, k, nmat),
+                   wk.mma_window_plain(lhs, rhs, origin, k, nmat))
+
+
+@pytest.mark.parametrize("nmat", [1, 2, 5])
+@pytest.mark.parametrize("k", [128, 64, 32])
+def test_mma_window_persistent_wrap(dev, k, nmat):
+    """One step, and 2 * SMs + 1 steps of one column tile, so that every
+    persistent block walks three steps through its rings."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for steps in (1, 2 * sms + 1):
+        lhs, rhs, oy = mb.make_operands(steps, k, dev, seed=steps + nmat, m=80, n=192)
+        for origin in (None, oy):
+            _mma_close(wk.mma_window(lhs, rhs, origin, k, nmat),
+                       wk.mma_window_plain(lhs, rhs, origin, k, nmat))
+
+
+def test_mma_window_back_to_back_shapes(dev):
+    """Calls in a row with other shapes, K and origins: each call encodes
+    its own tensor maps, so none reads another's operands."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+
+    big = mb.make_operands(3, 64, dev, seed=5, m=640, n=2048)
+    small = mb.make_operands(5, 32, dev, seed=6, m=80, n=192)
+    calls = [(big, None, 128, 5), (small, small[2], 32, 2), (big, big[2], 64, 1),
+             (small, None, 128, 5)]
+    outs = [wk.mma_window(ops[0], ops[1], origin, k, nmat) for ops, origin, k, nmat in calls]
+    for out, (ops, origin, k, nmat) in zip(outs, calls):
+        _mma_close(out, wk.mma_window_plain(ops[0], ops[1], origin, k, nmat))
+
+
+def test_mma_window_nan_step_and_alignment(dev):
+    """An origin that is not a window of lhs (not a multiple of 16,
+    negative, past 128 - K) writes its step as NaN; its neighbours equal
+    the plain version.  Operands not on 16 bytes, which TMA cannot read,
+    are refused before the launch."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+    from faster_voxelpose_tpu_torch.tools import microbench_mma as mb
+
+    lhs, rhs, oy = mb.make_operands(3, 64, dev, m=320, n=192)
+    for value in (8, -16, 80):
+        bad = oy.clone()
+        bad[1] = value
+        out = wk.mma_window(lhs, rhs, bad, 64, 2)
+        assert torch.isnan(out[1].float()).all()
+        _mma_close(out[[0, 2]], wk.mma_window_plain(lhs, rhs[[0, 2]], oy[[0, 2]], 64, 2))
+    shifted = torch.empty(lhs.numel() + 1, dtype=lhs.dtype, device=dev)[1:].view(lhs.shape)
+    shifted.copy_(lhs)
+    count = sk.launch_counts()["mma_window"]
+    with pytest.raises(ValueError, match="16 bytes"):
+        wk.mma_window(shifted, rhs, oy, 64)
+    assert sk.launch_counts()["mma_window"] == count
+
+
+def test_mma_plan_matches_the_kernel(dev):
+    """The wrapper's plan, from the device the library reads, against the
+    kernel's own tile, threads, shared-memory layout, B stages and blocks
+    per SM (the runtime's occupancy of the kernel as built), for each K."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+
+    index = torch.cuda.current_device()
+    sms, smem, smem_block = wk.mma_device(index)
+    assert sms == torch.cuda.get_device_properties(index).multi_processor_count
+    for k in wk.MMA_KS:
+        plan = wk.mma_plan(640, 2048, k, 512, sms, smem, smem_block)
+        assert wk.mma_kernel_layout(k, plan.a_stages) == (
+            plan.tile_m, plan.tile_n, wk.MMA_THREADS, plan.smem, wk.MMA_B_STAGES,
+            plan.blocks_per_sm)
+        assert plan.smem + wk.SMEM_RESERVED_PER_BLOCK <= smem and plan.smem <= smem_block
+
+
 def test_tuning_wrappers_check_and_count(dev):
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
     from faster_voxelpose_tpu_torch.ops import window_kernels as wk

@@ -191,6 +191,69 @@ def test_mma_window_plain_matches_dot_general(k, dyn):
     np.testing.assert_allclose(out.float().numpy(), want, atol=0, rtol=2.0 ** -7)
 
 
+# as an H100 reports them (cudaDeviceGetAttribute): SMs, shared memory per
+# SM, and the most one block may opt in to (227 KB)
+H100 = (132, 233_472, 232_448)
+H100_SMS, _, H100_SMEM_PER_BLOCK = H100
+
+
+@pytest.mark.parametrize("m", [16, 320, 640])
+@pytest.mark.parametrize("k", [128, 64, 32])
+def test_mma_plan_fits_a_block(k, m):
+    """Row 7's launch plan at the tool's N and B on an H100: the stages fit
+    227 KB per block, A takes as many stages as fit (up to 8), and one
+    persistent block per SM."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+
+    plan = wk.mma_plan(m, 2048, k, 512, *H100)
+    assert plan.smem == wk.mma_smem_bytes(k, plan.a_stages) <= H100_SMEM_PER_BLOCK
+    assert wk.MMA_B_STAGES == 2 and 2 <= plan.a_stages <= wk.MMA_MAX_A_STAGES
+    if plan.a_stages < wk.MMA_MAX_A_STAGES:
+        assert wk.mma_smem_bytes(k, plan.a_stages + 1) > H100_SMEM_PER_BLOCK
+    assert (plan.tile_m, plan.tile_n, plan.blocks_per_sm, plan.grid) == (128, 256, 1, H100_SMS)
+    assert plan.tiles_per_step == -(-m // 128) * 8
+    assert {128: 3, 64: 8, 32: 8}[k] == plan.a_stages
+
+
+@pytest.mark.parametrize("m", [16, 320, 640])
+@pytest.mark.parametrize("k", [128, 64, 32])
+def test_mma_plan_covers_each_row_and_column_once(k, m):
+    """The persistent blocks' tiles, walked as the kernel walks them, cover
+    every (step, row, column) of the product exactly once, for ragged and
+    whole column tiles."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+
+    steps = 3
+    for n in (64, 192, 2048):
+        plan = wk.mma_plan(m, n, k, steps, *H100)
+        assert plan.grid == min(steps * plan.tiles_per_step, H100_SMS)
+        tiles = [t for block in range(plan.grid) for t in wk.mma_schedule(plan, steps, block)]
+        assert len(tiles) == len(set(tiles)) == steps * plan.tiles_per_step
+        count = np.zeros((steps, m, n), np.int32)
+        for b, n0, m0 in tiles:
+            count[b, m0:m0 + plan.tile_m, n0:n0 + plan.tile_n] += 1
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("m", [16, 320, 640])
+@pytest.mark.parametrize("k", [128, 64, 32])
+def test_mma_plan_wraps_over_steps(k, m):
+    """With 2 * SMs + 1 steps of one column tile, each block's run of
+    tiles, in (step, row tile) order, spans two or three steps, the runs
+    follow each other, and every step's row tile 0 goes to one block."""
+    from faster_voxelpose_tpu_torch.ops import window_kernels as wk
+
+    steps = 2 * H100_SMS + 1
+    plan = wk.mma_plan(m, 192, k, steps, *H100)
+    assert plan.grid == H100_SMS and plan.n_tiles == 1
+    walks = [wk.mma_schedule(plan, steps, block) for block in range(plan.grid)]
+    assert all(len({b for b, _, _ in w}) in (2, 3) for w in walks)
+    flat = [t for w in walks for t in w]
+    assert flat == sorted(flat, key=lambda t: (t[0], t[2]))
+    assert flat[0] == (0, 0, 0) and flat[-1] == (steps - 1, 0, 128 * (plan.m_tiles - 1))
+    assert sorted(b for w in walks for b, _, m0 in w if m0 == 0) == list(range(steps))
+
+
 def test_tool_draws_match_the_scripts():
     """make_block_coords and the sweep's coordinate draws equal the
     scripts' for one seed (the sweep draws inline in its main(),
