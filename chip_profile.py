@@ -14,8 +14,10 @@ port's generator, rendered on the card, as in chip_smoke.py's training
 phase; the batches are moved to the card before the timed window, so
 the window holds the steps alone.  Prints the card, the host wall time
 per request or step (each ends in a synchronisation), the device time
-and its share of the untraced wall time, then the kernels with the most
-device time.  Needs a CUDA device; fails without one.
+and its share of the untraced wall time, the device events and the
+launches of kernel row 1 (the whole-space sampler, either mode) per
+request or step, then the kernels with the most device time.  Needs a
+CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ import time
 import numpy as np
 
 
-def report(prof, n, wall_ms, traced_ms, card, unit, top, extra=""):
+def report(prof, n, wall_ms, traced_ms, card, unit, top, launches, extra=""):
     """Print the device time per `unit` by kernel from a torch.profiler
-    trace of n units, beside the untraced host wall time."""
+    trace of n units, beside the untraced host wall time; `launches` are
+    the kernels' launch counters over the traced units."""
     from torch.autograd import DeviceType
 
     # device-side events only (kernels, copies, fills): the host operators
@@ -44,14 +47,19 @@ def report(prof, n, wall_ms, traced_ms, card, unit, top, extra=""):
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
         raise AssertionError("the trace holds no device time")
+    events = sum(r[2] for r in rows)
+    row1 = {k: launches[k] / n for k in ("sample_whole", "sample_whole_projected")}
+    row1_ms = sum(ms for name, ms, _ in rows if "whole_kernel" in name)
     print(f"profile: {n} {unit}s{extra} | {card}")
     print(f"profile: host wall {wall_ms:.4f} ms/{unit} untraced ({traced_ms:.4f} traced), "
           f"device {device_ms:.4f} ms/{unit}, busy share {device_ms / wall_ms:.4f}, "
-          f"{sum(r[2] for r in rows)} device events/{unit}")
+          f"{events} device events/{unit}; kernel row 1 launches/{unit} {row1}, its device "
+          f"time {row1_ms:.4f} ms/{unit}")
     for name, ms, count in rows[:top]:
         print(f"  {ms:9.4f} ms {ms / device_ms:7.2%} x{count:<4d} {name[:90]}")
     print(json.dumps({"unit": unit, "wall_ms": wall_ms, "traced_ms": traced_ms,
-                      "device_ms": device_ms,
+                      "device_ms": device_ms, "device_events": events, "row1_launches": row1,
+                      "row1_ms": row1_ms,
                       "top": [dict(name=n_[:90], ms=m, launches=c) for n_, m, c in rows[:top]]}))
 
 
@@ -63,6 +71,7 @@ def serve_profile(args, card) -> None:
     from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
     from faster_voxelpose_tpu_torch.engine import PoseService
     from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
     cfg = panoptic_synthetic_profile()
     center = cfg.CAPTURE_SPEC.SPACE_CENTER
@@ -83,12 +92,13 @@ def serve_profile(args, card) -> None:
     for f in frames:
         svc.infer_heatmaps(f)
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
+    sk.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         detected = [svc.infer_heatmaps(f)["n_people"] for f in frames]
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.requests
     report(prof, args.requests, wall_ms, traced_ms, card, "request", args.top,
-           f", mean detected {np.mean(detected):.3f}")
+           sk.launch_counts(), f", mean detected {np.mean(detected):.3f}")
 
 
 def train_profile(args, card) -> None:
@@ -99,6 +109,7 @@ def train_profile(args, card) -> None:
     from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
     from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
     from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
     cfg = panoptic_synthetic_profile()
     n = args.steps
@@ -117,9 +128,10 @@ def train_profile(args, card) -> None:
         return (time.perf_counter() - t0) * 1e3 / len(bs)
 
     wall_ms = steps(batches[3:3 + n])
+    sk.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = steps(batches[3 + n:])
-    report(prof, n, wall_ms, traced_ms, card, "step", args.top,
+    report(prof, n, wall_ms, traced_ms, card, "step", args.top, sk.launch_counts(),
            f" of batch {cfg.TRAIN.BATCH_SIZE}")
 
 

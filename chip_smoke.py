@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels   # the kernel rows alone (no path run)
 
 Drives the port (`faster_voxelpose_tpu_torch`) only, at the Panoptic
 profile of configs/demo/panoptic_synthetic.yaml (5 views, 240x128x15
@@ -16,7 +17,18 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    and its bound; the crop modes' planes equal bit for bit, and each crop
    line prints the launch (grid, threads, shared memory) as the kernel's
    source computes it, and an upper bound on the global atomics it
-   issues, computed from the masks;
+   issues, computed from the masks.  Row 1, the whole-space sampler, runs
+   at the Panoptic profile (B = 1 on the served rig and frame, B = 4) and
+   at the Shelf and Campus shapes (B = 4 and 8): its projected mode
+   against the plain version, and equal bit for bit to its coords mode on
+   whole_pixels of the same cameras; each case prints both modes' times,
+   the coords mode with the coords built per sample as the HDN did
+   before, the launch and its shared memory.  Every kernel is timed three
+   ways (tools/timing.py): single calls (`ms`), device time from a CUDA
+   graph of back-to-back calls (`device_ms`) and the host's wall time per
+   call (`host_ms`); its library yardstick on the first two
+   (`library_ms`, `library_device_ms`), so that each ratio is read on one
+   clock;
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
 4. route phase: the served path answers the same 6 frames under the
@@ -51,9 +63,13 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    scenes with the committed weights, held to AP@50 >= the snapshot's
    record - 0.05 and MPJPE <= the record + 4 mm.
 The serving phase (PoseService with the committed panoptic_synthetic
-weights answering 24 rendered 1-6-person frames: the default route's
-launch counters rise on every request, someone is detected, the median
-matched MPJPE stays under 150 mm) runs between phases 3 and 4.
+weights answering 24 rendered 1-6-person frames: the default route's two
+kernels, the projected whole-space sampler and the crop sampler, launch
+once per request and no other kernel does, someone is detected, the
+median matched MPJPE stays under 150 mm) runs between phases 3 and 4.
+Training and evaluation launch the whole-space sampler once per batch
+and the crop sampler once per sample; the coords mode of row 1 runs only
+as the gather baseline of tools/probe_sampling.py.
 
 Any failed phase raises, so the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernel table
@@ -204,46 +220,231 @@ def build_phase():
                     print("  " + line.strip())
 
 
-def whole_phase(cfg, geom, rig, hm, card):
+# Row 1's shapes besides the Panoptic profile: the geometry of
+# configs/demo/{shelf,campus}_synthetic.yaml, and the rig of each one's
+# scripts/make_demo_data.py line (views, radius, centre, original image)
+WHOLE_PROFILES = {
+    "shelf": dict(views=5, ori=(1032, 776), image=(800, 608), heatmap=(200, 152), joints=17,
+                  size=(8000.0, 8000.0, 2000.0), center=(450.0, -320.0, 800.0), radius=4500.0),
+    "campus": dict(views=3, ori=(360, 288), image=(800, 640), heatmap=(200, 160), joints=17,
+                   size=(12000.0, 12000.0, 2000.0), center=(3000.0, 4500.0, 1000.0),
+                   radius=10500.0),
+}
+
+
+def profile_geometry(name):
+    """The projection geometry of WHOLE_PROFILES[name] (the Panoptic
+    profile's other settings do not reach row 1)."""
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.models.projection import make_projection_geometry
+
+    p = WHOLE_PROFILES[name]
+    cfg = panoptic_synthetic_profile()
+    d, c = cfg.DATASET, cfg.CAPTURE_SPEC
+    d.CAMERA_NUM, d.NUM_JOINTS = p["views"], p["joints"]
+    d.ORI_IMAGE_SIZE, d.IMAGE_SIZE, d.HEATMAP_SIZE = p["ori"], p["image"], p["heatmap"]
+    c.SPACE_SIZE, c.SPACE_CENTER = p["size"], p["center"]
+    return make_projection_geometry(cfg)
+
+
+def held_out_rigs(views, radius, center, ori, B):
+    """(B, views, 21) float32: the rig of make_demo_data.py's line for
+    seeds 0 .. B-1 (each seed jitters the cameras' angles)."""
+    from faster_voxelpose_tpu_torch.datasets.demo_data import make_rig
+    from faster_voxelpose_tpu_torch.geometry import pack_rig
+
+    rigs = [make_rig(views, radius, 2200.0, center[:2], ori, seed=b) for b in range(B)]
+    return np.stack([pack_rig([r[str(v)] for v in range(views)]) for r in rigs]).astype(np.float32)
+
+
+def whole_cases(cfg, geom, rig, hm):
+    """Row 1's cases, (label, geometry, heatmaps (B, V, H, W, J), cams
+    (B, V, 21)) on the card: the Panoptic profile at B = 1 on the served
+    rig and frame (the inputs of earlier readings) and at B = 4 on
+    held-out rigs; Shelf and Campus at B = 4 and 8.  Heatmaps other than
+    the frame are uniform in [0, 1) from a seed."""
+    import torch
+
+    rng = np.random.RandomState(7)
+    d, c = cfg.DATASET, cfg.CAPTURE_SPEC
+    cases = [("panoptic B=1", geom, hm[None], torch.as_tensor(rig, device=CARD)[None])]
+    shapes = [("panoptic", geom, 5, 2800.0, c.SPACE_CENTER, d.ORI_IMAGE_SIZE, d.NUM_JOINTS, 4)]
+    for name in ("shelf", "campus"):
+        p = WHOLE_PROFILES[name]
+        g = profile_geometry(name)
+        shapes += [(name, g, p["views"], p["radius"], p["center"], p["ori"], p["joints"], B)
+                   for B in (4, 8)]
+    for name, g, views, radius, center, ori, joints, B in shapes:
+        W, H = g.heatmap_size
+        heat = rng.rand(B, views, H, W, joints).astype(np.float32)
+        cams = held_out_rigs(views, radius, center, ori, B)
+        cases.append((f"{name} B={B}", g, torch.as_tensor(heat, device=CARD),
+                      torch.as_tensor(cams, device=CARD)))
+    return cases
+
+
+def whole_case(label, g, heat, cams, card):
+    """One case of row 1: the projected mode against the plain version
+    (1e-5) and against the coords mode on whole_pixels of the same cams
+    (bit for bit), the coords mode against its plain version, their times
+    by every timer, the library yardstick and the bound."""
     import torch
     import torch.nn.functional as F
 
     from faster_voxelpose_tpu_torch.geometry import project_to_norm_coords
-    from faster_voxelpose_tpu_torch.models.projection import whole_pixels
+    from faster_voxelpose_tpu_torch.models import projection as pj
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
     from faster_voxelpose_tpu_torch.tools.timing import time_ms
 
-    grid = torch.as_tensor(geom.whole_grid, device=hm.device)
-    cams = torch.as_tensor(rig, device=hm.device)
-    pix = whole_pixels(geom, grid, cams)
-    out, ref = sk.sample_whole(hm, pix), sk.sample_whole_plain(hm, pix)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    if not (err <= TOL and torch.isfinite(out).all()):
-        raise AssertionError(f"sample_whole disagrees with its plain version: {err}")
+    B, V, H, W, J = heat.shape
+    X, Y, Z = g.voxels_per_axis
+    N = X * Y * Z
+    grid = torch.as_tensor(g.whole_grid, device=CARD)
+    pix = [pj.whole_pixels(g, grid, cams[b]) for b in range(B)]
 
-    norm = project_to_norm_coords(grid, cams, geom.resize_transform, geom.ori_image_size,
-                                  geom.image_size, geom.heatmap_size)
+    def coords_path():  # the HDN's path before the projected mode: coords, then the kernel
+        return torch.stack([sk.sample_whole(heat[b].contiguous(), pj.whole_pixels(g, grid, cams[b]))
+                            for b in range(B)])
+
+    coords = torch.stack([sk.sample_whole(heat[b].contiguous(), pix[b]) for b in range(B)])
+    ref = torch.stack([sk.sample_whole_plain(heat[b], pix[b]) for b in range(B)])
+    torch.cuda.synchronize()
+    coords_err = float((coords - ref).abs().max())
+    if not (coords_err <= TOL and torch.isfinite(coords).all()):
+        raise AssertionError(f"sample_whole ({label}) disagrees with its plain version: {coords_err}")
+    case = dict(label=label, B=B, coords_err=coords_err,
+                coords_path=timings(coords_path),
+                coords_kernel=timings(lambda: [sk.sample_whole(heat[b], pix[b]) for b in range(B)]))
+    line = (f"kernel row 1 [{label}] V{V} {H}x{W}x{J} grid {X}x{Y}x{Z}: coords mode err "
+            f"{coords_err:.3g}, its kernel x{B} {fmt(case['coords_kernel'])}, with the coords "
+            f"built per sample (the HDN's path before) {fmt(case['coords_path'])}")
+    axes = tuple(torch.as_tensor(a, device=CARD) for a in pj.whole_axes(g))
+    proj = pj.whole_projection(g)
+    out = sk.sample_whole_projected(heat, cams, axes, proj)
+    plain = sk.sample_whole_projected_plain(heat, cams, axes, proj)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    diff = float((out.reshape(B, N, J) - coords).abs().max())
+    if not (err <= TOL and torch.isfinite(out).all()):
+        raise AssertionError(f"sample_whole_projected ({label}) disagrees with its plain "
+                             f"version: {err}")
+    if not torch.equal(out.reshape(B, N, J), coords):
+        raise AssertionError(f"sample_whole_projected ({label}) differs from the coords mode "
+                             f"by {diff}")
+    hm_nchw = heat.reshape(B * V, H, W, J).permute(0, 3, 1, 2).contiguous()
+
+    def library():  # the projection is part of this mode's work
+        norm = project_to_norm_coords(grid, cams, g.resize_transform, g.ori_image_size,
+                                      g.image_size, g.heatmap_size)  # (B, V, N, 2)
+        s = F.grid_sample(hm_nchw, norm.reshape(B * V, 1, N, 2), align_corners=True,
+                          padding_mode="zeros")
+        return s.reshape(B, V, J, N).mean(1).clamp(0, 1)
+
+    lib_err = float((library().transpose(1, 2) - plain.reshape(B, N, J)).abs().max())
+    nbytes = 4 * (B * V * H * W * J + B * N * J + B * V * 21 + X + Y + Z)
+    b_ms, b_by = bound(nbytes, B * N * V * (70 + 8 * J) + 2 * B * N * J)
+    geo = sk.whole_launch_geometry(V, (X, Y, Z), B)
+    busy = N / (geo["grid"][0] * geo["voxels"])  # pairs at work over lanes launched
+    case.update(err=err, lib_err=lib_err, bound_ms=b_ms, bound_by=b_by,
+                projected=timings(lambda: sk.sample_whole_projected(heat, cams, axes, proj)),
+                plain_ms=time_ms(lambda: sk.sample_whole_projected_plain(heat, cams, axes, proj),
+                                 reps=5, warm=1),
+                **library_readings(library))
+    print(f"{line}; projected mode err {err:.3g} (equal to the coords mode bit for bit; library "
+          f"err {lib_err:.3g}) {fmt(case['projected'])}, plain_ms {case['plain_ms']:.4f} "
+          f"{fmt_library(case)} bound_ms {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB); launch grid "
+          f"{geo['grid']} threads {geo['threads']} smem {geo['smem']} B, lanes at work "
+          f"{busy:.4f} (the coords mode's {J / 2 ** int(np.ceil(np.log2(J))):.4f}) | {card}")
+    return case
+
+
+def device_readings(fn):
+    """The readings of tools/timing.py beside the single-call `ms`: the
+    device time per call (`device_ms`, and the method that read it) and
+    the host's wall time per call (`host_ms`)."""
+    from faster_voxelpose_tpu_torch.tools.timing import device_timing, host_ms
+
+    dev, method = device_timing(fn)
+    return dict(device_ms=dev, device_method=method, host_ms=host_ms(fn))
+
+
+def timings(fn):
+    """The three readings of tools/timing.py of one call, in ms."""
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
+
+    return dict(ms=time_ms(fn), **device_readings(fn))
+
+
+def library_readings(fn):
+    """A library yardstick's time on both clocks of the kernels' rows: the
+    single-call `library_ms` and the device time `library_device_ms`."""
+    from faster_voxelpose_tpu_torch.tools.timing import device_timing, time_ms
+
+    return dict(library_ms=time_ms(fn), library_device_ms=device_timing(fn)[0])
+
+
+def fmt_library(row):
+    return f"library_ms {row['library_ms']:.4f} library_device_ms {row['library_device_ms']:.4f}"
+
+
+def fmt(t):
+    return (f"ms {t['ms']:.4f} device_ms {t['device_ms']:.4f} ({t['device_method']}) host_ms "
+            f"{t['host_ms']:.4f}")
+
+
+def whole_phase(cfg, geom, rig, hm, card):
+    """Kernel row 1 in both modes on every case of `whole_cases`; returns
+    the coords mode's row and the projected mode's, both read at the
+    Panoptic profile and B = 1.  The coords mode's bound: the heatmaps and
+    coords in, the cube out."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.models import projection as pj
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import time_ms
+
+    cases = [whole_case(*c, card) for c in whole_cases(cfg, geom, rig, hm)]
+    first = cases[0]
+    grid = torch.as_tensor(geom.whole_grid, device=CARD)
+    pix = pj.whole_pixels(geom, grid, torch.as_tensor(rig, device=CARD))
+    norm = pixel_to_norm(pix, geom)
     hm_nchw = hm.permute(0, 3, 1, 2).contiguous()
 
     def library():
+        import torch.nn.functional as F
+
         s = F.grid_sample(hm_nchw, norm[:, None], align_corners=True, padding_mode="zeros")
         return s.mean(0).clamp(0, 1)
 
-    lib_err = float((library()[:, 0].t() - ref).abs().max())
     V, H, W, J = hm.shape
     N = pix.shape[1]
-    nbytes = 4 * (V * H * W * J + V * N * 2 + N * J)
-    flops = N * V * (12 + 8 * J) + 2 * N * J
-    b_ms, b_by = bound(nbytes, flops)
-    row = dict(name="sample_whole", source=SAMPLING_CU, replaces=f"{PALLAS}:947", path="train",
-               ms=time_ms(lambda: sk.sample_whole(hm, pix)),
-               plain_ms=time_ms(lambda: sk.sample_whole_plain(hm, pix)),
-               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    print(f"kernel sample_whole: err {err:.3g} (library err {lib_err:.3g}) kernel_ms "
-          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
-          f"bound_ms {b_ms:.4f} ({b_by}) shapes V{V} {H}x{W}x{J} N{N} | {card}")
-    return row
+    b_ms, b_by = bound(4 * (V * H * W * J + V * N * 2 + N * J), N * V * (12 + 8 * J) + 2 * N * J)
+    t = first["coords_kernel"]
+    rows = [dict(name="sample_whole", source=SAMPLING_CU, replaces=f"{PALLAS}:947", path="tools",
+                 ms=t["ms"], device_ms=t["device_ms"], host_ms=t["host_ms"],
+                 plain_ms=time_ms(lambda: sk.sample_whole_plain(hm, pix)),
+                 **library_readings(library), bound_ms=b_ms, bound_by=b_by,
+                 max_abs_err=first["coords_err"]),
+            projected_row(first, cases)]
+    print(f"kernel row 1 coords mode [panoptic B=1]: {fmt_library(rows[0])} | {card}")
+    return rows
+
+
+def projected_row(first, cases):
+    """The projected mode's row, read at the Panoptic profile and B = 1,
+    with every case's readings."""
+    keys = ("label", "B", "err", "bound_ms", "plain_ms", "library_ms", "library_device_ms")
+    t = first["projected"]
+    return dict(
+        name="sample_whole_projected", source=SAMPLING_CU, replaces=f"{PALLAS}:947",
+        path="serving", ms=t["ms"], device_ms=t["device_ms"], host_ms=t["host_ms"],
+        plain_ms=first["plain_ms"], library_ms=first["library_ms"],
+        library_device_ms=first["library_device_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], max_abs_err=first["err"],
+        coords_path_device_ms=first["coords_path"]["device_ms"],
+        cases=[dict({k: c[k] for k in keys}, ms=c["projected"]["ms"],
+                    device_ms=c["projected"]["device_ms"],
+                    coords_path_device_ms=c["coords_path"]["device_ms"]) for c in cases])
 
 
 def crop_case(cfg, geom, rig, hm, rng):
@@ -370,10 +571,11 @@ def crop_phase(cfg, geom, rig, hm, card, case):
     row = dict(name="sample_crop_planes", source=SAMPLING_CU, replaces=f"{PALLAS}:1010",
                path="train", ms=time_ms(lambda: sk.sample_crop_planes(*args)),
                plain_ms=time_ms(lambda: sk.sample_crop_planes_plain(*args)),
-               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+               **library_readings(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               **device_readings(lambda: sk.sample_crop_planes(*args)))
     V = hm.shape[0]
     print(f"kernel sample_crop_planes: err {err:.3g} (library err {lib_err:.3g}) kernel_ms "
-          f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+          f"{fmt(row)} plain_ms {row['plain_ms']:.4f} {fmt_library(row)} "
           f"bound_ms {b_ms:.4f} ({b_by}) K{case['K']} valid {len(vk)} live voxels {case['live']} "
           f"samples {case['live'] * V} | {launch} | {card}")
     return row
@@ -420,10 +622,11 @@ def coords_phase(cfg, geom, hm, card, case):
                path="route",
                ms=time_ms(lambda: sk.sample_crop_planes_coords(hm, pix, *masks)),
                plain_ms=time_ms(lambda: sk.sample_crop_coords_plain(hm, pix, *masks)),
-               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+               **library_readings(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               **device_readings(lambda: sk.sample_crop_planes_coords(hm, pix, *masks)))
     print(f"kernel sample_crop_planes_coords: err {err:.3g} (vs project route {route_err:.3g}, "
-          f"library err {lib_err:.3g}) kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-          f"library_ms {row['library_ms']:.4f} bound_ms {b_ms:.4f} ({b_by}) coords "
+          f"library err {lib_err:.3g}) kernel_ms {fmt(row)} plain_ms {row['plain_ms']:.4f} "
+          f"{fmt_library(row)} bound_ms {b_ms:.4f} ({b_by}) coords "
           f"{tuple(pix.shape)} {pix.numel() * 4 / 1e6:.1f} MB | "
           f"{launch} | {card}")
     return row
@@ -471,11 +674,15 @@ def cube_phase(cfg, geom, hm, card, case):
     launch = crop_launch(hm, case, geom, project=True, cube=True)
     row = dict(name="sample_crop_cube", source=SAMPLING_CU, replaces=f"{PALLAS}:1010", path="route",
                ms=times["project"], plain_ms=plain_ms,
-               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by,
-               max_abs_err=max(errs.values()), coords_ms=times["coords"], coords_bound_ms=bc_ms)
+               **library_readings(library), bound_ms=b_ms, bound_by=b_by,
+               max_abs_err=max(errs.values()), coords_ms=times["coords"], coords_bound_ms=bc_ms,
+               **device_readings(lambda: sk.sample_crop_cube(hm, *masks, **proj)))
+    row["coords_device_ms"] = device_readings(
+        lambda: sk.sample_crop_cube(hm, *masks, pix=pix))["device_ms"]
     print(f"kernel sample_crop_cube: err project {errs['project']:.3g} coords {errs['coords']:.3g} "
-          f"(library err {lib_err:.3g}) kernel_ms project {times['project']:.4f} coords "
-          f"{times['coords']:.4f} plain_ms {plain_ms:.4f} library_ms {row['library_ms']:.4f} "
+          f"(library err {lib_err:.3g}) kernel_ms project {fmt(row)}, coords "
+          f"{times['coords']:.4f} device_ms {row['coords_device_ms']:.4f} plain_ms {plain_ms:.4f} "
+          f"{fmt_library(row)} "
           f"bound_ms project {b_ms:.4f} ({b_by}) coords {bc_ms:.4f} ({bc_by}) cube "
           f"{tuple(cube.shape)} {cube.numel() * 4 / 1e6:.1f} MB | {launch} | {card}")
     return row
@@ -576,7 +783,7 @@ def route_phase(cfg, rig, card, rng):
         print(f"route {label}: {resolve_crop_route(rcfg)} launches {counts} p50_ms "
               f"{stats['p50_ms']} | {card}")
         want = {n: 0 for n in counts}
-        want.update({"sample_whole": len(frames), kernel: len(frames)})
+        want.update({"sample_whole_projected": len(frames), kernel: len(frames)})
         if counts != want:
             raise AssertionError(f"route {label}: launches {counts}, expected {want}")
     ref = results["sample_crop_planes"]
@@ -822,9 +1029,14 @@ def training_phase(card, fresh_steps=20):
           f"data ms/batch median {np.median(data_ms):.3f}, samples/s {fresh_steps * B / wall:.3f} "
           f"(data and steps in series), peak memory {peak / 2**30:.3f} GiB, launches per step "
           f"{per_step}, last losses {({k: round(float(v), 6) for k, v in losses.items()})} | {card}")
-    for name in ("sample_whole", "sample_crop_planes"):
-        if launches[name] != B * fresh_steps:
-            raise AssertionError(f"{name} launched {launches[name]} times in {fresh_steps} steps of {B}")
+    # the whole-space sampler once per forward (one batch), the crop sampler
+    # once per sample, the coords mode never
+    want = {"sample_whole_projected": fresh_steps, "sample_crop_planes": B * fresh_steps,
+            "sample_whole": 0}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"{name} launched {launches[name]} times in {fresh_steps} steps "
+                                 f"of {B}, expected {count}")
     return launches
 
 
@@ -847,7 +1059,7 @@ def serving_phase(cfg, rig, card, rng):
     sk.reset_launch_counts()
     results = [svc.infer_heatmaps(f) for f in frames]
     launches = sk.launch_counts()
-    route = ("sample_whole", "sample_crop_planes")  # the default route's kernels
+    route = ("sample_whole_projected", "sample_crop_planes")  # the default route's kernels
 
     n_true = np.mean([len(p) for p in scenes])
     n_det = np.mean([r["n_people"] for r in results])
@@ -857,8 +1069,8 @@ def serving_phase(cfg, rig, card, rng):
     print(f"serving: {N_REQUESTS} requests, mean true people {n_true:.3f}, mean detected "
           f"{n_det:.3f}, matched {len(errs)}, MPJPE median {np.median(errs) if errs else float('nan'):.2f} "
           f"mm mean {np.mean(errs) if errs else float('nan'):.2f} mm, launches {launches}")
-    for name, count in launches.items():
-        if (count < N_REQUESTS) if name in route else count:
+    for name, count in launches.items():  # once per request (batch 1) each, no other kernel
+        if count != (N_REQUESTS if name in route else 0):
             raise AssertionError(f"{name} launched {count} times for {N_REQUESTS} requests")
     if not any(r["n_people"] for r in results):
         raise AssertionError("no person detected in any frame")
@@ -973,11 +1185,12 @@ def window_row(name, replaces, cfg, ms, hm, coords, err, card, **extra):
     row = dict(name=name, source="faster_voxelpose_tpu_torch/csrc/window.cu", replaces=replaces,
                path="tools", ms=ms,
                plain_ms=time_ms(lambda: wk.window_sample_plain(hm, coords, cfg), reps=5, warm=1),
-               library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-               config=cfg.label(), **extra)
+               **library_readings(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               config=cfg.label(), **extra,
+               **device_readings(lambda: wk.window_sample(hm, coords, cfg)))
     staged = staged_bytes(coords, cfg, W, H)
     print(f"kernel {name} [{cfg.label()}]: err {err:.3g} (kernel against library {lib_err:.3g}) "
-          f"kernel_ms {ms:.4f} plain_ms {row['plain_ms']:.4f} library_ms {row['library_ms']:.4f} "
+          f"kernel_ms {fmt(row)} plain_ms {row['plain_ms']:.4f} {fmt_library(row)} "
           f"bound_ms {b_ms:.4f} ({b_by}) blocks {NB} samples {n * V}; staged in shared memory "
           f"{staged / 1e6:.1f} MB per launch (computed from the footprints, not measured) | {card}")
     return row
@@ -1025,7 +1238,8 @@ def window_phase(card):
 
     sk.reset_launch_counts()
     probe = ps.main([])
-    launches = {"window_sample": sk.launch_counts()["window_sample"]}
+    # the probe's gather baseline is row 1's coords mode
+    launches = {k: sk.launch_counts()[k] for k in ("window_sample", "sample_whole")}
     sk.reset_launch_counts()
     rows_sweep = sw.main([])
     launches["window_sample_sweep"] = sk.launch_counts()["window_sample"]
@@ -1188,7 +1402,7 @@ def mma_phase(card):
     left = lhs[:k].t().expand(mb.B, mb.M, k)
     left_cat = lhs[:k].t().repeat(1, mb.NMAT).expand(mb.B, mb.M, mb.NMAT * k)
     right_cat = rhs[:, None, :k].expand(mb.B, mb.NMAT, k, mb.N).reshape(mb.B, mb.NMAT * k, mb.N)
-    lib_ms = time_ms(lambda: torch.bmm(left_cat, right_cat))
+    lib = library_readings(lambda: torch.bmm(left_cat, right_cat))
     lib_err = float((torch.bmm(left_cat[:8], right_cat[:8])[:, :8].float() / mb.NMAT
                      - wk.mma_window_plain(lhs, rhs[:8], None, k, mb.NMAT).float()).abs().max())
     del right_cat
@@ -1203,14 +1417,15 @@ def mma_phase(card):
                replaces="scripts/microbench_matmul.py:65", path="tools", ms=top["ms"],
                plain_ms=time_ms(lambda: wk.mma_window_plain(lhs, rhs, None, k, mb.NMAT),
                                 reps=5, warm=1),
-               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=full_errs[(k, False)],
+               **lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=full_errs[(k, False)],
                cases=[dict({key: c[key] for key in ("k", "dyn", "ms", "us_per_product", "tmacs",
                                                     "macs_timed", "bound_ms")},
-                           max_abs_err=full_errs[(c["k"], c["dyn"])]) for c in cases])
+                           max_abs_err=full_errs[(c["k"], c["dyn"])]) for c in cases],
+               **device_readings(lambda: wk.mma_window(lhs, rhs, None, k, mb.NMAT)))
     print(f"kernel mma_window [K={k} static, B={mb.B}, nmat={mb.NMAT}]: err "
-          f"{row['max_abs_err']:.3g} kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
-          f"library_ms (one bmm, the {mb.NMAT} products of a step concatenated along K) "
-          f"{lib_ms:.4f} (its 8 rows against the plain version {lib_err:.3g}; the {mb.NMAT} "
+          f"{row['max_abs_err']:.3g} kernel_ms {fmt(row)} plain_ms {row['plain_ms']:.4f} "
+          f"library (one bmm, the {mb.NMAT} products of a step concatenated along K) "
+          f"{fmt_library(lib)} (its 8 rows against the plain version {lib_err:.3g}; the {mb.NMAT} "
           f"products stacked along the batch {stacked_ms:.4f}, one product per step "
           f"{one_ms:.4f}) bound_ms {b_ms:.4f} ({b_by}) | {card}")
     return [row], launches
@@ -1290,9 +1505,12 @@ def eval_phase(card, scenes=500):
     preds = res["preds"]
     if preds.shape[0] != scenes or preds.shape[2:] != (15, 5) or not np.isfinite(preds).all():
         raise AssertionError(f"eval: predictions of shape {preds.shape} or not finite")
-    for name in ("sample_whole", "sample_crop_planes"):
-        if launches[name] != scenes:
-            raise AssertionError(f"eval: {name} launched {launches[name]} times for {scenes} scenes")
+    batches = -(-scenes // panoptic_synthetic_profile().TEST.BATCH_SIZE)
+    want = {"sample_whole_projected": batches, "sample_crop_planes": scenes, "sample_whole": 0}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"eval: {name} launched {launches[name]} times for {scenes} "
+                                 f"scenes in {batches} batches, expected {count}")
     broken = eval_limits(res)
     if broken:
         raise AssertionError("eval: " + "; ".join(broken))
@@ -1307,7 +1525,14 @@ def eval_phase(card, scenes=500):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="only the kernel rows (1-7), each timed by tools/timing.py's three "
+                         "timers, then their table; no path runs, no result line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
 
@@ -1339,9 +1564,15 @@ def main() -> int:
           .to(hm.device)).clamp(0, 1).contiguous()  # no exact zeros between people
 
     case = crop_case(cfg, geom, rig, hm, rng)
-    rows = [whole_phase(cfg, geom, rig, hm, card), crop_phase(cfg, geom, rig, hm, card, case),
+    rows = [*whole_phase(cfg, geom, rig, hm, card), crop_phase(cfg, geom, rig, hm, card, case),
             coords_phase(cfg, geom, hm, card, case), cube_phase(cfg, geom, hm, card, case)]
     del case
+    if args.kernels:
+        for phase in (window_phase, mma_phase):
+            rows += phase(card)[0]
+        print(f"chip_smoke --kernels: {time.perf_counter() - t_start:.1f} s from start")
+        print(json.dumps({"kernels": rows}))
+        return 0
     parity_phase()
     # serving before the training phases, so that its latency is read on a
     # host and card that training has not yet loaded, as in earlier runs
@@ -1377,4 +1608,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

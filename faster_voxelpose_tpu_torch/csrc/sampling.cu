@@ -1,13 +1,22 @@
 // Multi-view bilinear heatmap sampling for Hopper (sm_90a).
 //
-// Two kernels with a plain C interface, loaded with ctypes by
+// Three kernels with a plain C interface, loaded with ctypes by
 // faster_voxelpose_tpu_torch/ops/sampling_kernels.py, which also holds
 // their plain PyTorch versions, their launch counters and the notes on
 // what bounds them.
 //
-//   fvp_sample_whole  replaces the JAX package's sample_tiles in cube mode
-//                     (ops/pallas_sampling.py:947), called by
-//                     project_whole_pallas (models/projection.py:340)
+//   fvp_sample_whole_projected
+//                     the whole-space sampler of a batch from heatmaps and
+//                     cameras: the grid is projected in the kernel.  It
+//                     replaces project_whole_batch_pallas
+//                     (models/projection.py:384 of the JAX package), which
+//                     vmaps sample_tiles in cube mode
+//                     (ops/pallas_sampling.py:947) over the batch; its
+//                     design is described above whole_kernel
+//   fvp_sample_whole  the same sampler of one sample on precomputed pixel
+//                     coords: sample_tiles in cube mode as the TPU kernel
+//                     computes it, called by project_whole_pallas
+//                     (models/projection.py:340)
 //   fvp_sample_crop   the crop sampler of project_individual_planes_pallas
 //                     (models/projection.py:459-571) in its four modes:
 //                     pixels projected in the kernel or read from coords,
@@ -16,17 +25,18 @@
 //                     (:947) with emit_planes=True, and both in their
 //                     masked cube mode.
 //
-// Both compute, per voxel and joint, the mean over V views of
+// All compute, per voxel and joint, the mean over V views of
 // grid_sample(align_corners=True, padding_mode='zeros') on pixel
 // coordinates, clamped to [0, 1].  A direct four-corner gather with a
 // bounds test is exact for any coordinate, including behind-camera and
 // near-camera bins, so there is no slow path.  Heatmaps are channels-last
 // (V, H, W, J) float32: the J values of one corner are contiguous, and
 // threads are laid out (voxel, joint) so that the lanes of one voxel read
-// neighbouring joints.  The crop sampler works out each (voxel, view)'s
-// pixel and corner taps once, in one lane, and hands them to the voxel's
-// joint lanes through shared memory; its tiles and plane reductions are
-// described above crop_kernel.  Each launch returns cudaGetLastError().
+// neighbouring joints.  The projecting kernels work out each (voxel,
+// view)'s pixel and corner taps once, in one thread, and hand them to the
+// voxel's joint lanes through shared memory; the crop sampler's tiles and
+// plane reductions are described above crop_kernel.  Each launch returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -48,8 +58,9 @@ constexpr int kTS = kTX + kTY + kTZ;  // projection products per (view, row)
 // them for rigs of up to 8 cameras.  The gathers hit L2, so the time of a
 // voxel is a few L2 round trips, not one per view.
 constexpr int kViews = 8;
-// fvp_sample_crop's return when the views and joints need more dynamic
-// shared memory than a block of the device may have (no CUDA error is -1)
+// fvp_sample_crop's and fvp_sample_whole_projected's return when the
+// shapes need more dynamic shared memory than a block of the device may
+// have (no CUDA error is -1)
 constexpr int kErrSharedMemory = -1;
 
 // Constants of the in-kernel voxel -> pixel projection (the counterpart
@@ -153,6 +164,29 @@ __device__ __forceinline__ void camera_to_pixel(const float* c, float xc0,
   py = MUL(MUL(ADD(ny, 1.0f), 0.5f), k.hm1);
 }
 
+// One of the nine products of a separable grid: world coordinate g on axis
+// a against camera c[21], row r of its rotation, as project_points forms
+// it: (g - T[a]) * R[r][a].  A grid whose coordinates on each axis depend
+// on that axis' index alone needs them per axis index, not per voxel.
+__device__ __forceinline__ float axis_product(const float* c, int r, int a, float g) {
+  return MUL(SUB(g, c[9 + a]), c[3 * r + a]);
+}
+
+// Heatmap pixel of one voxel in one view from that view's axis products:
+// row r of axis a's index i at pr[r * stride + off_a + i], ix, iy, iz the
+// voxel's offsets into them.  The camera-frame coordinates are their sums
+// in project_points' order, so the pixel is bit for bit the unfactored one.
+__device__ __forceinline__ void voxel_pixel(const float* pr, int stride, int ix, int iy,
+                                            int iz, const float* c, const CropConsts& k,
+                                            float& px, float& py) {
+  const float xc0 = ADD(ADD(pr[ix], pr[iy]), pr[iz]);
+  pr += stride;
+  const float xc1 = ADD(ADD(pr[ix], pr[iy]), pr[iz]);
+  pr += stride;
+  const float xc2 = ADD(ADD(pr[ix], pr[iy]), pr[iz]);
+  camera_to_pixel(c, xc0, xc1, xc2, k, px, py);
+}
+
 // One thread per (voxel, joint lane); lanes per voxel = 1 << lane_shift.
 __global__ void __launch_bounds__(kThreads)
 sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
@@ -173,6 +207,125 @@ sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
   out[(size_t)n * J + lane] = clamp01(acc / (float)V);
 }
 
+// The whole-space sampler of a batch, from heatmaps and cameras.
+//
+// The function is sample_whole_kernel's on the pixels that whole_pixels
+// (models/projection.py) computes: grid point (x, y, z) is (gx[x], gy[y],
+// gz[z]), the linspaces of compute_grid_np as the float32 grid holds
+// them, so each camera-frame coordinate is (p_r0[x] + p_r1[y]) + p_r2[z]
+// (axis_product, voxel_pixel).  A block computes its sample's products
+// once, V * 3 * (X + Y + Z) floats in shared memory; then each thread
+// projects one voxel into every view (divide, distortion, affine, as the
+// crop sampler does) and leaves its taps in shared memory.  The (V, N, 2)
+// coords tensor that fvp_sample_whole reads is never written, and the
+// tensor ops that would build it, about 87 launches per sample, are not
+// issued.  One launch covers the batch: grid (tiles, B), heatmaps and
+// cameras strided per sample.  Bound on an H100: bytes, the heatmaps in
+// and the cube out (16.9 MB at the Panoptic profile and B = 1).
+//
+// Lanes.  A block holds kWholeVoxels = 256 voxels, one per thread while
+// projecting: 256 voxels consecutive in the cube's flat (x, y, z) order,
+// so a block's output is one contiguous run of 256 J floats and the store
+// is coalesced.  Its 256 J (voxel, joint) pairs are then spread over the
+// 256 threads flat, pair e = i * 256 + t for i < J, so each thread has
+// exactly J pairs whatever J is: every lane works at J = 15 and at J = 17
+// (the coords mode gives a voxel 16 or 32 lanes, 17 of 32 busy at J = 17),
+// but in a grid's last, ragged tile.  A warp's 32 pairs are two or three
+// voxels' joints, so a corner load reads two or three runs of J floats.
+// A thread keeps its J sums in registers across the views, views
+// outermost, so one view's 4 J corner loads are in flight together and
+// each sum adds the views in order, as fvp_sample_whole does.
+//
+// Taps.  The corners are gathered from L2, which holds a sample's
+// heatmaps (9.2 MB at the Panoptic profile) after their first read.  A
+// second design was measured against this one and dropped: tiles of 8 x
+// 8 x 4 voxels, each view's footprint copied into shared memory by
+// cp.async.bulk (two 32 KB slots, the next view's copy in flight), the
+// corners read from there.  The gather won at every shape measured: on an
+// H100 80GB HBM3 at 700 W, device time 0.0466 ms against 0.0747 at the
+// Panoptic profile and B = 1 (the staged design 1.6x slower), 0.3312
+// against 0.6207 at the Shelf shapes and B = 8 (1.9x), 0.2152 against
+// 0.3740 at the Campus shapes and B = 8 (1.7x).  The whole grid's voxels
+// lie a few heatmap pixels apart, so a footprint holds about as many
+// pixels per voxel as the four corners a voxel gathers, and staging adds
+// the copies' latency and halves the blocks per SM (97 KB of shared
+// memory a block against 32 KB).
+constexpr int kWholeVoxels = 256;  // voxels and threads per block of the whole-space sampler
+constexpr int kMaxJoints = 32;
+
+// Four blocks per SM (at most 64 registers a thread): a Panoptic sample's
+// 500 blocks run in one wave on 132 SMs.
+__global__ void __launch_bounds__(kWholeVoxels, 4)
+whole_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
+             const float* __restrict__ gx, const float* __restrict__ gy,
+             const float* __restrict__ gz, CropConsts kc, float* __restrict__ out, int V,
+             int H, int W, int J, int X, int Y, int Z) {
+  const int b = blockIdx.y, t = threadIdx.x, tile = blockIdx.x, S = X + Y + Z;
+  const long long N = (long long)X * Y * Z;
+  extern __shared__ __align__(16) int4 smem_w[];
+  int4* s_tap = smem_w;                                              // V * 256
+  float* s_cam = reinterpret_cast<float*>(s_tap + V * kWholeVoxels);  // V * 21
+  float* s_prod = s_cam + V * 21;                                     // V * 3 * S
+
+  const size_t view = (size_t)H * W * J;
+  const float* hb = hm + (size_t)b * V * view;
+  const float* cb = cams + (size_t)b * V * 21;
+  for (int i = t; i < V * 21; i += kWholeVoxels) s_cam[i] = cb[i];
+  for (int s = t; s < S; s += kWholeVoxels) {  // axis index s of x, then y, then z
+    const int a = s < X ? 0 : s < X + Y ? 1 : 2;
+    const float g = a == 0 ? gx[s] : a == 1 ? gy[s - X] : gz[s - X - Y];
+    for (int v = 0; v < V; ++v)
+      for (int r = 0; r < 3; ++r) s_prod[(v * 3 + r) * S + s] = axis_product(cb + 21 * v, r, a, g);
+  }
+  __syncthreads();
+
+  // this thread's voxel: its taps in every view
+  const long long n = (long long)tile * kWholeVoxels + t;
+  const int z = (int)(n % Z), y = (int)(n / Z % Y), x = (int)(n / Z / Y);
+  for (int v = 0; v < V; ++v) {
+    int4 tap = make_int4(0, 0, 0, 0);  // no corner inside: adds 0
+    if (n < N) {
+      float px, py;
+      voxel_pixel(s_prod + v * 3 * S, S, x, X + y, X + Y + z, s_cam + 21 * v, kc, px, py);
+      tap = make_tap(px, py, H, W);
+    }
+    s_tap[v * kWholeVoxels + t] = tap;
+  }
+  __syncthreads();
+
+  // (voxel, joint) pairs t, t + 256, ...: pair e is voxel e / J, joint e % J
+  float acc[kMaxJoints];
+#pragma unroll
+  for (int i = 0; i < kMaxJoints; ++i) acc[i] = 0.0f;
+  const int l0 = t / J, j0 = t - l0 * J, dl = kWholeVoxels / J, dj = kWholeVoxels - dl * J;
+  for (int v = 0; v < V; ++v) {
+    const float* hv = hb + v * view;
+    const int4* tv = s_tap + v * kWholeVoxels;
+    int l = l0, j = j0;
+#pragma unroll
+    for (int i = 0; i < kMaxJoints; ++i) {
+      if (i < J) {
+        const int4 tap = tv[l];
+        acc[i] += tap_sum(tap, tap_load(hv, W, J, j, tap));
+        l += dl;
+        j += dj;
+        if (j >= J) {
+          j -= J;
+          ++l;
+        }
+      }
+    }
+  }
+
+  // the view means, clamped: the block writes one contiguous run
+  float* ob = out + (size_t)b * N * J + (size_t)tile * kWholeVoxels * J;
+  const long long live = (N - (long long)tile * kWholeVoxels) * J;  // pairs in the grid
+#pragma unroll
+  for (int i = 0; i < kMaxJoints; ++i)
+    if (i < J && (long long)i * kWholeVoxels + t < live)
+      ob[i * kWholeVoxels + t] = clamp01(acc[i] / (float)V);
+}
+
 // The crop sampler.  One block per (tile, slot): a tile is kTX x kTY
 // columns (x, y) by kTZ voxels along z, blockIdx.x = (tile x * nty +
 // tile y) * nzc + z chunk.  A dead slot, or a tile whose x, y or z masks
@@ -188,9 +341,10 @@ sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
 //                   p_r1[y]) + p_r2[z] with p_ra[i] = (origin_a + (tl_a +
 //                   i) * step_a - cam_a) * R[r][a]: each product depends on
 //                   one axis index only, so the block computes them once
-//                   (s_prod) and each voxel adds them in project_points'
-//                   order, bit for bit the unfactored pixel; the divide,
-//                   distortion and affine run once per (voxel, view).
+//                   (s_prod, axis_product) and each voxel adds them in
+//                   project_points' order (voxel_pixel), bit for bit the
+//                   unfactored pixel; the divide, distortion and affine run
+//                   once per (voxel, view).
 //            true:  it is read from pix (K, V, N, 2), N = vx * vy * vz
 //                   voxels in (x, y, z) order; masked voxels read nothing.
 //   kCube    false: xy (max over z) is taken in registers over a column
@@ -255,7 +409,7 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
       const int a = s < kTX ? 0 : s < kTX + kTY ? 1 : 2;
       const int idx = tl[3 * k + a] + (a == 0 ? x0 + s : a == 1 ? y0 + s - kTX : z0 + s - kTX - kTY);
       const float w = ADD(kc.origin[a], MUL((float)idx, kc.step[a]));
-      s_prod[i] = MUL(SUB(w, cams[21 * v + 9 + a]), cams[21 * v + 3 * r + a]);
+      s_prod[i] = axis_product(cams + 21 * v, r, a, w);
     }
   }
   if (!kCube)
@@ -296,13 +450,8 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
           px = p.x;
           py = p.y;
         } else {
-          const float* pr = s_prod + v * 3 * kTS;
-          const float xc0 = ADD(ADD(pr[xl], pr[kTX + yl]), pr[kTX + kTY + lane]);
-          pr += kTS;
-          const float xc1 = ADD(ADD(pr[xl], pr[kTX + yl]), pr[kTX + kTY + lane]);
-          pr += kTS;
-          const float xc2 = ADD(ADD(pr[xl], pr[kTX + yl]), pr[kTX + kTY + lane]);
-          camera_to_pixel(s_cam + 21 * v, xc0, xc1, xc2, kc, px, py);
+          voxel_pixel(s_prod + v * 3 * kTS, kTS, xl, kTX + yl, kTX + kTY + lane, s_cam + 21 * v,
+                      kc, px, py);
         }
         tap[v * 32 + q] = make_tap(px, py, H, W);
       }
@@ -375,6 +524,19 @@ CropLaunch crop_launch(int V, int J, int vx, int vy, int vz, int from_coords, in
   return {ntx * nty * nzc, nty, nzc, smem};
 }
 
+// Launch geometry of the whole-space sampler: tiles along x (the batch
+// along y) and dynamic shared memory in bytes.
+struct WholeLaunch {
+  unsigned tiles;
+  size_t smem;
+};
+
+WholeLaunch whole_launch(int V, int X, int Y, int Z) {
+  const long long n = (long long)X * Y * Z;
+  return {(unsigned)((n + kWholeVoxels - 1) / kWholeVoxels),
+          16 * (size_t)V * kWholeVoxels + 4 * ((size_t)V * 21 + (size_t)V * 3 * (X + Y + Z))};
+}
+
 // The most dynamic shared memory a block of the current device may have
 // (its opt-in limit).
 cudaError_t max_smem(int* bytes) {
@@ -397,6 +559,48 @@ int fvp_sample_whole(const float* hm, const float* pix, float* out, int V,
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   sample_whole_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       hm, pix, out, V, H, W, J, N, shift);
+  return (int)cudaGetLastError();
+}
+
+// The whole-space sampler's launch: out[0] blocks along x, out[1] = B
+// along y, out[2] threads per block, out[3] dynamic shared memory in
+// bytes, out[4] the most a block of the current device may have, out[5]
+// voxels per block.  Returns the CUDA error of reading the device.
+int fvp_whole_launch_geometry(int V, int X, int Y, int Z, int B, long long* out) {
+  const WholeLaunch l = whole_launch(V, X, Y, Z);
+  int most = 0;
+  const cudaError_t e = max_smem(&most);
+  const long long geometry[6] = {l.tiles, B, kWholeVoxels, (long long)l.smem, most, kWholeVoxels};
+  for (int i = 0; i < 6; ++i) out[i] = geometry[i];
+  return (int)e;
+}
+
+// The whole-space cube of a batch.  heatmaps (B, V, H, W, J), cams
+// (B, V, 21), the grid's axes gx (X), gy (Y), gz (Z), consts the 21 host
+// floats of CropConsts (origin and step unused) -> out (B, X, Y, Z, J).
+// V <= 8, J <= 32.  Returns kErrSharedMemory (-1) when V and the grid's
+// axes need more shared memory than a block may have, else the launch's
+// CUDA error.
+int fvp_sample_whole_projected(const float* hm, const float* cams, const float* gx,
+                               const float* gy, const float* gz, const float* consts,
+                               float* out, int B, int V, int H, int W, int J, int X, int Y,
+                               int Z, void* stream) {
+  if (B <= 0 || (long long)X * Y * Z <= 0) return (int)cudaGetLastError();
+  const WholeLaunch l = whole_launch(V, X, Y, Z);
+  int most = 0;
+  cudaError_t e = max_smem(&most);
+  if (e != cudaSuccess) return (int)e;
+  if (l.smem > (size_t)most) return kErrSharedMemory;
+  if (l.smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(whole_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)l.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  CropConsts kc;
+  float* dst = reinterpret_cast<float*>(&kc);
+  for (int i = 0; i < (int)(sizeof(CropConsts) / sizeof(float)); ++i) dst[i] = consts[i];
+  whole_kernel<<<dim3(l.tiles, (unsigned)B), kWholeVoxels, l.smem, (cudaStream_t)stream>>>(
+      hm, cams, gx, gy, gz, kc, out, V, H, W, J, X, Y, Z);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,7 @@ from torch import nn
 
 from ..ops.nms import nms2d_topk
 from .cnns import C2CNet, CenterNet
-from .projection import ProjectionGeometry, project_whole
+from .projection import ProjectionGeometry, project_whole_batch, whole_axes
 
 
 class HDNOutputs(NamedTuple):
@@ -59,9 +59,8 @@ class HumanDetectionNet(nn.Module):
         self.geom, self.max_people, self.min_score = geom, max_people, min_score
         self.center_net = CenterNet(num_joints, dtype=dtype, width=width)
         self.c2c_net = C2CNet(num_joints, dtype=dtype, width=width)
-        self.register_buffer(
-            "whole_grid", torch.as_tensor(geom.whole_grid), persistent=False
-        )
+        for name, axis in zip(("whole_gx", "whole_gy", "whole_gz"), whole_axes(geom)):
+            self.register_buffer(name, torch.as_tensor(axis), persistent=False)
         space = torch.tensor(geom.space_size, dtype=torch.float32)
         voxn = torch.tensor(geom.voxels_per_axis, dtype=torch.float32)
         center = torch.tensor(geom.space_center, dtype=torch.float32)
@@ -77,10 +76,8 @@ class HumanDetectionNet(nn.Module):
         proposals are matched to the ground truth."""
         B, K = cams.shape[0], self.max_people
         vx, vy, vz = self.geom.voxels_per_axis
-        cubes = torch.stack([
-            project_whole(self.geom, heatmaps[b], cams[b], self.whole_grid)
-            for b in range(B)
-        ])  # (B, X, Y, Z, J)
+        cubes = project_whole_batch(self.geom, heatmaps, cams,
+                                    (self.whole_gx, self.whole_gy, self.whole_gz))
 
         hm, size = self.center_net(cubes, train)
         hm2d = hm[:, 0]

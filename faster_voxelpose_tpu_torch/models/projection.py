@@ -1,9 +1,11 @@
 """Multi-view heatmap back-projection into voxel feature volumes
 (counterpart of `faster_voxelpose_tpu/models/projection.py`).
 
-Whole-space stage: the static world grid is projected into every view on
-the device and sampled by the `sample_whole` kernel into the (X, Y, Z, J)
-cube.  Per-person stage: each proposal's 64^3 crop is rebuilt from its
+Whole-space stage: the `sample_whole_projected` kernel projects the static
+world grid into every view and samples it into the (B, X, Y, Z, J) cubes
+of a batch in one launch (`project_whole_batch`); `project_whole` is the
+same stage of one sample on coords computed by PyTorch (`sample_whole`).
+Per-person stage: each proposal's 64^3 crop is rebuilt from its
 integer origin on the virtual fine grid, projected, sampled, masked and
 max-projected onto three planes.  The config keys that choose how the
 JAX package's crop kernel computes that (`resolve_crop_route`) choose
@@ -15,26 +17,24 @@ planes by max-reduction, as the JAX package does on those settings.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
-from ..geometry.grids import (
-    compute_center_grids_np,
-    compute_grid_np,
-    norm_to_pixel,
-    project_to_norm_coords,
-)
+from ..geometry.grids import compute_center_grids_np, compute_grid_np
 from ..geometry.transforms import get_resize_transform
 from ..ops.sampling_kernels import (
     CropProjection,
     crop_pixels,
+    grid_pixels,
     sample_crop_cube,
     sample_crop_planes,
     sample_crop_planes_coords,
     sample_whole,
+    sample_whole_projected,
 )
 
 CropRoute = Tuple[str, str]  # (coords source, output)
@@ -95,24 +95,40 @@ def make_projection_geometry(cfg: Config) -> ProjectionGeometry:
     )
 
 
+def whole_projection(geom: ProjectionGeometry) -> CropProjection:
+    """Kernel constants of the whole-space projection: the rig's frame and
+    the heatmap's; the grid comes from `whole_axes`, so origin and step
+    are unused."""
+    return CropProjection(
+        origin=(0.0, 0.0, 0.0),
+        step=(0.0, 0.0, 0.0),
+        resize_transform=tuple(float(v) for v in
+                               np.asarray(geom.resize_transform, np.float32).ravel()),
+        ori_image_size=tuple(geom.ori_image_size),
+        image_size=tuple(geom.image_size),
+        heatmap_size=tuple(geom.heatmap_size),
+    )
+
+
 def crop_projection(geom: ProjectionGeometry) -> CropProjection:
     """Kernel constants of the crop projection: fine index i lies at
     (center - S/2) + i * S/(F-1), all in float32 as the JAX package
-    computes them."""
+    computes them; the frames as for the whole space."""
     space = np.asarray(geom.space_size, np.float32)
     center = np.asarray(geom.space_center, np.float32)
     fine = np.asarray(geom.fine_voxels_per_axis, np.float32)
     step = space / (fine - np.float32(1.0))
     origin = center - space / np.float32(2.0)
-    rt = np.asarray(geom.resize_transform, np.float32).ravel()
-    return CropProjection(
-        origin=tuple(float(v) for v in origin),
-        step=tuple(float(v) for v in step),
-        resize_transform=tuple(float(v) for v in rt),
-        ori_image_size=tuple(geom.ori_image_size),
-        image_size=tuple(geom.image_size),
-        heatmap_size=tuple(geom.heatmap_size),
-    )
+    return dataclasses.replace(whole_projection(geom), origin=tuple(float(v) for v in origin),
+                               step=tuple(float(v) for v in step))
+
+
+def whole_axes(geom: ProjectionGeometry) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The whole grid's axis vectors (X,), (Y,), (Z,) as float32, read from
+    `geom.whole_grid` (a meshgrid of three linspaces), so that they rebuild
+    it bit for bit."""
+    grid = geom.whole_grid.reshape(*geom.voxels_per_axis, 3)
+    return grid[:, 0, 0, 0].copy(), grid[0, :, 0, 1].copy(), grid[0, 0, :, 2].copy()
 
 
 def whole_pixels(
@@ -121,11 +137,7 @@ def whole_pixels(
     """World grid (N, 3), cams (V, 21) -> heatmap pixel coords (V, N, 2),
     as project_whole_pallas computes them (models/projection.py:371-378
     of the JAX package)."""
-    norm = project_to_norm_coords(
-        grid, cams, geom.resize_transform, geom.ori_image_size,
-        geom.image_size, geom.heatmap_size,
-    )
-    return norm_to_pixel(norm, geom.heatmap_size).contiguous()
+    return grid_pixels(whole_projection(geom), grid, cams)
 
 
 def project_whole(
@@ -139,6 +151,19 @@ def project_whole(
     vals = sample_whole(heatmaps.contiguous(), whole_pixels(geom, grid, cams))
     vx, vy, vz = geom.voxels_per_axis
     return vals.reshape(vx, vy, vz, -1)
+
+
+def project_whole_batch(
+    geom: ProjectionGeometry,
+    heatmaps: torch.Tensor,  # (B, V, H, W, J)
+    cams: torch.Tensor,  # (B, V, 21)
+    axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],  # whole_axes on the device
+) -> torch.Tensor:
+    """The whole-space cubes (B, X, Y, Z, J) of a batch, the grid projected
+    in the kernel, one launch (project_whole_batch_pallas,
+    models/projection.py:384 of the JAX package)."""
+    return sample_whole_projected(heatmaps.contiguous(), cams.contiguous(), axes,
+                                  whole_projection(geom))
 
 
 def compute_crop_origin(

@@ -1,23 +1,46 @@
-"""The two sampling kernels of the heatmaps -> poses path, with their plain
+"""The sampling kernels of the heatmaps -> poses path, with their plain
 PyTorch versions and launch counters.
 
 Each wrapper takes its plain version for tensors on the CPU, and for CUDA
 tensors launches its hand-written kernel (`csrc/sampling.cu`, built by
 `ops/cuda_build.py`) or raises.  `LAUNCHES` counts kernel launches only.
 
-sample_whole
+sample_whole (kernel row 1, coords mode)
     Replaces the JAX package's `sample_tiles` in cube mode
     (faster_voxelpose_tpu/ops/pallas_sampling.py:947, reached from
-    project_whole_pallas, models/projection.py:340).  For each of the N
-    voxels of the whole-space grid: the mean over V views of the bilinear
-    samples of J heatmaps at precomputed pixel coords, clamped to [0, 1].
-    Bound on an H100: bytes.  It must read the heatmaps (V*H*W*J*4 B) and
-    the coords (V*N*2*4 B) once and write the cube (N*J*4 B): 22 MB at the
-    Panoptic profile, about 6.6 us at 3.35 TB/s, against about 1.2 us for
-    its ~80 MFLOP at the float32 rate.  Design: one thread per (voxel,
-    joint), so a voxel's lanes read neighbouring joints of each corner
-    and the cube store is coalesced; the 9.2 MB of heatmaps stay in the
-    50 MB L2, so the 4 corners x V views of gathers hit L2, not memory.
+    project_whole_pallas, models/projection.py:340) as the TPU kernel
+    computes it: for each of the N voxels of the whole-space grid, the
+    mean over V views of the bilinear samples of J heatmaps at
+    precomputed pixel coords, clamped to [0, 1].  Bound on an H100:
+    bytes.  It must read the heatmaps (V*H*W*J*4 B) and the coords
+    (V*N*2*4 B) once and write the cube (N*J*4 B): 22 MB at the Panoptic
+    profile, about 6.6 us at 3.35 TB/s, against about 1.2 us for its ~80
+    MFLOP at the float32 rate.  Design: one thread per (voxel, joint
+    lane), lanes padded to a power of two, so a voxel's lanes read
+    neighbouring joints of each corner and the cube store is coalesced;
+    the 9.2 MB of heatmaps stay in the 50 MB L2, so the 4 corners x V
+    views of gathers hit L2, not memory.  The served, trained and
+    evaluated paths take the projected mode below; this mode is the
+    gather baseline of `tools/probe_sampling.py`.
+
+sample_whole_projected (kernel row 1, projected mode)
+    Replaces `project_whole_batch_pallas`
+    (faster_voxelpose_tpu/models/projection.py:384), which vmaps the same
+    `sample_tiles` over the batch: the whole-space cubes (B, X, Y, Z, J)
+    of a batch from heatmaps (B, V, H, W, J), cameras (B, V, 21) and the
+    grid's three axis vectors, in one launch.  Bound on an H100: bytes,
+    the heatmaps in and the cube out with no coords: 16.9 MB at the
+    Panoptic profile and B = 1, about 5.0 us at 3.35 TB/s.  Design
+    (`csrc/sampling.cu`, above whole_kernel): the grid is separable, so
+    each block computes its sample's per-axis products once and each
+    thread projects one voxel into every view, bit for bit the pixel of
+    `whole_pixels`; the coords tensor and the ~87 tensor ops per sample
+    that built it are gone.  Blocks of 256 voxels, consecutive in the
+    cube's order, spread their 256 J (voxel, joint) pairs flat over 256
+    threads, so every lane works at any J, and write one contiguous run.
+    The corners are gathered from L2: a design that staged each tile's
+    footprint in shared memory by bulk asynchronous copies read 1.6-1.9x
+    slower and was dropped (`csrc/sampling.cu`, above whole_kernel).
 
 sample_crop_planes
     Replaces `sample_tiles_fused(..., emit_planes=True, valid, mask)`
@@ -101,6 +124,7 @@ from .sampling import sample_and_mean_views
 
 LAUNCHES: Dict[str, int] = {
     "sample_whole": 0,
+    "sample_whole_projected": 0,
     "sample_crop_planes": 0,
     "sample_crop_planes_coords": 0,
     "sample_crop_cube": 0,
@@ -121,9 +145,11 @@ def launch_counts() -> Dict[str, int]:
 
 @dataclass(frozen=True)
 class CropProjection:
-    """Constants of the per-voxel projection of the crop kernel: fine
-    index i on an axis sits at origin + i * step (mm); then the rig, the
-    resize affine and the heatmap frame, as in project_to_norm_coords."""
+    """Constants of the per-voxel projection of the projecting kernels:
+    fine index i on an axis of a crop sits at origin + i * step (mm; the
+    whole-space sampler takes its grid from the axes it is given and
+    ignores both); then the rig, the resize affine and the heatmap frame,
+    as in project_to_norm_coords."""
 
     origin: Tuple[float, float, float]
     step: Tuple[float, float, float]
@@ -155,6 +181,40 @@ def sample_whole_plain(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tenso
     return sample_and_mean_views(heatmaps, pix)
 
 
+def grid_pixels(proj: CropProjection, pts: torch.Tensor, cams: torch.Tensor) -> torch.Tensor:
+    """World points (..., N, 3) and cams (..., 21) -> heatmap pixel coords
+    (..., N, 2), as the JAX package computes the coords of its sampling
+    kernel (models/projection.py:371-378, :487-505)."""
+    norm = project_to_norm_coords(
+        pts, cams, np.asarray(proj.resize_transform).reshape(2, 3), proj.ori_image_size,
+        proj.image_size, proj.heatmap_size,
+    )
+    return norm_to_pixel(norm, proj.heatmap_size).contiguous()
+
+
+def axes_grid(axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """The (X*Y*Z, 3) grid of three axis vectors, x-major, as
+    compute_grid_np lays it out."""
+    gx, gy, gz = axes
+    mesh = torch.meshgrid(gx, gy, gz, indexing="ij")
+    return torch.stack([m.reshape(-1) for m in mesh], dim=1)
+
+
+def sample_whole_projected_plain(
+    heatmaps: torch.Tensor, cams: torch.Tensor,
+    axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], proj: CropProjection,
+) -> torch.Tensor:
+    """heatmaps (B, V, H, W, J), cams (B, V, 21), axes (X,), (Y,), (Z,) ->
+    (B, X, Y, Z, J): per sample the grid's pixels in every view, then the
+    view mean of their bilinear samples, clamped."""
+    grid = axes_grid(axes)
+    shape = tuple(len(a) for a in axes) + (heatmaps.shape[-1],)
+    return torch.stack([
+        sample_whole_plain(hm, grid_pixels(proj, grid, c)).reshape(shape)
+        for hm, c in zip(heatmaps, cams)
+    ])
+
+
 def crop_world_points(
     crop: CropProjection, tl: torch.Tensor, voxels: Tuple[int, int, int]
 ) -> torch.Tensor:
@@ -180,11 +240,7 @@ def crop_pixels(
     every view, as the JAX package's `person_coords` computes them
     (models/projection.py:487-505): one tensor for all K slots."""
     pts = crop_world_points(crop, centers_tl, voxels)  # (K, N, 3)
-    norm = project_to_norm_coords(
-        pts[:, None], cams, np.asarray(crop.resize_transform).reshape(2, 3),
-        crop.ori_image_size, crop.image_size, crop.heatmap_size,
-    )
-    return norm_to_pixel(norm, crop.heatmap_size).contiguous()
+    return grid_pixels(crop, pts[:, None], cams)
 
 
 def sample_crop_planes_plain(
@@ -203,13 +259,9 @@ def sample_crop_planes_plain(
     centers_tl and crop: the plain version of sample_crop_planes, and
     with `cube` of sample_crop_cube's projecting mode."""
     voxels = (mx.shape[1], my.shape[1], mz.shape[1])
-    resize = np.asarray(crop.resize_transform).reshape(2, 3)
 
     def slot_pixels(k: int) -> torch.Tensor:
-        pts = crop_world_points(crop, centers_tl[k], voxels)
-        norm = project_to_norm_coords(pts, cams, resize, crop.ori_image_size,
-                                      crop.image_size, crop.heatmap_size)
-        return norm_to_pixel(norm, crop.heatmap_size)
+        return grid_pixels(crop, crop_world_points(crop, centers_tl[k], voxels), cams)
 
     return _crop_plain(heatmaps, slot_pixels, mx, my, mz, valid, cube=cube)
 
@@ -277,6 +329,10 @@ def _lib():
         lib.fvp_sample_crop.restype = _I
         lib.fvp_crop_launch_geometry.argtypes = [_I] * 8 + [_P]
         lib.fvp_crop_launch_geometry.restype = _I
+        lib.fvp_sample_whole_projected.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+        lib.fvp_sample_whole_projected.restype = _I
+        lib.fvp_whole_launch_geometry.argtypes = [_I] * 5 + [_P]
+        lib.fvp_whole_launch_geometry.restype = _I
         lib._fvp_typed = True
     return lib
 
@@ -337,9 +393,66 @@ def sample_whole(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# fvp_sample_crop's return when V and J need more shared memory per
-# block than the device has
+# fvp_sample_crop's and fvp_sample_whole_projected's return when the
+# shapes need more shared memory per block than the device has
 _ERR_SHARED_MEMORY = -1
+
+
+def whole_launch_geometry(V: int, grid: Tuple[int, int, int], B: int) -> Dict[str, object]:
+    """The launch of sample_whole_projected for these shapes, as the
+    kernel's source computes it: grid (tiles, B), threads per block,
+    dynamic shared memory and the most a block of the current CUDA device
+    may have, in bytes, and voxels per block.  For reports and tests; the
+    launch itself does not call it."""
+    out = (ctypes.c_longlong * 6)()
+    err = _lib().fvp_whole_launch_geometry(V, *grid, B, out)
+    _raise_on(err, "whole_launch_geometry")
+    return dict(grid=(out[0], out[1]), threads=out[2], smem=out[3], smem_max=out[4],
+                voxels=out[5])
+
+
+def sample_whole_projected(
+    heatmaps: torch.Tensor, cams: torch.Tensor,
+    axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], proj: CropProjection,
+) -> torch.Tensor:
+    """heatmaps (B, V, H, W, J) f32, cams (B, V, 21) f32, the grid's axes
+    (X,), (Y,), (Z,) f32 and the projection constants -> the whole-space
+    cubes (B, X, Y, Z, J) f32."""
+    gx, gy, gz = axes
+    if _on_cpu(heatmaps, cams, gx, gy, gz):
+        return sample_whole_projected_plain(heatmaps, cams, axes, proj)
+    name = "sample_whole_projected"
+    if heatmaps.dim() != 5:
+        raise ValueError(f"{name}: heatmaps of shape {tuple(heatmaps.shape)}, expected "
+                         "(B, V, H, W, J)")
+    B, V, H, W, J = heatmaps.shape
+    X, Y, Z = len(gx), len(gy), len(gz)
+    _check(heatmaps, "heatmaps", torch.float32, (B, V, H, W, J))
+    _check(cams, "cams", torch.float32, (B, V, 21))
+    for t, tname, n in ((gx, "gx", X), (gy, "gy", Y), (gz, "gz", Z)):
+        _check(t, tname, torch.float32, (n,))
+    if not 0 < J <= 32:
+        raise ValueError(f"{name} takes 1..32 joints, got {J}")
+    if not 0 < V <= 8:
+        raise ValueError(f"{name} takes 1..8 views, got {V}")
+    if (W, H) != tuple(proj.heatmap_size):
+        raise ValueError(f"{name}: heatmaps of {W}x{H}, the projection's are "
+                         f"{proj.heatmap_size[0]}x{proj.heatmap_size[1]}")
+    if B > 65535:
+        raise ValueError(f"{name} takes at most 65535 samples, got {B}")
+    out = torch.empty((B, X, Y, Z, J), dtype=torch.float32, device=heatmaps.device)
+    consts = proj.consts()
+    err = _lib().fvp_sample_whole_projected(
+        heatmaps.data_ptr(), cams.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
+        consts.ctypes.data, out.data_ptr(), B, V, H, W, J, X, Y, Z,
+        _stream(heatmaps.device),
+    )
+    if err == _ERR_SHARED_MEMORY:
+        raise ValueError(f"{name}: {V} views and a {X}x{Y}x{Z} grid need more shared memory "
+                         "per block than the device has")
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def crop_launch_geometry(V: int, J: int, K: int, voxels: Tuple[int, int, int], *,

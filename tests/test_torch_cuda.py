@@ -320,11 +320,130 @@ def test_model_cuda_matches_cpu(dev):
         ref = model(hm_t, rig_t)
         sk.reset_launch_counts()
         out = model.to(dev)(hm_t.to(dev), rig_t.to(dev))
-    assert sk.launch_counts() == {"sample_whole": 1, "sample_crop_planes": 1,
+    assert sk.launch_counts() == {"sample_whole": 0, "sample_whole_projected": 1,
+                                  "sample_crop_planes": 1,
                                   "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
                                   "window_sample": 0, "mma_window": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5
+
+
+# ---------------------------------------------------------------------------
+# kernel row 1 in its projected mode (sample_whole_projected)
+# ---------------------------------------------------------------------------
+
+_WHOLE_HEATMAPS = [(240, 128), (200, 152), (200, 160)]  # Panoptic, Shelf, Campus (W, H)
+
+
+def _whole_case(dev, J, V, B, heatmap=(40, 32), voxels=(16, 16, 8), seed=0):
+    """The tiny geometry with J joints, V views, these heatmaps and grid: its
+    geometry, heatmaps (B, V, H, W, J), cams (B, V, 21) of dome rigs with
+    camera 0 of each sample inside the volume, the axes and the projection
+    constants."""
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.models import projection as pj
+
+    cfg = tiny_cfg()
+    d = cfg.DATASET
+    d.NUM_JOINTS, d.CAMERA_NUM, d.HEATMAP_SIZE = J, V, heatmap
+    cfg.CAPTURE_SPEC.VOXELS_PER_AXIS = voxels
+    geom = pj.make_projection_geometry(cfg)
+    rng = np.random.RandomState(seed)
+    center = np.asarray(cfg.CAPTURE_SPEC.SPACE_CENTER)
+    cams = dome_rig(B, V, space_center=tuple(center), ori_image_size=d.ORI_IMAGE_SIZE,
+                    focal=d.ORI_IMAGE_SIZE[0] * 0.75)
+    cams[:, 0, 9:12] = center + rng.uniform(-900, 900, (B, 3))
+    W, H = heatmap
+    hm = rng.rand(B, V, H, W, J).astype(np.float32)
+    axes = tuple(torch.as_tensor(a, device=dev) for a in pj.whole_axes(geom))
+    return (geom, torch.as_tensor(hm, device=dev), torch.as_tensor(cams, device=dev), axes,
+            pj.whole_projection(geom))
+
+
+def _check_whole(dev, geom, hm, cams, axes, proj):
+    """The kernel against the plain version (1e-5), and equal to the coords
+    mode on whole_pixels of the same cameras, bit for bit."""
+    from faster_voxelpose_tpu_torch.models import projection as pj
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    out = sk.sample_whole_projected(hm, cams, axes, proj)
+    ref = sk.sample_whole_projected_plain(hm, cams, axes, proj)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    grid = torch.as_tensor(geom.whole_grid, device=dev)
+    for b in range(hm.shape[0]):
+        coords = sk.sample_whole(hm[b], pj.whole_pixels(geom, grid, cams[b]))
+        assert torch.equal(out[b].reshape(coords.shape), coords)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("V", [1, 3, 5, 8])
+@pytest.mark.parametrize("J", [1, 15, 16, 17, 32])
+def test_whole_projected_matches_plain(dev, J, V, B):
+    heatmap = _WHOLE_HEATMAPS[(J + V + B) % 3]
+    _check_whole(dev, *_whole_case(dev, J, V, B, heatmap=heatmap, seed=J * 100 + V * 10 + B))
+
+
+@pytest.mark.parametrize("heatmap", _WHOLE_HEATMAPS)
+def test_whole_projected_full_grid(dev, heatmap):
+    """The 80 x 80 x 20 grid of the profiles at each profile's heatmaps, 17
+    joints, 5 views, B = 3."""
+    _check_whole(dev, *_whole_case(dev, 17, 5, 3, heatmap=heatmap, voxels=(80, 80, 20)))
+
+
+@pytest.mark.parametrize("voxels", [(7, 9, 5), (9, 10, 3), (1, 1, 1)])
+def test_whole_projected_ragged_tiles(dev, voxels):
+    """Grids that do not fill their last 256-voxel tile."""
+    _check_whole(dev, *_whole_case(dev, 15, 3, 2, voxels=voxels))
+
+
+def test_whole_projected_checks_and_counts(dev):
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    geom, hm, cams, axes, proj = _whole_case(dev, 15, 3, 2)
+    sk.reset_launch_counts()
+    sk.sample_whole_projected(hm, cams, axes, proj)
+    assert sk.launch_counts()["sample_whole_projected"] == 1
+    with pytest.raises(TypeError):
+        sk.sample_whole_projected(hm.double(), cams.double(), axes, proj)
+    with pytest.raises(ValueError):  # not contiguous
+        sk.sample_whole_projected(hm.transpose(2, 3), cams, axes, proj)
+    with pytest.raises(ValueError):  # one sample's layout
+        sk.sample_whole_projected(hm[0], cams[0], axes, proj)
+    with pytest.raises(ValueError):  # a mix of devices
+        sk.sample_whole_projected(hm, cams.cpu(), axes, proj)
+    with pytest.raises(ValueError):  # nine views
+        sk.sample_whole_projected(hm[:, [0, 1, 2] * 3].contiguous(), cams[:, [0, 1, 2] * 3]
+                                  .contiguous(), axes, proj)
+    with pytest.raises(ValueError):  # 33 joints
+        sk.sample_whole_projected(torch.cat([hm] * 3, -1)[..., :33].contiguous(), cams, axes,
+                                  proj)
+    with pytest.raises(ValueError):  # heatmaps of another size than the projection's
+        sk.sample_whole_projected(hm[:, :, :-1].contiguous(), cams, axes, proj)
+    assert sk.launch_counts()["sample_whole_projected"] == 1
+
+
+def test_whole_launch_geometry(dev):
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    geo = sk.whole_launch_geometry(5, (80, 80, 20), 4)
+    assert geo["grid"] == (500, 4) and geo["threads"] == geo["voxels"] == 256
+    assert geo["smem"] == 16 * 5 * 256 + 4 * (5 * 21 + 5 * 3 * 180) <= geo["smem_max"]
+
+
+def test_device_timer_reads_a_graph(dev):
+    """tools/timing.py on the card: a kernel is captured in a CUDA graph; a
+    call that synchronises the host cannot be and is read back to back."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import device_timing, host_ms
+
+    _, hm, cams, axes, proj = _whole_case(dev, 15, 3, 2)
+    ms, how = device_timing(lambda: sk.sample_whole_projected(hm, cams, axes, proj))
+    assert how == "graph" and 0 < ms < 10
+    ms, how = device_timing(lambda: float(hm.sum()), n=2, reps=2)
+    assert how == "back to back" and ms > 0
+    ms, how = device_timing(lambda: sk.sample_whole_projected(hm, cams, axes, proj))
+    assert how == "graph" and 0 < ms < 10
+    assert 0 < host_ms(lambda: sk.sample_whole_projected(hm, cams, axes, proj)) < 100
 
 
 # ---------------------------------------------------------------------------

@@ -180,15 +180,24 @@ def test_crop_planes_match_fused_pallas_kernel():
 
 def test_wrappers_take_plain_version_on_cpu():
     """CPU tensors go to the plain version and count no kernel launch."""
+    from faster_voxelpose_tpu_torch.models import projection as pj
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
     sk.reset_launch_counts()
     hm = torch.rand(2, 8, 10, 3)
     pix = torch.rand(2, 50, 2) * 10
     torch.testing.assert_close(sk.sample_whole(hm, pix), sk.sample_whole_plain(hm, pix))
+    jcfg, _, geom = _jax_geom_and_port()
+    axes = tuple(torch.as_tensor(a) for a in pj.whole_axes(geom))
+    W, H = geom.heatmap_size
+    hm = torch.rand(1, 3, H, W, 15)
+    cams = torch.as_tensor(tiny_rig(3))[None]
+    proj = pj.whole_projection(geom)
+    torch.testing.assert_close(sk.sample_whole_projected(hm, cams, axes, proj),
+                               sk.sample_whole_projected_plain(hm, cams, axes, proj))
     assert sk.launch_counts() == {
-        "sample_whole": 0, "sample_crop_planes": 0,
-        "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
+        "sample_whole": 0, "sample_whole_projected": 0,
+        "sample_crop_planes": 0, "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
         "window_sample": 0, "mma_window": 0,
     }
 
@@ -200,6 +209,9 @@ def test_wrappers_refuse_inputs_that_require_grad():
     hm = torch.rand(2, 8, 10, 3, requires_grad=True)
     with pytest.raises(ValueError, match="forward only"):
         sk.sample_whole(hm, torch.rand(2, 50, 2) * 10)
+    axes = tuple(torch.arange(n, dtype=torch.float32) for n in (2, 3, 4))
+    with pytest.raises(ValueError, match="forward only"):
+        sk.sample_whole_projected(hm[None], torch.rand(1, 2, 21), axes, None)
     masks = [torch.ones(1, 4, dtype=torch.uint8)] * 3
     with pytest.raises(ValueError, match="forward only"):
         sk.sample_crop_planes_coords(hm, torch.rand(1, 2, 64, 2), *masks,
@@ -289,13 +301,25 @@ def _factored_crop_pixels(crop, cams, tl, voxels):
     p_r2[z], p_ra[i] = (origin_a + (tl_a + i) * step_a - cam_t_a) * R[r][a];
     then the rest of project_points, project_to_norm_coords and
     norm_to_pixel, op for op.  (K, V, vx*vy*vz, 2)."""
-    from faster_voxelpose_tpu_torch.geometry.grids import reciprocal_f32
-
-    K, V = tl.shape[0], cams.shape[0]
-    prods = []  # per axis a: (K, V, 3 rows, v_a)
+    world = []  # per axis a: (K, v_a) world coordinates
     for a in range(3):
         idx = tl[:, a, None] + torch.arange(voxels[a], dtype=tl.dtype)
-        xt = (crop.origin[a] + idx.float() * crop.step[a])[:, None, :] - cams[None, :, 9 + a, None]
+        world.append(crop.origin[a] + idx.float() * crop.step[a])
+    return _factored_pixels(world, cams, crop)
+
+
+def _factored_pixels(world, cams, proj):
+    """Pixels (K, V, n_x*n_y*n_z, 2) of the separable grids whose axis a
+    holds world[a] (K, n_a) mm: per-axis products p_ra[i] = (world_a[i] -
+    cam_t_a) * R[r][a] summed as (p_r0[x] + p_r1[y]) + p_r2[z], then the
+    rest of project_points, project_to_norm_coords and norm_to_pixel, op
+    for op, as the projecting kernels compute them."""
+    from faster_voxelpose_tpu_torch.geometry.grids import reciprocal_f32
+
+    K, V = world[0].shape[0], cams.shape[0]
+    prods = []  # per axis a: (K, V, 3 rows, n_a)
+    for a in range(3):
+        xt = world[a][:, None, :] - cams[None, :, 9 + a, None]
         prods.append(xt[:, :, None, :] * cams[None, :, a:9:3, None])
     xc = (prods[0][..., :, None, None] + prods[1][..., None, :, None]) + prods[2][..., None, None, :]
     x0, x1, x2 = (xc[:, :, r].reshape(K, V, -1) for r in range(3))
@@ -306,12 +330,12 @@ def _factored_crop_pixels(crop, cams, tl, voxels):
     d = 1 + c[16] * r2 + c[17] * r2 * r2 + c[18] * r2 * r2 * r2
     u = y0 * d + 2 * c[19] * y0 * y1 + c[20] * (r2 + 2 * y0 * y0)
     v = y1 * d + 2 * c[20] * y0 * y1 + c[19] * (r2 + 2 * y1 * y1)
-    ox = (u * c[12] + c[14]).clamp(-1.0, float(max(crop.ori_image_size)))
-    oy = (v * c[13] + c[15]).clamp(-1.0, float(max(crop.ori_image_size)))
-    t = crop.resize_transform
+    ox = (u * c[12] + c[14]).clamp(-1.0, float(max(proj.ori_image_size)))
+    oy = (v * c[13] + c[15]).clamp(-1.0, float(max(proj.ori_image_size)))
+    t = proj.resize_transform
     x = ox * t[0] + oy * t[1] + t[2]
     y = ox * t[3] + oy * t[4] + t[5]
-    (w, h), (iw, ih) = crop.heatmap_size, crop.image_size
+    (w, h), (iw, ih) = proj.heatmap_size, proj.image_size
     x = x * float(w) * reciprocal_f32(iw)
     y = y * float(h) * reciprocal_f32(ih)
     x = (x * reciprocal_f32(w - 1) * 2.0 - 1.0).clamp(-1.1, 1.1)
@@ -353,6 +377,91 @@ def test_factored_crop_projection_is_bit_exact(profile):
     got = _factored_crop_pixels(crop, cams_t, tl, geom.ind_voxels_per_axis)
     assert got.shape == want.shape
     assert torch.equal(got, want)
+
+
+_DEMO_CONFIGS = sorted(p.name for p in (REPO / "configs/demo").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("name", _DEMO_CONFIGS)
+def test_whole_axes_rebuild_the_grid(name):
+    """The premise of the whole-space kernel's projection: the three axis
+    vectors read from whole_grid rebuild it bit for bit (the grid is a
+    meshgrid of three linspaces, cast to float32 once)."""
+    from faster_voxelpose_tpu_torch.config import load_config
+    from faster_voxelpose_tpu_torch.models import projection as pj
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    geom = pj.make_projection_geometry(load_config(REPO / "configs/demo" / name))
+    axes = pj.whole_axes(geom)
+    assert [a.dtype for a in axes] == [np.float32] * 3
+    assert tuple(len(a) for a in axes) == tuple(geom.voxels_per_axis)
+    grid = sk.axes_grid(tuple(torch.as_tensor(a) for a in axes))
+    assert torch.equal(grid, torch.as_tensor(geom.whole_grid))
+
+
+def _whole_profile(profile):
+    """(geometry, cams (V, 21)) of a profile with a camera inside the
+    volume: the tiny rig with camera 0 800 mm from the centre, or the
+    profile's dome rig with camera 0 moved 700 mm from the centre."""
+    from faster_voxelpose_tpu_torch.config import load_config
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.models import projection as pj
+
+    if profile == "tiny":
+        jcfg, _, geom = _jax_geom_and_port()
+        return geom, _near_camera_rig(jcfg)
+    cfg = load_config(REPO / f"configs/demo/{profile}_synthetic.yaml")
+    center = np.asarray(cfg.CAPTURE_SPEC.SPACE_CENTER, np.float32)
+    cams = dome_rig(1, cfg.DATASET.CAMERA_NUM, space_center=tuple(center),
+                    ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE)[0]
+    cams[0, 9:12] = center + np.array([0.0, -700.0, 0.0], np.float32)
+    return pj.make_projection_geometry(cfg), cams
+
+
+@pytest.mark.parametrize("profile", ["tiny", "panoptic", "shelf", "campus"])
+def test_factored_whole_projection_is_bit_exact(profile):
+    """The whole-space kernel projects the grid from its axes: per-axis
+    products summed in project_points' order give whole_pixels' pixels bit
+    for bit, with a camera inside the volume."""
+    from faster_voxelpose_tpu_torch.models import projection as pj
+
+    geom, cams = _whole_profile(profile)
+    cams_t = torch.as_tensor(cams)
+    want = pj.whole_pixels(geom, torch.as_tensor(geom.whole_grid), cams_t)
+    world = [torch.as_tensor(a)[None] for a in pj.whole_axes(geom)]
+    got = _factored_pixels(world, cams_t, pj.whole_projection(geom))[0]
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("J", [15, 17])
+def test_project_whole_batch_matches_jax(J):
+    """project_whole_batch at B = 2 (a tiny rig and one with a camera inside
+    the volume), V = 3, against the JAX package's project_whole_batch_pallas
+    in interpret mode and its quad project_whole per sample."""
+    from faster_voxelpose_tpu.models.projection import project_whole as jw
+    from faster_voxelpose_tpu.models.projection import project_whole_batch_pallas
+    from faster_voxelpose_tpu.ops.pallas_sampling import pack_heatmaps
+    from faster_voxelpose_tpu.ops.sampling import build_quad_table
+    from faster_voxelpose_tpu_torch.models import projection as pj
+
+    jcfg, jgeom, pgeom = _jax_geom_and_port(DATASET__NUM_JOINTS=J)
+    V = jcfg.DATASET.CAMERA_NUM
+    W, H = jcfg.DATASET.HEATMAP_SIZE
+    assert V == 3
+    hm = np.random.RandomState(J).rand(2, V, H, W, J).astype(np.float32)
+    cams = np.stack([tiny_rig(V), _near_camera_rig(jcfg)])
+
+    spec = _spec(jcfg, tile=(4, 4, 8), window_x=16, window_y=16)
+    packed = jnp.stack([pack_heatmaps(jnp.asarray(h), spec) for h in hm])
+    pallas = np.asarray(project_whole_batch_pallas(jgeom, packed, jnp.asarray(cams), spec))
+    quad = np.stack([np.asarray(jw(jgeom, jax.vmap(build_quad_table)(jnp.asarray(h)), jnp.asarray(c)))
+                     for h, c in zip(hm, cams)])
+    axes = tuple(torch.as_tensor(a) for a in pj.whole_axes(pgeom))
+    ours = pj.project_whole_batch(pgeom, torch.as_tensor(hm), torch.as_tensor(cams), axes).numpy()
+    assert ours.shape == quad.shape == pallas.shape == (2, 16, 16, 8, J)
+    np.testing.assert_allclose(ours, quad, atol=1e-5)
+    np.testing.assert_allclose(ours, pallas, atol=1e-5)
 
 
 _ROUTE_CASES = [

@@ -361,3 +361,35 @@ def test_microbench_operands_and_cpu_path():
     with pytest.raises(ValueError, match="grad"):
         wk.window_sample(torch.rand(V, H, W, J, requires_grad=True),
                          torch.zeros(1, V, 2, 256), wk.PROBE_CONFIG)
+
+
+def test_timers_arithmetic_on_a_fake_clock():
+    """tools/timing.py's device and host readings: the median of the
+    readings, each of n calls, divided by n.  A fake clock advances by each
+    call's own duration; the CPU takes the back-to-back path (the graph
+    path needs the card: tests/test_torch_cuda.py)."""
+    from faster_voxelpose_tpu_torch.tools import timing
+
+    now = [0.0]
+
+    def fn():
+        now[0] += next(durations)
+
+    class FakeClock:
+        def start(self):
+            self.t0 = now[0]
+
+        def stop(self):
+            return now[0] - self.t0
+
+    # 1 warm call, one run of n = 4 before the readings, then 3 readings of
+    # n = 4: totals 8, 12, 40 -> median 12 -> 3 ms per call
+    durations = iter([9.0] * 5 + [2.0] * 4 + [3.0] * 4 + [10.0] * 4)
+    ms, how = timing.device_timing(fn, n=4, reps=3, warm=1, device=torch.device("cpu"),
+                                   clock=FakeClock())
+    assert (ms, how) == (3.0, "back to back")
+    # host_ms reads seconds: 1 warm call, then totals 0.004, 0.020, 0.008 s
+    durations = iter([1.0] + [0.001] * 4 + [0.005] * 4 + [0.002] * 4)
+    got = timing.host_ms(fn, n=4, reps=3, warm=1, device=torch.device("cpu"), now=lambda: now[0])
+    assert abs(got - 2.0) < 1e-9
+    assert timing.per_call_ms([8.0, 40.0, 12.0], 4) == 3.0
