@@ -3,11 +3,15 @@
 one NVIDIA GPU.
 
     python3 chip_profile.py [--requests N]
+    python3 chip_profile.py --images [--requests N]
     python3 chip_profile.py --train [--steps N]
 
 Serving: frames rendered as in chip_smoke.py's serving phase
 (PoseService, Panoptic profile, committed panoptic_synthetic weights);
-N requests are timed untraced, then traced with torch.profiler.
+N requests are timed untraced, then traced with torch.profiler.  With
+--images the requests are images, as in chip_smoke.py's images phase:
+5 uint8 frames of 960x512 (uniform noise from a seed) through a seeded
+random ResNet-50 backbone, normalised on the card (`infer_images`).
 Training (--train): train steps at the Panoptic profile (bf16 conv
 stacks, batch 4, seeded random weights) on synthetic scenes from the
 port's generator, rendered on the card, as in chip_smoke.py's training
@@ -79,26 +83,34 @@ def serve_profile(args, card) -> None:
     with np.load(cs.ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
         variables = {k: npz[k] for k in npz.files}
     svc = PoseService(cfg, variables=variables, rig=rig, device="cuda")
-    svc.warmup()
     rng = np.random.RandomState(1)
-    frames = [cs.render_frame(cs.make_people(rng, int(rng.randint(1, 7)), center), rig, cfg,
-                              svc.device) for _ in range(args.requests)]
+    if args.images:
+        svc.warmup(("heatmaps", "images_u8"))
+        iw, ih = cfg.DATASET.IMAGE_SIZE
+        frames = [rng.randint(0, 256, (cfg.DATASET.CAMERA_NUM, ih, iw, 3)).astype(np.uint8)
+                  for _ in range(args.requests)]
+        infer, what = svc.infer_images, f", uint8 frames {iw}x{ih}, random ResNet-50 backbone"
+    else:
+        svc.warmup()
+        frames = [cs.render_frame(cs.make_people(rng, int(rng.randint(1, 7)), center), rig, cfg,
+                                  svc.device) for _ in range(args.requests)]
+        infer, what = svc.infer_heatmaps, ""
     for f in frames[:3]:
-        svc.infer_heatmaps(f)
+        infer(f)
     torch.cuda.synchronize()
 
     # the same requests untraced, then traced: the tracer slows the host
     t0 = time.perf_counter()
     for f in frames:
-        svc.infer_heatmaps(f)
+        infer(f)
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
     sk.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        detected = [svc.infer_heatmaps(f)["n_people"] for f in frames]
+        detected = [infer(f)["n_people"] for f in frames]
         traced_ms = (time.perf_counter() - t0) * 1e3 / args.requests
     report(prof, args.requests, wall_ms, traced_ms, card, "request", args.top,
-           sk.launch_counts(), f", mean detected {np.mean(detected):.3f}")
+           sk.launch_counts(), f"{what}, mean detected {np.mean(detected):.3f}")
 
 
 def train_profile(args, card) -> None:
@@ -138,6 +150,8 @@ def train_profile(args, card) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=10)
+    ap.add_argument("--images", action="store_true",
+                    help="image requests (backbone included), not heatmap requests")
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)

@@ -6,7 +6,8 @@
 
 Drives the port (`faster_voxelpose_tpu_torch`) only, at the Panoptic
 profile of configs/demo/panoptic_synthetic.yaml (5 views, 240x128x15
-heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
+heatmaps, 80x80x20 grid, 64^3 crops, K = 10) unless a phase names
+another committed snapshot's profile (`config.profile`):
 
 1. builds the CUDA kernels from csrc/ with nvcc and prints the ptxas report;
 2. kernel phases: each kernel, and the crop sampler in each of its modes
@@ -28,7 +29,10 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    graph of back-to-back calls (`device_ms`) and the host's wall time per
    call (`host_ms`); its library yardstick on the first two
    (`library_ms`, `library_device_ms`), so that each ratio is read on one
-   clock;
+   clock.  The crop sampler's three kernels run again at the Shelf shape
+   (5 views, 200x152x17, K = 10) and the Campus shape (3 views,
+   200x160x17, K = 5) of their profiles and rigs, each against its plain
+   version, timed and printed with its bound, yardstick and launch;
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
 4. route phase: the served path answers the same 6 frames under the
@@ -61,15 +65,38 @@ heatmaps, 80x80x20 grid, 64^3 crops, K = 10):
    concatenated along K;
 9. eval phase: `run_validation` on the first 500 held-out synthetic
    scenes with the committed weights, held to AP@50 >= the snapshot's
-   record - 0.05 and MPJPE <= the record + 4 mm.
+   record - 0.025, MPJPE <= the record + 1.5 mm and 0.97-1.01 people
+   detected for each one there is (`eval_limits`); a control with every
+   head rounded to bf16 must break those limits;
+10. profiles phase: each of the other five committed snapshots
+   (checkpoints/*) on the first 500 held-out scenes of its own profile,
+   rig and pose bank (`tools.validate`), held to the same limits against
+   its own record; then PoseService at the Campus profile
+   (campus_synthetic_ref: 3 views, 17 joints, K = 5) answers the first
+   24 of those scenes at batch 1 with the validator's fused poses at
+   batch 1 (0.01 mm), rows 1 and 2 launching once per request and no
+   other kernel; in float32 the service at batch 1 and the validator at
+   the profile's test batch (8) agree within 0.01 mm too;
+11. images phase: at the Panoptic profile with the committed weights and
+   a seeded random ResNet-50 backbone, 5 uint8 frames of 960x512 per
+   request: the backbone on the card against the CPU on the same weights
+   and one frame in float32 (relative L2 <= BACKBONE_F32_TOL; the served
+   bf16 backbone, the control, must break it); in float32,
+   `infer_images` of uint8 frames equal to `infer_heatmaps` of the CPU
+   backbone's heatmaps of the frames normalised on the host, and as
+   served, to `infer_images` of the float32-normalised frames (every slot
+   valid, 0.01 mm); then 24 timed
+   requests, rows 1 and 2 once per request and no other kernel, with
+   latency p50 / p95, each request's device and host ms and the
+   backbone's device ms alone (recorded, not judged).
 The serving phase (PoseService with the committed panoptic_synthetic
 weights answering 24 rendered 1-6-person frames: the default route's two
 kernels, the projected whole-space sampler and the crop sampler, launch
 once per request and no other kernel does, someone is detected, the
 median matched MPJPE stays under 150 mm) runs between phases 3 and 4.
 Training and evaluation launch the whole-space sampler once per batch
-and the crop sampler once per sample; the coords mode of row 1 runs only
-as the gather baseline of tools/probe_sampling.py.
+and the crop sampler once per sample, at every profile; the coords mode
+of row 1 runs only as the gather baseline of tools/probe_sampling.py.
 
 Any failed phase raises, so the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernel table
@@ -220,41 +247,23 @@ def build_phase():
                     print("  " + line.strip())
 
 
-# Row 1's shapes besides the Panoptic profile: the geometry of
-# configs/demo/{shelf,campus}_synthetic.yaml, and the rig of each one's
-# scripts/make_demo_data.py line (views, radius, centre, original image)
-WHOLE_PROFILES = {
-    "shelf": dict(views=5, ori=(1032, 776), image=(800, 608), heatmap=(200, 152), joints=17,
-                  size=(8000.0, 8000.0, 2000.0), center=(450.0, -320.0, 800.0), radius=4500.0),
-    "campus": dict(views=3, ori=(360, 288), image=(800, 640), heatmap=(200, 160), joints=17,
-                   size=(12000.0, 12000.0, 2000.0), center=(3000.0, 4500.0, 1000.0),
-                   radius=10500.0),
-}
+# the Shelf and Campus shapes of rows 1-4: the profiles of these snapshots
+# (configs/demo/<stem>.yaml) and the rigs of their make_demo_data.py lines
+OTHER_SHAPES = {"shelf": "shelf_synthetic_ref", "campus": "campus_synthetic_ref"}
 
 
-def profile_geometry(name):
-    """The projection geometry of WHOLE_PROFILES[name] (the Panoptic
-    profile's other settings do not reach row 1)."""
-    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
-    from faster_voxelpose_tpu_torch.models.projection import make_projection_geometry
-
-    p = WHOLE_PROFILES[name]
-    cfg = panoptic_synthetic_profile()
-    d, c = cfg.DATASET, cfg.CAPTURE_SPEC
-    d.CAMERA_NUM, d.NUM_JOINTS = p["views"], p["joints"]
-    d.ORI_IMAGE_SIZE, d.IMAGE_SIZE, d.HEATMAP_SIZE = p["ori"], p["image"], p["heatmap"]
-    c.SPACE_SIZE, c.SPACE_CENTER = p["size"], p["center"]
-    return make_projection_geometry(cfg)
-
-
-def held_out_rigs(views, radius, center, ori, B):
-    """(B, views, 21) float32: the rig of make_demo_data.py's line for
+def held_out_rigs(cfg, B):
+    """(B, V, 21) float32: the rig of `cfg`'s make_demo_data.py line for
     seeds 0 .. B-1 (each seed jitters the cameras' angles)."""
-    from faster_voxelpose_tpu_torch.datasets.demo_data import make_rig
+    from faster_voxelpose_tpu_torch.datasets.demo_data import RIG_RADIUS_MM, make_rig
     from faster_voxelpose_tpu_torch.geometry import pack_rig
 
-    rigs = [make_rig(views, radius, 2200.0, center[:2], ori, seed=b) for b in range(B)]
-    return np.stack([pack_rig([r[str(v)] for v in range(views)]) for r in rigs]).astype(np.float32)
+    d = cfg.DATASET
+    rigs = [make_rig(d.CAMERA_NUM, RIG_RADIUS_MM[d.DATADIR], 2200.0,
+                     cfg.CAPTURE_SPEC.SPACE_CENTER[:2], d.ORI_IMAGE_SIZE, seed=b)
+            for b in range(B)]
+    return np.stack([pack_rig([r[str(v)] for v in range(d.CAMERA_NUM)])
+                     for r in rigs]).astype(np.float32)
 
 
 def whole_cases(cfg, geom, rig, hm):
@@ -265,21 +274,21 @@ def whole_cases(cfg, geom, rig, hm):
     the frame are uniform in [0, 1) from a seed."""
     import torch
 
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.models.projection import make_projection_geometry
+
     rng = np.random.RandomState(7)
-    d, c = cfg.DATASET, cfg.CAPTURE_SPEC
     cases = [("panoptic B=1", geom, hm[None], torch.as_tensor(rig, device=CARD)[None])]
-    shapes = [("panoptic", geom, 5, 2800.0, c.SPACE_CENTER, d.ORI_IMAGE_SIZE, d.NUM_JOINTS, 4)]
-    for name in ("shelf", "campus"):
-        p = WHOLE_PROFILES[name]
-        g = profile_geometry(name)
-        shapes += [(name, g, p["views"], p["radius"], p["center"], p["ori"], p["joints"], B)
-                   for B in (4, 8)]
-    for name, g, views, radius, center, ori, joints, B in shapes:
+    shapes = [("panoptic", cfg, geom, 4)]
+    for name, stem in OTHER_SHAPES.items():
+        other = profile(stem)
+        shapes += [(name, other, make_projection_geometry(other), B) for B in (4, 8)]
+    for name, pcfg, g, B in shapes:
         W, H = g.heatmap_size
-        heat = rng.rand(B, views, H, W, joints).astype(np.float32)
-        cams = held_out_rigs(views, radius, center, ori, B)
+        d = pcfg.DATASET
+        heat = rng.rand(B, d.CAMERA_NUM, H, W, d.NUM_JOINTS).astype(np.float32)
         cases.append((f"{name} B={B}", g, torch.as_tensor(heat, device=CARD),
-                      torch.as_tensor(cams, device=CARD)))
+                      torch.as_tensor(held_out_rigs(pcfg, B), device=CARD)))
     return cases
 
 
@@ -448,7 +457,7 @@ def projected_row(first, cases):
 
 
 def crop_case(cfg, geom, rig, hm, rng):
-    """K = 10 crops at random centres (3 dead slots, random bbox sizes)
+    """K crops at random centres (3 in 10 dead slots, random bbox sizes)
     with their masks, in the layout the crop sampler takes."""
     import torch
 
@@ -460,7 +469,7 @@ def crop_case(cfg, geom, rig, hm, rng):
     center = np.asarray(cfg.CAPTURE_SPEC.SPACE_CENTER)
     centers = center + rng.uniform([-1800, -1800, -100], [1800, 1800, 200], (K, 3))
     valid = np.ones(K, bool)
-    valid[rng.choice(K, 3, replace=False)] = False
+    valid[rng.choice(K, K * 3 // 10, replace=False)] = False
     bbox = rng.uniform(0.2, 1.0, (K, 2))
     tl, _ = pj.compute_crop_origin(geom, torch.as_tensor(centers, dtype=torch.float32, device=dev))
     masks = pj.crop_axis_masks(geom, tl, torch.as_tensor(bbox, dtype=torch.float32, device=dev))
@@ -538,7 +547,7 @@ def crop_launch(hm, case, geom, project, cube):
             f"(before this tiling: at most {before})")
 
 
-def crop_phase(cfg, geom, rig, hm, card, case):
+def crop_phase(cfg, geom, rig, hm, card, case, label="panoptic"):
     import torch
 
     from faster_voxelpose_tpu_torch.geometry import project_to_norm_coords
@@ -574,9 +583,10 @@ def crop_phase(cfg, geom, rig, hm, card, case):
                **library_readings(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                **device_readings(lambda: sk.sample_crop_planes(*args)))
     V = hm.shape[0]
-    print(f"kernel sample_crop_planes: err {err:.3g} (library err {lib_err:.3g}) kernel_ms "
-          f"{fmt(row)} plain_ms {row['plain_ms']:.4f} {fmt_library(row)} "
-          f"bound_ms {b_ms:.4f} ({b_by}) K{case['K']} valid {len(vk)} live voxels {case['live']} "
+    print(f"kernel sample_crop_planes [{label}]: err {err:.3g} (library err {lib_err:.3g}) "
+          f"kernel_ms {fmt(row)} plain_ms {row['plain_ms']:.4f} {fmt_library(row)} "
+          f"bound_ms {b_ms:.4f} ({b_by}) hm {tuple(hm.shape)} K{case['K']} valid {len(vk)} "
+          f"live voxels {case['live']} "
           f"samples {case['live'] * V} | {launch} | {card}")
     return row
 
@@ -590,7 +600,7 @@ def pixel_to_norm(pix, geom):
     return pix * scale - 1.0
 
 
-def coords_phase(cfg, geom, hm, card, case):
+def coords_phase(cfg, geom, hm, card, case, label="panoptic"):
     """Kernel row 3: the planes from precomputed coords."""
     import torch
 
@@ -624,7 +634,8 @@ def coords_phase(cfg, geom, hm, card, case):
                plain_ms=time_ms(lambda: sk.sample_crop_coords_plain(hm, pix, *masks)),
                **library_readings(library), bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                **device_readings(lambda: sk.sample_crop_planes_coords(hm, pix, *masks)))
-    print(f"kernel sample_crop_planes_coords: err {err:.3g} (vs project route {route_err:.3g}, "
+    print(f"kernel sample_crop_planes_coords [{label}]: err {err:.3g} (vs project route "
+          f"{route_err:.3g}, "
           f"library err {lib_err:.3g}) kernel_ms {fmt(row)} plain_ms {row['plain_ms']:.4f} "
           f"{fmt_library(row)} bound_ms {b_ms:.4f} ({b_by}) coords "
           f"{tuple(pix.shape)} {pix.numel() * 4 / 1e6:.1f} MB | "
@@ -632,7 +643,7 @@ def coords_phase(cfg, geom, hm, card, case):
     return row
 
 
-def cube_phase(cfg, geom, hm, card, case):
+def cube_phase(cfg, geom, hm, card, case, label="panoptic"):
     """Kernel row 4: the masked cube, from in-kernel projection and from
     coords; its max planes against the planes kernel's."""
     import torch
@@ -679,13 +690,49 @@ def cube_phase(cfg, geom, hm, card, case):
                **device_readings(lambda: sk.sample_crop_cube(hm, *masks, **proj)))
     row["coords_device_ms"] = device_readings(
         lambda: sk.sample_crop_cube(hm, *masks, pix=pix))["device_ms"]
-    print(f"kernel sample_crop_cube: err project {errs['project']:.3g} coords {errs['coords']:.3g} "
+    print(f"kernel sample_crop_cube [{label}]: err project {errs['project']:.3g} coords "
+          f"{errs['coords']:.3g} "
           f"(library err {lib_err:.3g}) kernel_ms project {fmt(row)}, coords "
           f"{times['coords']:.4f} device_ms {row['coords_device_ms']:.4f} plain_ms {plain_ms:.4f} "
           f"{fmt_library(row)} "
           f"bound_ms project {b_ms:.4f} ({b_by}) coords {bc_ms:.4f} ({bc_by}) cube "
           f"{tuple(cube.shape)} {cube.numel() * 4 / 1e6:.1f} MB | {launch} | {card}")
     return row
+
+
+def crop_shapes_phase(card):
+    """Rows 2-4, the crop sampler's three kernels, at the Shelf shape (5
+    views, 200x152, J = 17, K = 10) and the Campus shape (3 views,
+    200x160, J = 17, K = 5) on their profiles' rigs, each against its
+    plain version (1e-5), timed beside its bound and yardstick, its launch
+    printed.  Heatmaps uniform in [0, 1) from a seed.  Returns
+    {kernel name: [its reading at each shape]}."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.models.projection import make_projection_geometry
+
+    rng = np.random.RandomState(11)
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_abs_err")
+    readings = {}
+    for label, stem in OTHER_SHAPES.items():
+        cfg = profile(stem)
+        geom = make_projection_geometry(cfg)
+        rig = held_out_rigs(cfg, 1)[0]
+        d = cfg.DATASET
+        W, H = d.HEATMAP_SIZE
+        hm = torch.as_tensor(rng.rand(d.CAMERA_NUM, H, W, d.NUM_JOINTS).astype(np.float32),
+                             device=CARD)
+        case = crop_case(cfg, geom, rig, hm, rng)
+        for row in (crop_phase(cfg, geom, rig, hm, card, case, label),
+                    coords_phase(cfg, geom, hm, card, case, label),
+                    cube_phase(cfg, geom, hm, card, case, label)):
+            readings.setdefault(row["name"], []).append(
+                dict({k: row[k] for k in keys}, label=label, shape=list(hm.shape), K=case["K"],
+                     valid=len(case["vk"]), live=case["live"]))
+        del case
+    return readings
 
 
 def small_config(dtype="float32"):
@@ -935,16 +982,13 @@ def train_parity_phase(card):
 
 def synthetic_loader(cfg, n_batches, seed=0):
     """The port's own synthetic scenes for `cfg`: the demo rig and pose
-    bank of configs/demo/panoptic_synthetic.yaml, made here from seeds."""
+    bank of its make_demo_data.py line, made here from seeds."""
     from faster_voxelpose_tpu_torch.datasets import SyntheticDataset
-    from faster_voxelpose_tpu_torch.datasets.demo_data import make_pose_bank, make_rig
+    from faster_voxelpose_tpu_torch.datasets.demo_data import demo_pose_bank, demo_rig
     from faster_voxelpose_tpu_torch.engine.loader import make_loader
 
-    c, d = cfg.CAPTURE_SPEC, cfg.DATASET
-    rig = make_rig(d.CAMERA_NUM, 2800.0, 2200.0, c.SPACE_CENTER[:2], d.ORI_IMAGE_SIZE)
-    cams = {int(k): {kk: np.array(vv) for kk, vv in v.items()} for k, v in rig.items()}
     cfg.SYNTHETIC.NUM_DATA = n_batches * cfg.TRAIN.BATCH_SIZE
-    ds = SyntheticDataset(cfg, pose_bank=make_pose_bank(2000), cameras=cams)
+    ds = SyntheticDataset(cfg, pose_bank=demo_pose_bank(cfg), cameras=demo_rig(cfg))
     return make_loader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True, drop_last=True, seed=seed)
 
 
@@ -1431,24 +1475,23 @@ def mma_phase(card):
     return [row], launches
 
 
-def metric_table(message):
-    """{'ap@50': 0.8668, ...} from a Panoptic metric message."""
-    import re
-
-    return {k: float(v) for k, v in re.findall(r"(\S+@\S+): ([0-9.]+)", message)}
-
-
 EVAL_AP50_BELOW_RECORD = 0.025  # the bf16 control reads about 0.04 below, the port 0.015
 EVAL_MPJPE_ABOVE_RECORD = 1.5  # mm
 EVAL_DETECTED_PER_PERSON = (0.97, 1.01)  # duplicate proposals push the bf16 control to 1.02
+# shelf_synthetic_5k (5 of its 10 epochs) over-detects: 1.0087 people per person on its
+# whole held-out set (27814 of 27574; AP@50 and MPJPE 0.0001 and 0.007 mm from its record)
+# and 1.0108 on the 500-scene prefix, so its upper limit is 1.015, under the bf16 control's 1.02
+EVAL_DETECTED_PER_PERSON_OF = {"shelf_synthetic_5k": (0.97, 1.015)}
 
 
-def eval_limits(res):
-    """The limits of the eval phase on one reading; returns the list of
-    those it breaks."""
+def eval_limits(res, name="panoptic_synthetic"):
+    """The limits of the eval phase on one reading of snapshot `name`;
+    returns the list of those it breaks."""
+    from faster_voxelpose_tpu_torch.tools.validate import metric_table
+
     got, rec = metric_table(res["message"]), metric_table(res["record"]["message"])
     per_person = res["detected"] / res["people"]
-    lo, hi = EVAL_DETECTED_PER_PERSON
+    lo, hi = EVAL_DETECTED_PER_PERSON_OF.get(name, EVAL_DETECTED_PER_PERSON)
     broken = []
     if not got["ap@50"] >= rec["ap@50"] - EVAL_AP50_BELOW_RECORD:
         broken.append(f"AP@50 {got['ap@50']} under the record's {rec['ap@50']} by more than "
@@ -1483,13 +1526,9 @@ def eval_phase(card, scenes=500):
     def control(float32_heads):
         model = load_best_npz(str(validate.DEFAULT_CHECKPOINT / "model_best.npz"),
                               build_model(panoptic_synthetic_profile()))
-        heads = {n: m for n, m in model.named_modules()
-                 if getattr(m, "out_dtype", None) not in (None, getattr(m, "dtype", None))}
-        if len(heads) != 5:
-            raise AssertionError(f"eval: expected five head layers with float32 sums: {list(heads)}")
-        for n, m in heads.items():
-            if n.rsplit(".", 1)[-1] not in float32_heads:
-                m.out_dtype = m.dtype
+        rounded = validate.round_head_sums(model, keep=float32_heads)
+        if len(rounded) != 5 - len(float32_heads):
+            raise AssertionError(f"eval: expected five head layers with float32 sums: {rounded}")
         return validate.evaluate_snapshot(scenes=scenes, device=CARD, model=model)
 
     def line(name, res):
@@ -1522,6 +1561,289 @@ def eval_phase(card, scenes=500):
           + f"\neval: the bf16 control breaks: {broken}")
     if not broken:
         raise AssertionError("eval: the control with every head rounded to bf16 passes the limits")
+    return launches
+
+
+# the other committed snapshots, each scored on its own profile's scenes
+PROFILE_SNAPSHOTS = ("panoptic_synthetic_w05", "shelf_synthetic_5k", "shelf_synthetic_ref",
+                     "campus_synthetic", "campus_synthetic_ref")
+SERVICE_SNAPSHOT = "campus_synthetic_ref"
+
+
+def expected_eval_launches(cfg, scenes):
+    """Row 1 once per batch, row 2 once per scene, row 1's coords mode never."""
+    batches = -(-scenes // cfg.TEST.BATCH_SIZE)
+    return {"sample_whole_projected": batches, "sample_crop_planes": scenes, "sample_whole": 0}
+
+
+def profiles_phase(card, scenes=500, requests=N_REQUESTS):
+    """Every committed snapshot besides panoptic_synthetic (the eval
+    phase's) on the first `scenes` held-out scenes of its own profile,
+    held to `eval_limits` against its own record; then PoseService at the
+    SERVICE_SNAPSHOT profile answers the first `requests` of those scenes
+    at batch 1, with the validator's fused poses (0.01 mm) and rows 1
+    and 2 once per request.  Returns the launches summed over the runs."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools import validate
+
+    total, broken, results = {}, [], {}
+    for name in PROFILE_SNAPSHOTS:
+        sk.reset_launch_counts()
+        res = validate.evaluate_snapshot(ROOT / "checkpoints" / name, scenes=scenes, device=CARD)
+        counts = sk.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        cfg, rec = res["cfg"], res["record"]
+        d = cfg.DATASET
+        print(f"profiles [{name}]: {d.CAMERA_NUM} views, {d.HEATMAP_SIZE[0]}x{d.HEATMAP_SIZE[1]}"
+              f"x{d.NUM_JOINTS}, K = {cfg.CAPTURE_SPEC.MAX_PEOPLE}, width "
+              f"{cfg.NETWORK.WIDTH_MULT}: {res['scenes']} held-out scenes, {res['detected']} "
+              f"people detected where there are {res['people']}, {res['frames_per_s']:.3f} "
+              f"frames/s, launches {counts} | {card}\n{res['message']}\nbeside the record "
+              f"({rec.get('eval_set', 'its own eval set')}):\n"
+              f"{validate.side_by_side(res['message'], rec['message'])}")
+        preds = res["preds"]
+        K, J = cfg.CAPTURE_SPEC.MAX_PEOPLE, d.NUM_JOINTS
+        if preds.shape != (scenes, K, J, 5) or not np.isfinite(preds).all():
+            raise AssertionError(f"profiles [{name}]: predictions of shape {preds.shape} or "
+                                 f"not finite")
+        want = expected_eval_launches(cfg, scenes)
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"profiles [{name}]: launches {counts}, expected {want}")
+        broken += [f"{name}: {b}" for b in eval_limits(res, name)]
+        results[name] = res
+    if broken:
+        raise AssertionError("profiles: " + "; ".join(broken))
+    counts = service_replay(card, results[SERVICE_SNAPSHOT], requests)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def service_replay(card, res, requests):
+    """PoseService at `res`'s profile answers the first `requests` of its
+    held-out scenes at batch 1 (the same samples, rendered on the card):
+    the same people as the validator run on those scenes at batch 1, and
+    fused poses within 0.01 mm of it; rows 1 and 2 launch once per request
+    and no other kernel.  The gap to `res`'s own run, at the profile's
+    test batch, is printed.  The same two runs in float32 (TF32 off),
+    the validator at the profile's test batch and the service at batch
+    1, must agree within 0.01 mm too: a fault that mixed the samples of a
+    batch would show there, where bf16 convolutions may round otherwise
+    at another batch size."""
+    import copy
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.engine import PoseService, run_validation
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops.heatmap_render import render_heatmaps_device
+    from faster_voxelpose_tpu_torch.tools import validate
+
+    cfg = res["cfg"]
+    W, H = cfg.DATASET.HEATMAP_SIZE
+    with np.load(ROOT / "checkpoints" / SERVICE_SNAPSHOT / "model_best.npz") as npz:
+        variables = {k: npz[k] for k in npz.files}
+    ds = validate.held_out_dataset(cfg, requests)  # a fresh set: the same first samples
+    samples = [ds[i] for i in range(requests)]
+    rig = samples[0]["cameras"]
+    if not all(np.array_equal(s["cameras"], rig) for s in samples):
+        raise AssertionError("service: the held-out scenes do not share one rig")
+    svc = PoseService(cfg, variables=variables, rig=rig, device=CARD)
+    svc.warmup()
+    frames = [render_heatmaps_device(torch.as_tensor(s["hm_params"], device=CARD), H, W)
+              for s in samples]
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    answers = [svc.infer_heatmaps(f) for f in frames]
+    counts = sk.launch_counts()
+    one = run_validation(cfg, svc.model, validate.held_out_dataset(cfg, requests), batch_size=1,
+                         device=CARD)[2]
+
+    def gap(preds, answers=answers):
+        worst = 0.0
+        for i, a in enumerate(answers):
+            valid = preds[i, :, 0, 3] >= 0
+            if a["n_people"] != int(valid.sum()):
+                return float("inf")
+            if a["n_people"]:
+                worst = max(worst, float(np.abs(np.asarray(a["poses_mm"])
+                                                - preds[i, valid, :, :3]).max()))
+        return worst
+
+    people = [a["n_people"] for a in answers]
+    worst, batched = gap(one), gap(res["preds"])
+    stats = svc.stats()
+    del svc
+
+    f32 = copy.deepcopy(cfg)
+    f32.NETWORK.COMPUTE_DTYPE = "float32"
+    svc32 = PoseService(f32, variables=variables, rig=rig, device=CARD)
+    svc32.warmup()
+    answers32 = [svc32.infer_heatmaps(f) for f in frames]
+    batched32 = run_validation(f32, svc32.model, validate.held_out_dataset(f32, requests),
+                               device=CARD)[2]
+    worst32 = gap(batched32, answers32)
+    people32 = [a["n_people"] for a in answers32]
+    del svc32
+    print(f"profiles: PoseService [{SERVICE_SNAPSHOT}] {requests} held-out scenes at batch 1: "
+          f"people {people}, fused poses within {worst:.3g} mm of the validator's at batch 1 "
+          f"({batched:.3g} mm of its run above at batch {cfg.TEST.BATCH_SIZE}), launches "
+          f"{counts}, p50_ms {stats['p50_ms']} p95_ms {stats['p95_ms']}; in float32 the "
+          f"service at batch 1 within {worst32:.3g} mm of the validator at batch "
+          f"{f32.TEST.BATCH_SIZE} (people {people32}) | {card}")
+    want = {n: 0 for n in counts}
+    want.update({"sample_whole_projected": requests, "sample_crop_planes": requests})
+    if counts != want:
+        raise AssertionError(f"service: launches {counts}, expected {want}")
+    if not (worst <= 0.01 and sum(people) > 0):
+        raise AssertionError(f"service: fused poses {worst} mm from the validator's "
+                             f"(people {people})")
+    if not (worst32 <= 0.01 and sum(people32) > 0):
+        raise AssertionError(f"service: in float32, fused poses at batch 1 {worst32} mm from "
+                             f"the validator's at batch {f32.TEST.BATCH_SIZE} (people {people32})")
+    return counts
+
+
+# float32 backbone, card against CPU (images_phase): set between the float32
+# reading, 3.3e-6 relative L2 on an H100, and the bf16 control's, 1.1e-2
+BACKBONE_F32_TOL = 1e-4
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def images_phase(card, requests=N_REQUESTS):
+    """The image path at the Panoptic profile: committed model weights, a
+    seeded random ResNet-50 backbone, 5 uint8 frames of 960x512 per
+    request (uniform noise from a seed).  Checks the backbone on the card
+    against the CPU; in float32, `infer_images` of the uint8 frames
+    against `infer_heatmaps` of the CPU backbone's heatmaps of the frames
+    normalised on the host (an independent path); as served, uint8
+    frames against the float32-normalised ones; then times `requests`
+    requests.  Returns the launches of the timed ones."""
+    import copy
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.datasets.images import normalize_image
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.timing import device_timing
+
+    cfg = panoptic_synthetic_profile()
+    d = cfg.DATASET
+    iw, ih = d.IMAGE_SIZE
+    rig = dome_rig(1, d.CAMERA_NUM, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER)[0]
+    with np.load(ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
+        variables = {k: npz[k] for k in npz.files}
+    rng = np.random.RandomState(21)
+    frames = [rng.randint(0, 256, (d.CAMERA_NUM, ih, iw, 3)).astype(np.uint8)
+              for _ in range(requests)]
+    svc = PoseService(cfg, variables=variables, rig=rig, device=CARD, seed=0)
+    warm = svc.warmup(("heatmaps", "images", "images_u8"))
+
+    # the backbone, float32, card against CPU, one frame; the served bf16
+    # backbone is the control
+    f32cfg = copy.deepcopy(cfg)
+    f32cfg.NETWORK.COMPUTE_DTYPE = "float32"
+    cpu = build_backbone(f32cfg)
+    cpu.load_state_dict(svc.backbone.state_dict())
+    x = torch.as_tensor(normalize_image(frames[0][0]))[None]  # as served: BGR, COLOR_RGB false
+    card_f32 = copy.deepcopy(cpu).to(CARD)
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card_f32(x.to(CARD)).cpu()
+        control = svc.backbone(x.to(CARD)).cpu()
+    r_f32, r_bf16 = rel_l2(got, want), rel_l2(control, want)
+    print(f"images: backbone ResNet-{cfg.RESNET.NUM_LAYERS} on one {iw}x{ih} frame, card against "
+          f"CPU, float32 with TF32 off: relative L2 {r_f32:.3g} (limit {BACKBONE_F32_TOL}); the "
+          f"served bf16 backbone (control) {r_bf16:.3g}; heatmaps {tuple(want.shape)} max "
+          f"{float(want.abs().max()):.4g} | {card}")
+    if not (r_f32 <= BACKBONE_F32_TOL and torch.isfinite(got).all()):
+        raise AssertionError(f"images: float32 backbone card vs CPU {r_f32} > {BACKBONE_F32_TOL}")
+    if not r_bf16 > BACKBONE_F32_TOL:
+        raise AssertionError(f"images: the bf16 control {r_bf16} passes the float32 limit")
+    del card_f32
+
+    def compare(name, got, want, worst):
+        if got["n_people"] != want["n_people"] or not np.allclose(
+                got["scores"], want["scores"], rtol=0, atol=1e-5):
+            raise AssertionError(f"images: {name} proposes otherwise than infer_images(uint8)")
+        return max(worst, float(np.abs(np.asarray(got["poses_mm"])
+                                       - np.asarray(want["poses_mm"])).max()))
+
+    # every slot valid, so that every fused pose is compared; frames
+    # normalised on the host as BGR (COLOR_RGB false)
+    worst = {"cpu backbone": 0.0, "float32 frames": 0.0}
+    all_cfg = copy.deepcopy(f32cfg)
+    all_cfg.CAPTURE_SPEC.MIN_SCORE = -1e9
+    every = PoseService(all_cfg, variables=variables, rig=rig, device=CARD, seed=0)
+    every.backbone.load_state_dict(cpu.state_dict())
+    every.warmup(("heatmaps", "images_u8"))
+    for u8 in frames[:2]:
+        with torch.inference_mode():
+            hm = cpu(torch.as_tensor(normalize_image(u8)))  # (V, ih/4, iw/4, J) on the CPU
+        worst["cpu backbone"] = compare("the CPU backbone's heatmaps", every.infer_images(u8),
+                                        every.infer_heatmaps(hm.to(CARD)), worst["cpu backbone"])
+    del every, cpu
+    all_cfg.NETWORK.COMPUTE_DTYPE = cfg.NETWORK.COMPUTE_DTYPE
+    every = PoseService(all_cfg, variables=variables, rig=rig, device=CARD, seed=0)
+    every.warmup(("heatmaps", "images", "images_u8"))
+    for u8 in frames[:4]:
+        worst["float32 frames"] = compare("the float32-normalised frames", every.infer_images(u8),
+                                          every.infer_images(normalize_image(u8)),
+                                          worst["float32 frames"])
+    print(f"images: float32, infer_images(uint8) against infer_heatmaps of the CPU backbone's "
+          f"heatmaps of the frames normalised on the host {worst['cpu backbone']:.3g} mm (2 "
+          f"requests); as served ({cfg.NETWORK.COMPUTE_DTYPE}), infer_images(uint8) against "
+          f"infer_images of the float32-normalised frames {worst['float32 frames']:.3g} mm (4 "
+          f"requests); {all_cfg.CAPTURE_SPEC.MAX_PEOPLE} slots each, all valid | {card}")
+    if not max(worst.values()) <= 0.01:
+        raise AssertionError(f"images: the image path's poses differ: {worst}")
+    del every
+
+    # the timed requests, as served
+    for u8 in frames[:3]:
+        svc.infer_images(u8)
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    device_ms, host_ms, people = [], [], []
+    for u8 in frames:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        r = svc.infer_images(u8)  # ends with the poses on the host
+        b.record()
+        b.synchronize()
+        device_ms.append(a.elapsed_time(b))
+        host_ms.append(r["latency_ms"])
+        people.append(r["n_people"])
+    launches = sk.launch_counts()
+    stats = svc.stats()
+    x5 = torch.as_tensor(normalize_image(frames[0]), device=CARD)  # normalised on the host
+
+    def backbone_only():
+        with torch.inference_mode():
+            return svc.backbone(x5)
+
+    bb_ms, method = device_timing(backbone_only, n=5)
+    each = {k: ", ".join(f"{t:.3f}" for t in v) for k, v in (("device", device_ms),
+                                                             ("host", host_ms))}
+    print(f"images: {requests} requests of {d.CAMERA_NUM} uint8 frames {iw}x{ih}, warmed "
+          f"{warm}, backbone random ({stats['backbone_random_init']}): latency p50 "
+          f"{stats['p50_ms']} ms p95 {stats['p95_ms']} ms; per request device span ms (events "
+          f"around it) median {np.median(device_ms):.4f} [{each['device']}], host ms median "
+          f"{np.median(host_ms):.4f} [{each['host']}]; "
+          f"the backbone alone on {d.CAMERA_NUM} normalised frames device_ms "
+          f"{bb_ms:.4f} ({method}); people {people}; launches {launches} | {card}")
+    want = {n: 0 for n in launches}
+    want.update({"sample_whole_projected": requests, "sample_crop_planes": requests})
+    if launches != want:
+        raise AssertionError(f"images: launches {launches}, expected {want}")
     return launches
 
 
@@ -1567,6 +1889,8 @@ def main(argv=None) -> int:
     rows = [*whole_phase(cfg, geom, rig, hm, card), crop_phase(cfg, geom, rig, hm, card, case),
             coords_phase(cfg, geom, hm, card, case), cube_phase(cfg, geom, hm, card, case)]
     del case
+    for name, cases in crop_shapes_phase(card).items():  # rows 2-4 at the Shelf and Campus shapes
+        next(r for r in rows if r["name"] == name)["cases"] = cases
     if args.kernels:
         for phase in (window_phase, mma_phase):
             rows += phase(card)[0]
@@ -1586,6 +1910,8 @@ def main(argv=None) -> int:
         rows += tool_rows
         paths["tools"].update(launches)
     paths["eval"] = eval_phase(card)
+    paths["profiles"] = profiles_phase(card)
+    paths["images"] = images_phase(card)
 
     # launches: the run of the path that reaches each kernel (the row's
     # `path`): training for the default route's kernels, the route phase

@@ -4,8 +4,8 @@ The same nested dataclasses and YAML schema as the JAX package's
 `faster_voxelpose_tpu/config.py`, so that the repo's experiment files
 load unchanged.  The port keeps its own copy (it imports nothing of the
 JAX package).  `yaml` is imported only inside `load_config`: the
-port's runtime never needs it, and `panoptic_synthetic_profile()` builds
-the Panoptic profile without it.
+port's runtime never needs it, and `profile(name)` builds the profile of
+each committed snapshot's `configs/demo/<name>.yaml` without it.
 """
 
 from __future__ import annotations
@@ -285,3 +285,78 @@ def panoptic_synthetic_profile() -> Config:
     cfg.INDIVIDUAL_SPEC.SPACE_SIZE = (2000.0, 2000.0, 2000.0)
     cfg.INDIVIDUAL_SPEC.VOXELS_PER_AXIS = (64, 64, 64)
     return cfg
+
+
+def panoptic_synthetic_w05_profile() -> Config:
+    """`configs/demo/panoptic_synthetic_w05.yaml`: the Panoptic profile
+    with the fusion trunk at half width (WIDTH_MULT 0.5, WeightNet 16/32
+    channels), 10 epochs."""
+    cfg = panoptic_synthetic_profile()
+    n = cfg.NETWORK
+    n.NUM_CHANNEL_JOINT_FEAT, n.NUM_CHANNEL_JOINT_HIDDEN, n.WIDTH_MULT = 16, 32, 0.5
+    cfg.TRAIN.END_EPOCH = 10
+    return cfg
+
+
+def _coco17(cfg: Config, datadir: str) -> None:
+    """The COCO-17 joint set of the Shelf and Campus profiles."""
+    d = cfg.DATASET
+    d.DATADIR = datadir
+    d.NUM_JOINTS = 17
+    d.ROOT_JOINT_ID = [11, 12]
+
+
+def shelf_synthetic_profile(num_data: int = 5000, epochs: int = 10) -> Config:
+    """`configs/demo/shelf_synthetic_5k.yaml` (and, with 10000 scenes and
+    50 epochs, `shelf_synthetic_ref.yaml`): 5 views of a 1032x776 sensor,
+    200x152 heatmaps of 17 joints, the 8x8x2 m space centred at
+    (450, -320)."""
+    cfg = panoptic_synthetic_profile()
+    _coco17(cfg, "data/DemoShelf")
+    d = cfg.DATASET
+    d.ORI_IMAGE_SIZE, d.IMAGE_SIZE, d.HEATMAP_SIZE = (1032, 776), (800, 608), (200, 152)
+    cfg.SYNTHETIC.NUM_DATA, cfg.TRAIN.END_EPOCH = num_data, epochs
+    cfg.CAPTURE_SPEC.SPACE_CENTER = (450.0, -320.0, 800.0)
+    return cfg
+
+
+def campus_synthetic_profile(num_data: int = 5000, epochs: int = 10) -> Config:
+    """`configs/demo/campus_synthetic.yaml` (and, with 10000 scenes and
+    50 epochs, `campus_synthetic_ref.yaml`): 3 views of a 360x288 sensor,
+    200x160 heatmaps of 17 joints at sigma 4, the 12x12x2 m space centred
+    at (3000, 4500), MAX_PEOPLE 5, batch 8."""
+    cfg = panoptic_synthetic_profile()
+    _coco17(cfg, "data/DemoCampus")
+    d = cfg.DATASET
+    d.CAMERA_NUM = 3
+    d.ORI_IMAGE_SIZE, d.IMAGE_SIZE, d.HEATMAP_SIZE = (360, 288), (800, 640), (200, 160)
+    cfg.SYNTHETIC.MAX_PEOPLE, cfg.SYNTHETIC.NUM_DATA = 5, num_data
+    cfg.NETWORK.SIGMA = 4
+    cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.END_EPOCH, cfg.TEST.BATCH_SIZE = 8, epochs, 8
+    c = cfg.CAPTURE_SPEC
+    c.SPACE_SIZE = (12000.0, 12000.0, 2000.0)
+    c.SPACE_CENTER = (3000.0, 4500.0, 1000.0)
+    c.MAX_PEOPLE = 5
+    return cfg
+
+
+# The profile of each committed snapshot's config, by the YAML's file stem
+# (configs/demo/<stem>.yaml); each is held equal to `load_config` of its
+# file by a test.
+PROFILES = {
+    "panoptic_synthetic": panoptic_synthetic_profile,
+    "panoptic_synthetic_w05": panoptic_synthetic_w05_profile,
+    "shelf_synthetic_5k": shelf_synthetic_profile,
+    "shelf_synthetic_ref": lambda: shelf_synthetic_profile(10000, 50),
+    "campus_synthetic": campus_synthetic_profile,
+    "campus_synthetic_ref": lambda: campus_synthetic_profile(10000, 50),
+}
+
+
+def profile(name: str) -> Config:
+    """The profile of `configs/demo/<name>.yaml`, built without YAML;
+    `name` is the file's stem, and a path to the file names it too."""
+    stem = pathlib.PurePath(name).stem
+    if stem not in PROFILES:
+        raise KeyError(f"no code-side profile for {name!r}; known: {sorted(PROFILES)}")
+    return PROFILES[stem]()

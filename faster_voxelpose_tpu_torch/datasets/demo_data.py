@@ -4,9 +4,14 @@ procedural pose bank of {'pose': (J, 3) mm, 'vis': (J, 4)} records (the
 port's own copy of the repo's `scripts/make_demo_data.py` generators, so
 that one seed gives the same rig and bank).
 
-`configs/demo/panoptic_synthetic.yaml` trains on
+Each `configs/demo/` profile trains and is scored on the rig and bank of
+the `make_demo_data.py` line in its header (`demo_rig`, `demo_pose_bank`):
+`configs/demo/panoptic_synthetic.yaml` on
     make_rig(5, 2800.0, 2200.0, (0.0, -500.0), (1920, 1080))
     make_pose_bank(2000, skeleton="panoptic15")
+the Shelf profiles on make_rig(5, 4500.0, 2200.0, (450.0, -320.0),
+(1032, 776)) and the Campus profiles on make_rig(3, 10500.0, 2200.0,
+(3000.0, 4500.0), (360, 288)), both with the "coco17" bank.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import json
 from typing import Dict, List
 
 import numpy as np
+
+from ..config import Config
 
 
 def make_rig(n_views: int, radius_mm: float, height_mm: float, center,
@@ -75,6 +82,31 @@ def make_pose_bank(n_poses: int, seed: int = 1, skeleton: str = "panoptic15") ->
         pose[:, 2] += root_height
         bank.append({"pose": pose, "vis": np.ones((len(template), 4))})
     return bank
+
+
+# The camera ring's radius in each demo data directory's make_demo_data.py
+# line (the profiles' headers); Shelf's line takes the script's default.
+RIG_RADIUS_MM = {"data/DemoPanoptic": 2800.0, "data/DemoShelf": 4500.0,
+                 "data/DemoCampus": 10500.0}
+# the pose bank's skeleton for each joint count
+SKELETON_OF = {15: "panoptic15", 17: "coco17"}
+
+
+def demo_rig(cfg: Config) -> Dict[int, dict]:
+    """The rig `cfg` trains and is scored on, {cam_id: camera of numpy
+    arrays}: `make_rig(CAMERA_NUM, radius, 2200, SPACE_CENTER[:2],
+    ORI_IMAGE_SIZE)` with the radius of its DATADIR's line."""
+    d = cfg.DATASET
+    if d.DATADIR not in RIG_RADIUS_MM:
+        raise KeyError(f"no demo rig for DATADIR {d.DATADIR!r}; known: {sorted(RIG_RADIUS_MM)}")
+    rig = make_rig(d.CAMERA_NUM, RIG_RADIUS_MM[d.DATADIR], 2200.0,
+                   cfg.CAPTURE_SPEC.SPACE_CENTER[:2], d.ORI_IMAGE_SIZE)
+    return {int(k): {kk: np.array(vv) for kk, vv in v.items()} for k, v in rig.items()}
+
+
+def demo_pose_bank(cfg: Config) -> List[dict]:
+    """The 2000-pose bank of `cfg`'s joint set."""
+    return make_pose_bank(2000, skeleton=SKELETON_OF[cfg.DATASET.NUM_JOINTS])
 
 
 def write_calibration(path: str, cams: Dict[str, dict]) -> None:

@@ -8,8 +8,9 @@ device from 'hm_params', as in training.  The last batch is short, not
 padded: PyTorch needs no static shapes, so no padding rows are discarded.
 Samples are made in the calling process, in record order, so that the
 dataset's augmentation draws follow its one RandomState; nothing may call
-`dataset[i]` before the loop starts, or every later draw shifts.  The
-image branch (backbone, image loader) belongs to the image path.
+`dataset[i]` before the loop starts, or every later draw shifts.
+`make_eval_step` with a backbone gives the image step; `run_validation`
+has no image loader yet (the JAX package's decodes files with cv2).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 
 from ..config import Config
 from ..device import DeviceLike, pin_float32, resolve_device
+from ..models.resnet import PoseResNet, images_to_heatmaps
 from ..ops.heatmap_render import render_heatmaps_device
 from .loader import make_loader
 from .trainer import batch_to_device
@@ -31,9 +33,14 @@ from .trainer import batch_to_device
 logger = logging.getLogger(__name__)
 
 
-def make_eval_step(cfg: Config, model: nn.Module) -> Callable[[Mapping[str, torch.Tensor]], torch.Tensor]:
-    """One eval step: a batch of tensors on the model's device -> fused
-    poses (B, K, J, 5), under inference mode."""
+def make_eval_step(cfg: Config, model: nn.Module,
+                   backbone: Optional[PoseResNet] = None) -> Callable:
+    """One eval step under inference mode.  Without `backbone`: a batch of
+    tensors on the model's device -> fused poses (B, K, J, 5).  With it,
+    the image step: (images (B, V, ih, iw, 3), cameras (B, V, 21)) ->
+    fused poses, uint8 frames normalised on the device, then the backbone
+    over the B * V frames, then the model (the JAX package's
+    `eval_step_images`)."""
     W, H = cfg.DATASET.HEATMAP_SIZE
 
     def eval_step(batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -43,7 +50,15 @@ def make_eval_step(cfg: Config, model: nn.Module) -> Callable[[Mapping[str, torc
                 heatmaps = render_heatmaps_device(batch["hm_params"], H, W)
             return model(heatmaps, batch["cameras"], train=False).fused_poses
 
-    return eval_step
+    if backbone is None:
+        return eval_step
+
+    def eval_step_images(images: torch.Tensor, cameras: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            heatmaps = images_to_heatmaps(backbone, images, cfg.DATASET.COLOR_RGB)
+            return model(heatmaps, cameras, train=False).fused_poses
+
+    return eval_step_images
 
 
 def run_validation(cfg: Config, model: nn.Module, dataset, batch_size: Optional[int] = None,

@@ -13,6 +13,8 @@ that `weights.from_jax_variables` maps the flax paths mechanically.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,8 +37,20 @@ def _normal(*shape: int) -> nn.Parameter:
     return nn.Parameter(torch.randn(*shape) * 1e-3)
 
 
+def same_pads(size: int, kernel: int, stride: int):
+    """flax's padding="SAME" of one axis of `size`: (before, after), the
+    larger half after.  At stride 1 and an odd kernel that is kernel // 2
+    on both sides, as torch pads; at stride 2 on an even side it is
+    (kernel // 2 - 1, kernel // 2): a 3x3 stride-2 conv pads (0, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
-    """Convolution with 'SAME' padding (odd kernels), weight (O, I, *k).
+    """Convolution, weight (O, I, *k), with flax's padding="SAME" (odd
+    kernels; `same_pads` at a stride above 1) or, given `padding`, that
+    many pixels on every side.
 
     With `float32_out` the operands are still rounded to the compute
     dtype, but the sums are kept and returned in float32.  It is set on
@@ -50,18 +64,24 @@ class Conv(nn.Module):
     `CenterNet`)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, rank: int = 2,
-                 dtype: torch.dtype = torch.float32, float32_out: bool = False):
+                 dtype: torch.dtype = torch.float32, float32_out: bool = False,
+                 stride: int = 1, padding: Optional[int] = None, use_bias: bool = True):
         super().__init__()
-        self.rank, self.dtype, self.pad = rank, dtype, kernel // 2
+        self.rank, self.dtype, self.kernel, self.stride = rank, dtype, kernel, stride
+        self.same = padding is None and stride > 1  # padded per input size
+        self.pad = 0 if self.same else (kernel // 2 if padding is None else padding)
         self.out_dtype = torch.promote_types(dtype, torch.float32) if float32_out else dtype
         self.weight = _normal(cout, cin, *(kernel,) * rank)
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x):
         dt, out = self.dtype, self.out_dtype
+        if self.same:  # F.pad takes the last axis first
+            x = F.pad(x, [p for n in reversed(x.shape[2:])
+                          for p in same_pads(n, self.kernel, self.stride)])
+        b = None if self.bias is None else self.bias.to(dt).to(out)
         return _CONV[self.rank](
-            x.to(dt).to(out), self.weight.to(dt).to(out), self.bias.to(dt).to(out),
-            padding=self.pad,
+            x.to(dt).to(out), self.weight.to(dt).to(out), b, stride=self.stride, padding=self.pad,
         )
 
 

@@ -8,8 +8,9 @@ sweep_sampling   the window kernel's nine configurations (counterpart of
                  scripts/sweep_pallas.py)
 microbench_mma   tensor-core cost against contraction size and window
                  origin (counterpart of scripts/microbench_matmul.py)
-validate         AP / recall / MPJPE of a snapshot on the held-out
-                 synthetic scenes (counterpart of run/validate.py)
+validate         AP / recall / MPJPE of any committed snapshot on the
+                 held-out synthetic scenes of its own profile
+                 (counterpart of run/validate.py)
 
 They run on the card unless `--device cpu` is given, and raise when there
 is no CUDA device.

@@ -82,12 +82,16 @@ def _kernel_args(geom, rig, hm, centers, bbox, valid, device):
 
 
 def _profiles():
-    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    """The tiny geometry and the served profiles: Panoptic, Shelf (5 views,
+    200x152, 17 joints) and Campus (3 views, 200x160, 17 joints, K = 5)."""
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile, profile
 
-    return {"tiny": tiny_cfg, "panoptic": panoptic_synthetic_profile}
+    return {"tiny": tiny_cfg, "panoptic": panoptic_synthetic_profile,
+            "shelf": lambda: profile("shelf_synthetic_ref"),
+            "campus": lambda: profile("campus_synthetic_ref")}
 
 
-@pytest.mark.parametrize("profile", ["tiny", "panoptic"])
+@pytest.mark.parametrize("profile", ["tiny", "panoptic", "shelf", "campus"])
 def test_kernels_match_plain(dev, profile):
     from faster_voxelpose_tpu_torch.models.projection import whole_pixels
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
@@ -104,7 +108,7 @@ def test_kernels_match_plain(dev, profile):
     assert float(planes[0][2].abs().max()) == 0.0  # the dead slot
 
 
-@pytest.mark.parametrize("profile", ["tiny", "panoptic"])
+@pytest.mark.parametrize("profile", ["tiny", "panoptic", "shelf", "campus"])
 def test_coords_and_cube_modes_match_plain(dev, profile):
     """Kernel rows 3 and 4: planes from coords, and the masked cube from
     in-kernel projection and from coords, against their plain versions;
@@ -134,15 +138,15 @@ def test_coords_and_cube_modes_match_plain(dev, profile):
         assert torch.equal(a, b)
 
 
-def _edge_case(dev, voxels, J, seed=0, views=3):
+def _edge_case(dev, voxels, J, seed=0, views=3, heatmap=(40, 32)):
     """K = 4 crops of `voxels` on the tiny geometry's projection, J joints,
-    `views` cameras: slot 0 with masks that are not intervals, slot 1 dead,
-    slot 2 with one live voxel, slot 3 with interval masks right next to a
-    camera."""
+    `views` cameras, heatmaps of `heatmap` (W, H): slot 0 with masks that
+    are not intervals, slot 1 dead, slot 2 with one live voxel, slot 3 with
+    interval masks right next to a camera."""
     from faster_voxelpose_tpu_torch.models import projection as pj
 
     cfg = tiny_cfg()
-    cfg.DATASET.CAMERA_NUM = views
+    cfg.DATASET.CAMERA_NUM, cfg.DATASET.HEATMAP_SIZE = views, heatmap
     geom, rig, _, centers, _, _ = _case(cfg, seed, K=4)
     rng = np.random.RandomState(seed)
     V, (W, H) = cfg.DATASET.CAMERA_NUM, cfg.DATASET.HEATMAP_SIZE
@@ -208,6 +212,15 @@ def test_crop_modes_at_tile_edges(dev, voxels, J):
     intervals, a dead slot and a slot with one live voxel, 1 to 32
     joints."""
     _hold_crop_modes(*_edge_case(dev, voxels, J), voxels)
+
+
+@pytest.mark.parametrize("heatmap", [(200, 152), (200, 160)])
+@pytest.mark.parametrize("voxels", _EDGE_VOXELS)
+def test_crop_modes_at_17_joints_and_3_views(dev, voxels, heatmap):
+    """The Shelf and Campus joint count and view count on the crop
+    sampler's edges: J = 17 (a second joint group with one live lane),
+    3 views, heatmaps of the Shelf and Campus sizes."""
+    _hold_crop_modes(*_edge_case(dev, voxels, 17, heatmap=heatmap), voxels)
 
 
 def test_crop_modes_above_48kb_of_shared_memory(dev):
@@ -663,3 +676,78 @@ def test_tuning_wrappers_check_and_count(dev):
     out = wk.mma_window(lhs, rhs, bad, 64)
     assert torch.isnan(out[1].float()).all() and torch.isfinite(out[0].float()).all()
     assert sk.launch_counts()["mma_window"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the image path: the Pose-ResNet backbone (cuDNN) and infer_images
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("num_layers", [18, 50])
+def test_backbone_cuda_matches_cpu(dev, num_layers):
+    """A seeded random backbone (deconvs of 32 filters) on two 64x96
+    frames, float32 with TF32 off: the card within 1e-4 relative L2 of the
+    CPU; the same weights in bf16 on the card, the control, are further."""
+    from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
+
+    torch.manual_seed(num_layers)
+    cpu = PoseResNet(num_layers, 5, (32, 32, 32)).eval()
+    half = PoseResNet(num_layers, 5, (32, 32, 32), dtype=torch.bfloat16).eval()
+    half.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        ref = cpu(x).double()
+        card = PoseResNet(num_layers, 5, (32, 32, 32)).eval()
+        card.load_state_dict(cpu.state_dict())
+        out = card.to(dev)(x.to(dev)).cpu().double()
+        ctl = half.to(dev)(x.to(dev)).cpu().double()
+    assert out.shape == (2, 16, 24, 5) and bool(ref.abs().max() > 0)
+    rel = float((out - ref).norm() / ref.norm())
+    assert rel <= 1e-4, rel
+    assert float((ctl - ref).norm() / ref.norm()) > rel
+
+
+def test_infer_images_cuda_matches_cpu(dev):
+    """PoseService's image path on the tiny geometry (ResNet-18 backbone,
+    every slot valid), the same seeded fan-in scaled weights on the card
+    and on the CPU, the backbone's heatmaps scaled to about [-1, 1]: the
+    same people, fused poses within 0.5 mm; on the card rows 1 and 2
+    launch once per request and no other kernel."""
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.models.resnet import images_to_heatmaps
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg = tiny_cfg()
+    cfg.CAPTURE_SPEC.MIN_SCORE = -1e9
+    cfg.INDIVIDUAL_SPEC.SPACE_SIZE = (2100.0,) * 3  # no crop-origin ties
+    cfg.RESNET.NUM_LAYERS, cfg.RESNET.NUM_DECONV_FILTERS = 18, (32, 32, 32)
+    rig = dome_rig(1, 3, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
+                   ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE, focal=240.0)[0]
+    u8 = np.random.RandomState(3).randint(0, 256, (2, 3, 128, 160, 3)).astype(np.uint8)
+    cpu = PoseService(cfg, rig=rig, device="cpu")
+    torch.manual_seed(0)
+    with torch.no_grad():
+        for p in [*cpu.model.parameters(), *cpu.backbone.parameters()]:
+            if p.ndim > 1:
+                p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5)
+        size_out = cpu.model.hdn.center_net.size_out  # bbox sizes near 0.6
+        size_out.weight.mul_(0.01)
+        size_out.bias.fill_(0.6)
+        hm = images_to_heatmaps(cpu.backbone, torch.as_tensor(u8), False)
+        cpu.backbone.final.weight.div_(hm.abs().max())
+        cpu.backbone.final.bias.div_(hm.abs().max())
+    card = PoseService(cfg, rig=rig, device=dev)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.backbone.load_state_dict(cpu.backbone.state_dict())
+    card.warmup(("images_u8",))
+    sk.reset_launch_counts()
+    answers = [card.infer_images(f) for f in u8]
+    counts = sk.launch_counts()
+    assert counts["sample_whole_projected"] == counts["sample_crop_planes"] == 2
+    assert sum(counts.values()) == 4
+    for f, got in zip(u8, answers):
+        want = cpu.infer_images(f)
+        assert got["n_people"] == want["n_people"] == 4
+        d = np.abs(np.asarray(got["poses_mm"]) - np.asarray(want["poses_mm"]))
+        assert float(d.max()) <= 0.5

@@ -157,7 +157,9 @@ def test_port_imports_nothing_of_jax():
             "faster_voxelpose_tpu_torch/tools/probe_sampling.py",
             "faster_voxelpose_tpu_torch/tools/sweep_sampling.py",
             "faster_voxelpose_tpu_torch/tools/microbench_mma.py",
-            "faster_voxelpose_tpu_torch/tools/validate.py"} <= names
+            "faster_voxelpose_tpu_torch/tools/validate.py",
+            "faster_voxelpose_tpu_torch/models/resnet.py",
+            "faster_voxelpose_tpu_torch/datasets/images.py"} <= names
     assert not offenders, offenders
 
 
