@@ -7,21 +7,24 @@ one NVIDIA GPU.
     python3 chip_profile.py --train [--steps N]
 
 Serving: frames rendered as in chip_smoke.py's serving phase
-(PoseService, Panoptic profile, committed panoptic_synthetic weights);
-N requests are timed untraced, then traced with torch.profiler.  With
---images the requests are images, as in chip_smoke.py's images phase:
-5 uint8 frames of 960x512 (uniform noise from a seed) through a seeded
-random ResNet-50 backbone, normalised on the card (`infer_images`).
-Training (--train): train steps at the Panoptic profile (bf16 conv
-stacks, batch 4, seeded random weights) on synthetic scenes from the
+(Panoptic profile, committed panoptic_synthetic weights), answered in
+one run by an eager PoseService (`aot=False`) and by a compiled one (its
+CUDA graphs), the same requests in turn; for each, N requests are timed
+untraced, then traced with torch.profiler.  With --images the requests
+are images, as in chip_smoke.py's images phase: 5 uint8 frames of
+960x512 (uniform noise from a seed) through a seeded random ResNet-50
+backbone, normalised on the card (`infer_images`, the 'images_u8'
+graph).  Training (--train): train steps at the Panoptic profile (bf16
+conv stacks, batch 4, seeded random weights) on synthetic scenes from the
 port's generator, rendered on the card, as in chip_smoke.py's training
 phase; the batches are moved to the card before the timed window, so
 the window holds the steps alone.  Prints the card, the host wall time
 per request or step (each ends in a synchronisation), the device time
-and its share of the untraced wall time, the device events and the
-launches of kernel row 1 (the whole-space sampler, either mode) per
-request or step, then the kernels with the most device time.  Needs a
-CUDA device; fails without one.
+and its share of the untraced wall time, the device events, the launches
+of kernel row 1 (the whole-space sampler, either mode) by the launch
+counters, the kernels of rows 1 and 2 by name in the trace
+(`whole_kernel`, `crop_kernel`) per request or step, then the kernels
+with the most device time.  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -54,16 +57,19 @@ def report(prof, n, wall_ms, traced_ms, card, unit, top, launches, extra=""):
     events = sum(r[2] for r in rows)
     row1 = {k: launches[k] / n for k in ("sample_whole", "sample_whole_projected")}
     row1_ms = sum(ms for name, ms, _ in rows if "whole_kernel" in name)
+    by_name = {k: sum(c for name, _, c in rows if k in name)
+               for k in ("whole_kernel", "crop_kernel")}
     print(f"profile: {n} {unit}s{extra} | {card}")
     print(f"profile: host wall {wall_ms:.4f} ms/{unit} untraced ({traced_ms:.4f} traced), "
           f"device {device_ms:.4f} ms/{unit}, busy share {device_ms / wall_ms:.4f}, "
           f"{events} device events/{unit}; kernel row 1 launches/{unit} {row1}, its device "
-          f"time {row1_ms:.4f} ms/{unit}")
+          f"time {row1_ms:.4f} ms/{unit}; rows 1 and 2 by name in the trace, per {unit}: "
+          f"{by_name}")
     for name, ms, count in rows[:top]:
         print(f"  {ms:9.4f} ms {ms / device_ms:7.2%} x{count:<4d} {name[:90]}")
-    print(json.dumps({"unit": unit, "wall_ms": wall_ms, "traced_ms": traced_ms,
-                      "device_ms": device_ms, "device_events": events, "row1_launches": row1,
-                      "row1_ms": row1_ms,
+    print(json.dumps({"unit": unit, "extra": extra.strip(", "), "wall_ms": wall_ms,
+                      "traced_ms": traced_ms, "device_ms": device_ms, "device_events": events,
+                      "row1_launches": row1, "row1_ms": row1_ms, "by_name": by_name,
                       "top": [dict(name=n_[:90], ms=m, launches=c) for n_, m, c in rows[:top]]}))
 
 
@@ -82,35 +88,39 @@ def serve_profile(args, card) -> None:
     rig = dome_rig(1, cfg.DATASET.CAMERA_NUM, space_center=center)[0]
     with np.load(cs.ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
         variables = {k: npz[k] for k in npz.files}
-    svc = PoseService(cfg, variables=variables, rig=rig, device="cuda")
+    services = {"eager": PoseService(cfg, variables=variables, rig=rig, device="cuda",
+                                     aot=False),
+                "compiled": PoseService(cfg, variables=variables, rig=rig, device="cuda")}
     rng = np.random.RandomState(1)
     if args.images:
-        svc.warmup(("heatmaps", "images_u8"))
+        services["compiled"].warmup(("images_u8",))
         iw, ih = cfg.DATASET.IMAGE_SIZE
         frames = [rng.randint(0, 256, (cfg.DATASET.CAMERA_NUM, ih, iw, 3)).astype(np.uint8)
                   for _ in range(args.requests)]
-        infer, what = svc.infer_images, f", uint8 frames {iw}x{ih}, random ResNet-50 backbone"
+        what = f", uint8 frames {iw}x{ih}, random ResNet-50 backbone"
     else:
-        svc.warmup()
         frames = [cs.render_frame(cs.make_people(rng, int(rng.randint(1, 7)), center), rig, cfg,
-                                  svc.device) for _ in range(args.requests)]
-        infer, what = svc.infer_heatmaps, ""
-    for f in frames[:3]:
-        infer(f)
-    torch.cuda.synchronize()
+                                  "cuda") for _ in range(args.requests)]
+        what = ""
+    for name, svc in services.items():
+        infer = svc.infer_images if args.images else svc.infer_heatmaps
+        for f in frames[:3]:
+            infer(f)
+        torch.cuda.synchronize()
 
-    # the same requests untraced, then traced: the tracer slows the host
-    t0 = time.perf_counter()
-    for f in frames:
-        infer(f)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
-    sk.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the same requests untraced, then traced: the tracer slows the host
         t0 = time.perf_counter()
-        detected = [infer(f)["n_people"] for f in frames]
-        traced_ms = (time.perf_counter() - t0) * 1e3 / args.requests
-    report(prof, args.requests, wall_ms, traced_ms, card, "request", args.top,
-           sk.launch_counts(), f"{what}, mean detected {np.mean(detected):.3f}")
+        for f in frames:
+            infer(f)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
+        sk.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            detected = [infer(f)["n_people"] for f in frames]
+            traced_ms = (time.perf_counter() - t0) * 1e3 / args.requests
+        report(prof, args.requests, wall_ms, traced_ms, card, "request", args.top,
+               sk.launch_counts(), f"{what}, {name} service (compiled graphs "
+               f"{svc.stats()['compiled']}), mean detected {np.mean(detected):.3f}")
 
 
 def train_profile(args, card) -> None:

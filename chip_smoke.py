@@ -93,7 +93,18 @@ The serving phase (PoseService with the committed panoptic_synthetic
 weights answering 24 rendered 1-6-person frames: the default route's two
 kernels, the projected whole-space sampler and the crop sampler, launch
 once per request and no other kernel does, someone is detected, the
-median matched MPJPE stays under 150 mm) runs between phases 3 and 4.
+median matched MPJPE stays under 150 mm) runs between phases 3 and 4,
+then the compiled phase (`compiled_phase`): PoseService's CUDA graphs
+against eager services on the same 24 requests (the same people; float32
+within 0.01 mm, the bf16 gap printed), rows 1 and 2 once per replayed
+request, a rig hot-swap with no recapture, the 'images_u8' graph on
+uint8 frames, a capture holding a host synchronisation that must raise,
+the JSON-lines server (tools/serve.py) in a subprocess, and eager and
+compiled latencies.  PoseService captures its graphs at construction on
+the card, so the serving, profiles and images phases answer through
+them too (the profiles phase's Campus service against an eager one as
+well); the route phase runs eagerly, since the coords route builds its
+pixels from host constants, which a graph cannot hold.
 Training and evaluation launch the whole-space sampler once per batch
 and the crop sampler once per sample, at every profile; the coords mode
 of row 1 runs only as the gather baseline of tools/probe_sampling.py.
@@ -820,8 +831,10 @@ def route_phase(cfg, rig, card, rng):
         rcfg = copy.deepcopy(cfg)
         for k, v in keys.items():
             setattr(rcfg.NETWORK, k, v)
-        svc = PoseService(rcfg, variables=variables, rig=rig, device=CARD)
-        svc.warmup()
+        # eager: the coords route builds its pixels from host constants,
+        # which no CUDA graph can hold (only the default route is captured)
+        svc = PoseService(rcfg, variables=variables, rig=rig, device=CARD, aot=False)
+        svc.infer_heatmaps(frames[0])  # warm-up
         sk.reset_launch_counts()
         results[kernel] = [svc.infer_heatmaps(f) for f in frames]
         counts = sk.launch_counts()
@@ -1123,6 +1136,273 @@ def serving_phase(cfg, rig, card, rng):
     for r in results:
         if not np.isfinite(np.asarray(r["poses_mm"], np.float64)).all():
             raise AssertionError("non-finite poses")
+    return launches
+
+
+def answers_gap(got, want):
+    """(whether every request found the same people, the largest gap in
+    mm between their fused poses)."""
+    same, worst = True, 0.0
+    for a, b in zip(got, want):
+        if a["n_people"] != b["n_people"]:
+            same = False
+        elif a["n_people"]:
+            worst = max(worst, float(np.abs(np.asarray(a["poses_mm"])
+                                            - np.asarray(b["poses_mm"])).max()))
+    return same, worst
+
+
+def percentiles(ms):
+    return f"p50 {np.percentile(ms, 50):.4f} ms p95 {np.percentile(ms, 95):.4f} ms"
+
+
+def graph_against_eager(label, got, want, f32, card):
+    """Hold compiled answers to eager ones: the same people in every
+    request, and in float32 (TF32 off) fused poses within 0.01 mm (bit for
+    bit is expected; cuBLAS or cuDNN may choose another algorithm under
+    capture).  In bf16 the gap is printed, not judged: the float32
+    reading is the witness."""
+    same, worst = answers_gap(got, want)
+    people = [a["n_people"] for a in got]
+    print(f"compiled [{label}]: {len(got)} requests, graph against eager: same people {same} "
+          f"{people}, fused poses within {worst:.3g} mm "
+          f"({'float32, limit 0.01' if f32 else 'bf16, recorded'}) | {card}")
+    if not (same and sum(people) > 0):
+        raise AssertionError(f"compiled [{label}]: the graph finds other people than eager")
+    if f32 and not worst <= 0.01:
+        raise AssertionError(f"compiled [{label}]: float32 graph {worst} mm from eager")
+    return worst
+
+
+def compiled_phase(cfg, rig, card, rng, requests=N_REQUESTS):
+    """The compiled service (PoseService's CUDA graphs, captured at
+    construction) at the Panoptic profile with the committed weights:
+    `requests` rendered requests through an eager and a compiled service,
+    in float32 and in bf16 as served (`graph_against_eager`); rows 1 and
+    2 once per replayed request; a rig hot-swap with no recapture, held to
+    eager on the new rig and bit for bit to the first answers on the way
+    back; the 'images_u8' graph on uint8 frames through a seeded random
+    ResNet-50 (every slot valid) held the same way; a forward holding a
+    host synchronisation, whose capture must raise; the JSON-lines server
+    (tools/serve.py) in a subprocess.  Prints eager and compiled latency
+    p50 / p95 from frames on the card and from numpy frames, and one
+    replay's device ms between two CUDA events.  Returns the launches of
+    the compiled bf16 heatmap requests."""
+    import copy
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.datasets.demo_data import (
+        RIG_RADIUS_MM,
+        make_rig,
+        write_calibration,
+    )
+    from faster_voxelpose_tpu_torch.datasets.shelf_campus import load_flat_calibration
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry import dome_rig, pack_rig
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    with np.load(ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
+        variables = {k: npz[k] for k in npz.files}
+    d, center = cfg.DATASET, cfg.CAPTURE_SPEC.SPACE_CENTER
+    most = min(6, cfg.CAPTURE_SPEC.MAX_PEOPLE)
+    scenes = [make_people(rng, int(rng.randint(1, most + 1)), center) for _ in range(requests)]
+    frames = [render_frame(p, rig, cfg, CARD) for p in scenes]
+    rig2 = dome_rig(1, d.CAMERA_NUM, space_center=center, seed=200,
+                    radius_range=(2900.0, 3500.0))[0]
+    frames2 = [render_frame(p, rig2, cfg, CARD) for p in scenes[:8]]
+    torch.cuda.synchronize()
+
+    f32 = copy.deepcopy(cfg)
+    f32.NETWORK.COMPUTE_DTYPE = "float32"
+    launches = {}
+    for label, c in (("float32", f32), (cfg.NETWORK.COMPUTE_DTYPE, cfg)):
+        eager = PoseService(c, variables=variables, rig=rig, device=CARD, aot=False)
+        t0 = time.perf_counter()
+        svc = PoseService(c, variables=variables, rig=rig, device=CARD)
+        capture_s = time.perf_counter() - t0
+        if svc.warmup() != ["heatmaps"]:
+            raise AssertionError(f"compiled: captured {svc.warmup()}, expected ['heatmaps']")
+        for f in frames[:3]:
+            eager.infer_heatmaps(f)  # the compiled one warmed in its capture
+        want = [eager.infer_heatmaps(f) for f in frames]
+        sk.reset_launch_counts()
+        got = [svc.infer_heatmaps(f) for f in frames]
+        counts = sk.launch_counts()
+        expect = {n: 0 for n in counts}
+        expect.update({"sample_whole_projected": requests, "sample_crop_planes": requests})
+        if counts != expect:
+            raise AssertionError(f"compiled [{label}]: launches {counts}, expected {expect}")
+        graph_against_eager(f"{label} heatmaps", got, want, c is f32, card)
+        errs = [e for p, r in zip(scenes, got) for e in matched_mpjpe(p, r["poses_mm"])]
+        print(f"compiled [{label}]: service built and heatmaps captured in {capture_s:.2f} s; "
+              f"launches {counts}; matched MPJPE median {np.median(errs):.3f} mm | {card}")
+        launches = counts
+
+        # rig hot-swap: no recapture, eager's answers on the new rig, the
+        # first answers bit for bit on the way back
+        graph = svc._compiled["heatmaps"]
+        svc.set_rig(rig2)
+        eager.set_rig(rig2)
+        swapped = [svc.infer_heatmaps(f) for f in frames2]
+        graph_against_eager(f"{label} rig swap", swapped,
+                            [eager.infer_heatmaps(f) for f in frames2], c is f32, card)
+        svc.set_rig(rig)
+        back = [svc.infer_heatmaps(f) for f in frames[:8]]
+        if svc._compiled["heatmaps"] is not graph or sorted(svc._compiled) != ["heatmaps"]:
+            raise AssertionError(f"compiled [{label}]: the rig swap recaptured")
+        if [a["poses_mm"] for a in back] != [a["poses_mm"] for a in got[:8]]:
+            raise AssertionError(f"compiled [{label}]: swapping the rig back changed the answers")
+        print(f"compiled [{label}]: rig swap and back: the same graph ({svc.stats()['compiled']}), "
+              f"the first answers bit for bit | {card}")
+
+        if c is cfg:  # latency as served: frames on the card, then as numpy arrays
+            host = [f.cpu().numpy() for f in frames]
+            lat = {}
+            for name, service in (("eager", eager), ("compiled", svc)):
+                for src, fs in (("card", frames), ("numpy", host)):
+                    lat[name, src] = [service.infer_heatmaps(f)["latency_ms"] for f in fs]
+            g = svc._compiled["heatmaps"]
+            replay_ms = []
+            for _ in range(20):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                g.graph.replay()
+                b.record()
+                b.synchronize()
+                replay_ms.append(a.elapsed_time(b))
+            print("compiled: latency per heatmap request (host clock, call to poses on the host), "
+                  + "; ".join(f"{n} from {src} frames {percentiles(v)}" for (n, src), v in lat.items())
+                  + f"; one replay's device time (CUDA events) median {np.median(replay_ms):.4f} ms, "
+                  f"min {min(replay_ms):.4f} | {card}")
+        del eager, svc
+
+    # the images_u8 graph: random uint8 frames, a seeded random ResNet-50,
+    # every slot valid
+    iw, ih = d.IMAGE_SIZE
+    img_rng = np.random.RandomState(22)
+    u8 = [img_rng.randint(0, 256, (d.CAMERA_NUM, ih, iw, 3)).astype(np.uint8)
+          for _ in range(requests)]
+    for label, c in (("float32", f32), (cfg.NETWORK.COMPUTE_DTYPE, cfg)):
+        every = copy.deepcopy(c)
+        every.CAPTURE_SPEC.MIN_SCORE = -1e9
+        eager = PoseService(every, variables=variables, rig=rig, device=CARD, seed=0, aot=False)
+        svc = PoseService(every, variables=variables, rig=rig, device=CARD, seed=0)
+        if svc.warmup(("images_u8",)) != ["heatmaps", "images_u8"]:
+            raise AssertionError("compiled: the images_u8 graph was not captured")
+        for f in u8[:3]:
+            eager.infer_images(f)
+        want = [eager.infer_images(f) for f in u8]
+        sk.reset_launch_counts()
+        got = [svc.infer_images(f) for f in u8]
+        counts = sk.launch_counts()
+        if counts["sample_whole_projected"] != requests or counts["sample_crop_planes"] != requests:
+            raise AssertionError(f"compiled [{label} images_u8]: launches {counts}")
+        graph_against_eager(f"{label} images_u8", got, want, c is f32, card)
+        if c is cfg:
+            lat = {n: [s.infer_images(f)["latency_ms"] for f in u8] for n, s in
+                   (("eager", eager), ("compiled", svc))}
+            print("compiled: latency per image request (5 uint8 frames from numpy), "
+                  + "; ".join(f"{n} {percentiles(v)}" for n, v in lat.items()) + f" | {card}")
+        del eager, svc
+
+    # negative control: a forward that reads a value back to the host
+    # cannot be captured, and the service's capture raises
+    bad = PoseService(cfg, variables=variables, rig=rig, device=CARD, aot=False)
+    forward = bad.model.forward
+
+    def synced(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        out.fused_poses.sum().item()  # a host synchronisation
+        return out
+
+    bad.model.forward = synced
+    try:
+        bad.warmup(("heatmaps",))
+    except RuntimeError as e:
+        raised = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+    else:
+        raise AssertionError("compiled: a forward holding a host synchronisation was captured")
+    if bad._compiled:
+        raise AssertionError(f"compiled: a failed capture left graphs {sorted(bad._compiled)}")
+    del bad.model.forward
+    after = bad.infer_heatmaps(frames[0])
+    print(f"compiled: negative control, capturing a forward with .item() raised {raised!r}; the "
+          f"service then answered eagerly ({after['n_people']} people) | {card}")
+    if not after["n_people"]:
+        raise AssertionError("compiled: no answer after the failed capture")
+    del bad
+
+    # the JSON-lines server on the card, in a subprocess
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        radius = RIG_RADIUS_MM[d.DATADIR]
+        for name, r, seed in (("calib.json", radius, 0), ("calib2.json", radius * 1.1, 1)):
+            write_calibration(str(tmp / name), make_rig(d.CAMERA_NUM, r, 2200.0, center[:2],
+                                                        d.ORI_IMAGE_SIZE, seed=seed))
+        cams = load_flat_calibration(str(tmp / "calib.json"))
+        served_rig = pack_rig([cams[k] for k in sorted(cams)]).astype(np.float32)
+        frame = render_frame(scenes[0], served_rig, cfg, CARD)
+        np.save(tmp / "frame.npy", frame.cpu().numpy())
+        images = [str(tmp / f"v{v}.jpg") for v in range(d.CAMERA_NUM)]
+        try:  # image files where cv2 is installed; else the answer must name it
+            import cv2
+        except ImportError:
+            cv2 = None
+        if cv2 is not None:
+            ori_w, ori_h = d.ORI_IMAGE_SIZE
+            for path in images:
+                cv2.imwrite(path, rng.randint(0, 256, (ori_h, ori_w, 3)).astype(np.uint8))
+        lines = ["not json"] + [json.dumps(r) for r in (
+            {"cmd": "ping"},
+            {"cmd": "infer", "heatmaps": str(tmp / "frame.npy")},
+            {"cmd": "infer", "images": images},
+            {"cmd": "rig", "calibration": str(tmp / "calib2.json")},
+            {"cmd": "infer", "heatmaps": str(tmp / "frame.npy")},
+            {"cmd": "stats"},
+            {"cmd": "quit"},
+        )]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "faster_voxelpose_tpu_torch.tools.serve", "--best-from",
+             "checkpoints/panoptic_synthetic", "--calibration", str(tmp / "calib.json")],
+            input="\n".join(lines) + "\n", capture_output=True, text=True, cwd=ROOT,
+            timeout=600)
+        server_s = time.perf_counter() - t0
+        local = PoseService(cfg, variables=variables, rig=served_rig, device=CARD)
+        want = local.infer_heatmaps(frame)
+        want_images = local.infer_image_paths(images) if cv2 is not None else None
+        del local
+    out = [json.loads(line) for line in proc.stdout.splitlines()]
+    print(f"compiled: server (python3 -m faster_voxelpose_tpu_torch.tools.serve --best-from "
+          f"checkpoints/panoptic_synthetic) exited {proc.returncode} after {server_s:.1f} s; "
+          f"answers: {json.dumps([{k: v for k, v in a.items() if k not in ('poses_mm', 'scores')} for a in out])}"
+          f"; stderr tail {proc.stderr.strip()[-300:]!r} | {card}")
+    if proc.returncode != 0 or len(out) != 9:
+        raise AssertionError(f"compiled: server exited {proc.returncode} with {len(out)} lines")
+    ready, bad_json, ping, first, image_answer, swap, second, stats, bye = out
+    checks = {
+        "ready": ready.get("ready") is True and ready.get("random_init") is False,
+        "bad json": "bad json" in bad_json.get("error", ""),
+        "ping": ping == {"ok": True},
+        "infer": answers_gap([first], [want])[0] and first["n_people"] > 0
+                 and np.isfinite(np.asarray(first["poses_mm"], np.float64)).all(),
+        "images": ("n_people" in image_answer and answers_gap([image_answer], [want_images])[0]
+                   if cv2 is not None else "cv2" in image_answer.get("error", "")),
+        "rig": swap == {"ok": True} and "n_people" in second,
+        "stats": stats.get("compiled") == ["heatmaps"]
+                 and str(stats.get("device", "")).startswith("cuda")
+                 and stats.get("requests") == (3 if cv2 is not None else 2),
+        "quit": bye == {"ok": True, "bye": True},
+    }
+    print(f"compiled: server checks {checks}; its first answer {first['n_people']} people, "
+          f"within {answers_gap([first], [want])[1]:.3g} mm of this process's compiled service; "
+          f"image files ({'cv2 ' + cv2.__version__ if cv2 is not None else 'no cv2'}): "
+          f"{image_answer.get('n_people', image_answer.get('error'))} | {card}")
+    if not all(checks.values()):
+        raise AssertionError(f"compiled: server checks failed: {checks}")
     return launches
 
 
@@ -1621,8 +1901,10 @@ def profiles_phase(card, scenes=500, requests=N_REQUESTS):
 
 
 def service_replay(card, res, requests):
-    """PoseService at `res`'s profile answers the first `requests` of its
-    held-out scenes at batch 1 (the same samples, rendered on the card):
+    """PoseService at `res`'s profile, compiled, answers the first
+    `requests` of its held-out scenes at batch 1 (the same samples,
+    rendered on the card), as an eager service does
+    (`graph_against_eager`, in bf16 and in float32), and:
     the same people as the validator run on those scenes at batch 1, and
     fused poses within 0.01 mm of it; rows 1 and 2 launch once per request
     and no other kernel.  The gap to `res`'s own run, at the profile's
@@ -1649,14 +1931,17 @@ def service_replay(card, res, requests):
     rig = samples[0]["cameras"]
     if not all(np.array_equal(s["cameras"], rig) for s in samples):
         raise AssertionError("service: the held-out scenes do not share one rig")
-    svc = PoseService(cfg, variables=variables, rig=rig, device=CARD)
-    svc.warmup()
+    svc = PoseService(cfg, variables=variables, rig=rig, device=CARD)  # compiled
     frames = [render_heatmaps_device(torch.as_tensor(s["hm_params"], device=CARD), H, W)
               for s in samples]
     torch.cuda.synchronize()
     sk.reset_launch_counts()
     answers = [svc.infer_heatmaps(f) for f in frames]
     counts = sk.launch_counts()
+    eager = PoseService(cfg, variables=variables, rig=rig, device=CARD, aot=False)
+    graph_against_eager(f"{SERVICE_SNAPSHOT} bf16", answers,
+                        [eager.infer_heatmaps(f) for f in frames], False, card)
+    del eager
     one = run_validation(cfg, svc.model, validate.held_out_dataset(cfg, requests), batch_size=1,
                          device=CARD)[2]
 
@@ -1679,8 +1964,11 @@ def service_replay(card, res, requests):
     f32 = copy.deepcopy(cfg)
     f32.NETWORK.COMPUTE_DTYPE = "float32"
     svc32 = PoseService(f32, variables=variables, rig=rig, device=CARD)
-    svc32.warmup()
     answers32 = [svc32.infer_heatmaps(f) for f in frames]
+    eager32 = PoseService(f32, variables=variables, rig=rig, device=CARD, aot=False)
+    graph_against_eager(f"{SERVICE_SNAPSHOT} float32", answers32,
+                        [eager32.infer_heatmaps(f) for f in frames], True, card)
+    del eager32
     batched32 = run_validation(f32, svc32.model, validate.held_out_dataset(f32, requests),
                                device=CARD)[2]
     worst32 = gap(batched32, answers32)
@@ -1901,6 +2189,7 @@ def main(argv=None) -> int:
     # serving before the training phases, so that its latency is read on a
     # host and card that training has not yet loaded, as in earlier runs
     paths = {"serving": serving_phase(cfg, rig, card, rng)}
+    paths["compiled"] = compiled_phase(cfg, rig, card, np.random.RandomState(9))
     paths["route"] = route_phase(cfg, rig, card, rng)
     train_parity_phase(card)
     paths["train"] = training_phase(card)

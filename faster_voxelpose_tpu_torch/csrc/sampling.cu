@@ -580,7 +580,11 @@ int fvp_whole_launch_geometry(int V, int X, int Y, int Z, int B, long long* out)
 // floats of CropConsts (origin and step unused) -> out (B, X, Y, Z, J).
 // V <= 8, J <= 32.  Returns kErrSharedMemory (-1) when V and the grid's
 // axes need more shared memory than a block may have, else the launch's
-// CUDA error.
+// CUDA error.  Safe to call while the stream is captured into a CUDA graph
+// (PoseService captures the served forward): cudaGetDevice,
+// cudaDeviceGetAttribute and cudaFuncSetAttribute are no stream work and
+// are allowed during a capture, and the constants are copied by value into
+// the kernel's parameters, which the graph keeps.
 int fvp_sample_whole_projected(const float* hm, const float* cams, const float* gx,
                                const float* gy, const float* gz, const float* consts,
                                float* out, int B, int V, int H, int W, int J, int X, int Y,
@@ -626,7 +630,8 @@ int fvp_crop_launch_geometry(int V, int J, int K, int vx, int vy, int vz,
 // outputs (K, vx, vy, J), (K, vx, vz, J), (K, vy, vz, J), zero-filled;
 // cube = 1: output (K, vx, vy, vz, J), any contents.  Unused pointers may
 // be null.  Returns kErrSharedMemory (-1) when V and J need more shared
-// memory than a block may have, else the launch's CUDA error.
+// memory than a block may have, else the launch's CUDA error.  Safe to
+// call during a CUDA graph capture, as fvp_sample_whole_projected is.
 int fvp_sample_crop(const float* hm, const float* cams, const int* tl,
                     const float* pix, const uint8_t* mx, const uint8_t* my,
                     const uint8_t* mz, const uint8_t* valid,

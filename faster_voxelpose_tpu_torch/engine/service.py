@@ -1,28 +1,61 @@
 """Persistent inference service of the port (counterpart of
 `faster_voxelpose_tpu/engine/service.py`): a long-lived model and
-Pose-ResNet backbone on one device that answer heatmaps -> poses and
-images -> poses requests, with a hot-swappable camera rig and latency
-accounting.  `infer_image_paths`, which decodes files with cv2, is not
-ported.
+Pose-ResNet backbone on one device that compile once and then answer
+heatmaps -> poses and images -> poses requests, with a hot-swappable
+camera rig and latency accounting.
+
+- **Compiled graphs.** The JAX service lowers and compiles its batch-1
+  graphs before the first request and runs one executable per request.
+  Here each named graph ('heatmaps', 'images', 'images_u8') is captured
+  once into a CUDA graph at batch 1 (`warmup`, at construction with
+  `aot`); a request copies its input into the graph's static input,
+  replays the graph and copies the poses out, so the host issues one
+  graph launch in place of the forward's several hundred kernels.  An
+  input of another shape, or a graph not captured, runs the same forward
+  eagerly, on the same kernels.
+- **Camera-rig hot-swap.** Every graph reads one static rig tensor;
+  `set_rig` copies the new calibration into it, so a swap costs one
+  host->device copy and no recapture.
+- **Latency accounting.** Per-request wall time, and count / mean / p50
+  / p95 over the last 10,000 requests (`stats`).
+
+`tools/serve.py` wraps this in the JSON-lines protocol of `run/serve.py`.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..datasets.images import load_view_images_u8
 from ..datasets.shelf_campus import load_flat_calibration
 from ..device import DeviceLike, pin_float32, resolve_device
 from ..geometry.cameras import pack_rig
+from ..geometry.example_rigs import dome_rig
+from ..geometry.transforms import get_resize_transform
 from ..models.faster_voxelpose import ModelOutputs, build_model
 from ..models.resnet import build_backbone, images_to_heatmaps
+from ..ops import sampling_kernels as sk
 from ..weights import from_jax_variables
 
 GRAPHS = ("heatmaps", "images", "images_u8")
+# eager forwards on the capture's stream before a capture, so that cuDNN
+# and cuBLAS choose their algorithms and workspaces outside the graph
+CAPTURE_WARMUP_FORWARDS = 3
+
+
+class CompiledGraph(NamedTuple):
+    """One forward captured at batch 1: the graph, its static input and
+    fused poses, and the kernel launches that one replay makes."""
+
+    graph: "torch.cuda.CUDAGraph"
+    input: torch.Tensor
+    fused_poses: torch.Tensor
+    launches: Dict[str, int]
 
 
 class PoseService:
@@ -44,12 +77,15 @@ class PoseService:
         default `warmup`.  The heatmaps path never runs the backbone.
     rig : packed (V, 21) rig; may be swapped later with `set_rig`
     device : where to run; None -> the CUDA device, raising if there is none
+    aot : on a CUDA device, capture the default graphs at construction
+        (`warmup()`), as the JAX service compiles them; on the CPU
+        construction runs no forward
     """
 
     def __init__(self, cfg, variables: Optional[Mapping] = None,
                  backbone_variables: Optional[Mapping] = None,
                  rig: Optional[np.ndarray] = None, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, aot: bool = True):
         self.device = resolve_device(device)
         pin_float32()
         self.cfg = cfg
@@ -69,47 +105,129 @@ class PoseService:
             self.backbone.load_state_dict(from_jax_variables(backbone_variables, self.backbone))
         self.model.to(self.device)
         self.backbone.to(self.device)
-        self._rig = None
+        # the one rig every graph reads: set_rig copies into it
+        self._rig = torch.zeros((1, self._V, 21), device=self.device)
+        self._rig_set = False
         if rig is not None:
             self.set_rig(rig)
         self._latencies_ms = collections.deque(maxlen=10000)
         self._total_requests = 0
-        self._warm = set()
+        # graph name -> its CompiledGraph, or None where nothing can be
+        # captured (the CPU) and requests run eagerly
+        self._compiled: Dict[str, Optional[CompiledGraph]] = {}
+        if aot and self.device.type == "cuda":
+            self.warmup()
+
+    # -- compilation ----------------------------------------------------
 
     def warmup(self, graphs: Optional[Sequence[str]] = None) -> list:
-        """One batch-1 forward on zeros for each graph named: 'heatmaps',
-        'images' (normalised float32 frames) or 'images_u8' (uint8
-        frames).  It builds the kernels and lets cuDNN pick its
-        algorithms before the first request is timed.  Default:
-        'heatmaps', plus 'images_u8' when backbone weights were given.
-        Returns the graphs warmed so far."""
+        """Compile the named graphs for batch 1: 'heatmaps', 'images'
+        (normalised float32 frames) or 'images_u8' (uint8 frames).
+        Default: 'heatmaps', plus 'images_u8' when backbone weights were
+        given.  On a CUDA device each is captured into a CUDA graph
+        (`_capture`); a capture that fails raises, and the service never
+        answers eagerly in place of a graph it was asked to compile.  On
+        the CPU nothing can be captured: each graph runs one eager
+        forward, and requests run eagerly.  Before any rig is set the
+        forwards run on a placeholder dome rig (`geometry.dome_rig`),
+        which `set_rig` overwrites.  Returns the graphs compiled so far
+        (`stats()["compiled"]`).
+
+        A graph reads the model's and the backbone's parameters where
+        they lie: weights loaded in place afterwards (`load_state_dict`)
+        are seen by the next replay; modules or parameters replaced by
+        new objects are not."""
         if graphs is None:
             graphs = ("heatmaps",) if self.backbone_random_init else ("heatmaps", "images_u8")
         unknown = set(graphs) - set(GRAPHS)
         if unknown:
             raise ValueError(f"unknown graphs {sorted(unknown)}; known: {GRAPHS}")
-        cams = self._require_rig()
-        with torch.inference_mode():
-            if "heatmaps" in graphs:
-                self.model(torch.zeros((1, self._V, self._H, self._W, self._J),
-                                       device=self.device), cams)
-            for name, dtype in (("images", torch.float32), ("images_u8", torch.uint8)):
-                if name in graphs:
-                    self._images_forward(torch.zeros((1, self._V, self._ih, self._iw, 3),
-                                                     dtype=dtype, device=self.device), cams)
-        self._sync()
-        self._warm.update(graphs)
-        return sorted(self._warm)
+        if not self._rig_set:
+            self._rig.copy_(torch.as_tensor(self._placeholder_rig()))
+        for name in graphs:
+            if name in self._compiled:
+                continue
+            x = torch.zeros(self._input_shape(name), device=self.device,
+                            dtype=torch.uint8 if name == "images_u8" else torch.float32)
+            forward = self._forward(name)
+            if self.device.type == "cuda":
+                self._compiled[name] = self._capture(forward, x)
+            else:
+                with torch.inference_mode():
+                    forward(x)
+                self._compiled[name] = None
+        return sorted(self._compiled)
+
+    def _capture(self, forward: Callable[[torch.Tensor], ModelOutputs],
+                 static_input: torch.Tensor) -> CompiledGraph:
+        """forward(static_input) captured into a CUDA graph, by PyTorch's
+        recipe: CAPTURE_WARMUP_FORWARDS eager forwards on a side stream,
+        then the capture on that stream under inference mode.  Each graph
+        has its own memory pool (the default of `torch.cuda.graph`): the
+        service replays its graphs in any order, which graphs that share
+        a pool may not be.  The kernel wrappers counted their calls while
+        the graph was captured, but nothing ran then: those counts are
+        taken back and kept as what one replay launches.  Raises what the
+        capture raises, e.g. for a host synchronisation or a copy from
+        pageable host memory inside the forward."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream), torch.inference_mode():
+            for _ in range(CAPTURE_WARMUP_FORWARDS):
+                forward(static_input)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = sk.launch_counts()
+        try:
+            # the outer stream context restores the caller's stream even
+            # when a failed capture leaves torch.cuda.graph's unrestored
+            with torch.cuda.stream(stream), torch.inference_mode(), \
+                    torch.cuda.graph(graph, stream=stream):
+                fused = forward(static_input).fused_poses
+        finally:
+            launched = {k: n - before[k] for k, n in sk.launch_counts().items()
+                        if n != before[k]}
+            sk.add_launches({k: -n for k, n in launched.items()})
+        return CompiledGraph(graph, static_input, fused, launched)
+
+    def _input_shape(self, name: str) -> tuple:
+        if name == "heatmaps":
+            return (1, self._V, self._H, self._W, self._J)
+        return (1, self._V, self._ih, self._iw, 3)
+
+    def _forward(self, name: str) -> Callable[[torch.Tensor], ModelOutputs]:
+        if name == "heatmaps":
+            return lambda x: self.model(x, self._cams(x))
+        return lambda x: self._images_forward(x, self._cams(x))
+
+    def _cams(self, x: torch.Tensor) -> torch.Tensor:
+        """The rig for a batch of x.shape[0] samples."""
+        return self._rig if x.shape[0] == 1 else self._rig.expand(x.shape[0], -1, -1)
+
+    def _images_forward(self, images: torch.Tensor, cams: torch.Tensor) -> ModelOutputs:
+        hm = images_to_heatmaps(self.backbone, images, self.cfg.DATASET.COLOR_RGB)
+        return self.model(hm, cams)
+
+    def _placeholder_rig(self) -> np.ndarray:
+        """A dome rig around the capture space, for forwards before any
+        rig is set."""
+        ori = self.cfg.DATASET.ORI_IMAGE_SIZE
+        return dome_rig(1, self._V, space_center=self.cfg.CAPTURE_SPEC.SPACE_CENTER,
+                        ori_image_size=ori, focal=0.75 * ori[0])
+
+    # -- rig management --------------------------------------------------
 
     def set_rig(self, rig: np.ndarray) -> None:
-        """Hot-swap the camera calibration: a packed (V, 21) rig or a
-        (1, V, 21) batch of one."""
+        """Hot-swap the camera calibration (no recapture): a packed (V, 21)
+        rig or a (1, V, 21) batch of one, copied into the rig tensor that
+        every graph reads."""
         rig = np.asarray(rig, np.float32)
         if rig.ndim == 2:
             rig = rig[None]
         if rig.shape != (1, self._V, 21):
             raise ValueError(f"rig shape {rig.shape} != (1, {self._V}, 21)")
-        self._rig = torch.as_tensor(rig, device=self.device)
+        self._rig.copy_(torch.from_numpy(rig))
+        self._rig_set = True
 
     def set_rig_from_calibration(self, path: str) -> np.ndarray:
         """Hot-swap the rig from a flat calibration JSON
@@ -123,13 +241,23 @@ class PoseService:
         return rig
 
     def _require_rig(self) -> torch.Tensor:
-        if self._rig is None:
+        if not self._rig_set:
             raise RuntimeError("no camera rig set; call set_rig")
         return self._rig
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    # -- inference --------------------------------------------------------
+
+    def _run(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The fused poses of x: by the compiled graph `name` where there
+        is one for x's shape, else by the eager forward."""
+        g = self._compiled.get(name)
+        if g is not None and x.shape == g.input.shape:
+            g.input.copy_(x)
+            g.graph.replay()
+            sk.add_launches(g.launches)
+            return g.fused_poses
+        with torch.inference_mode():
+            return self._forward(name)(x.to(self.device)).fused_poses
 
     @staticmethod
     def _decode(fused: np.ndarray) -> dict:
@@ -141,10 +269,11 @@ class PoseService:
             "n_people": int(valid.sum()),
         }
 
-    def _answer(self, t0: float, out: ModelOutputs) -> dict:
+    def _answer(self, t0: float, fused: torch.Tensor) -> dict:
         """The decoded poses of a request begun at `t0`, its latency
-        recorded."""
-        fused = out.fused_poses.cpu().numpy()
+        recorded; the poses are copied to the host, so that the next
+        replay does not overwrite them."""
+        fused = fused.cpu().numpy()
         ms = (time.perf_counter() - t0) * 1e3
         self._latencies_ms.append(ms)
         self._total_requests += 1
@@ -156,39 +285,45 @@ class PoseService:
         """(V, H, W, J) or (1, V, H, W, J) float32 heatmaps, numpy or a
         tensor -> poses.  The latency runs from the call to the poses on
         the host, the host->device copy included."""
-        rig = self._require_rig()
+        self._require_rig()
         t0 = time.perf_counter()
-        hm = torch.as_tensor(heatmaps, dtype=torch.float32).to(self.device)
+        hm = torch.as_tensor(heatmaps, dtype=torch.float32)
         if hm.ndim == 4:
             hm = hm[None]
-        with torch.inference_mode():
-            out = self.model(hm, rig)
-        return self._answer(t0, out)
-
-    def _images_forward(self, images: torch.Tensor, cams: torch.Tensor) -> ModelOutputs:
-        hm = images_to_heatmaps(self.backbone, images, self.cfg.DATASET.COLOR_RGB)
-        return self.model(hm, cams)
+        return self._answer(t0, self._run("heatmaps", hm))
 
     def infer_images(self, images) -> dict:
         """(V, ih, iw, 3) or (1, V, ih, iw, 3) frames at IMAGE_SIZE, numpy
         or a tensor -> poses.  uint8 frames are decoded BGR and normalised
-        on the device (`datasets.images.normalize_images_device`); float
-        frames are taken as ImageNet-normalised already (RGB when
-        COLOR_RGB).  The latency is counted as for `infer_heatmaps`."""
-        rig = self._require_rig()
+        on the device (`datasets.images.normalize_images_device`, the
+        'images_u8' graph); float frames are taken as ImageNet-normalised
+        already (RGB when COLOR_RGB; the 'images' graph).  The latency is
+        counted as for `infer_heatmaps`."""
+        self._require_rig()
         t0 = time.perf_counter()
         x = torch.as_tensor(images)
         if x.dtype != torch.uint8:
             x = x.to(torch.float32)
-        x = x.to(self.device)
         if x.ndim == 4:
             x = x[None]
         if tuple(x.shape[1:]) != (self._V, self._ih, self._iw, 3):
             raise ValueError(f"images of shape {tuple(x.shape)}, the service takes "
                              f"(1, {self._V}, {self._ih}, {self._iw}, 3)")
-        with torch.inference_mode():
-            out = self._images_forward(x, rig)
-        return self._answer(t0, out)
+        name = "images_u8" if x.dtype == torch.uint8 else "images"
+        return self._answer(t0, self._run(name, x))
+
+    def infer_image_paths(self, paths: Sequence[str]) -> dict:
+        """One image file per view, in camera order -> poses: each decoded
+        with cv2 and warped to IMAGE_SIZE where it is not at that size
+        (`datasets.images.load_view_images_u8`), then sent as uint8
+        frames through the 'images_u8' graph."""
+        if len(paths) != self._V:
+            raise ValueError(f"need {self._V} views, got {len(paths)}")
+        d = self.cfg.DATASET
+        rt = get_resize_transform(d.ORI_IMAGE_SIZE, d.IMAGE_SIZE)
+        return self.infer_images(load_view_images_u8(list(paths), d.IMAGE_SIZE, rt))
+
+    # -- observability ----------------------------------------------------
 
     def stats(self) -> dict:
         lat = np.asarray(self._latencies_ms, np.float64)
@@ -200,8 +335,8 @@ class PoseService:
             "mean_ms": round(float(lat.mean()), 3),
             "p50_ms": round(float(np.percentile(lat, 50)), 3),
             "p95_ms": round(float(np.percentile(lat, 95)), 3),
+            "compiled": sorted(self._compiled),
             "device": str(self.device),
-            "warm": sorted(self._warm),
             "random_init": self.random_init,
             "backbone_random_init": self.backbone_random_init,
         }

@@ -19,8 +19,10 @@ from .cnns import P2PNet, WeightNet
 from .projection import (
     DEFAULT_CROP_ROUTE,
     CropRoute,
+    CropConstants,
     ProjectionGeometry,
     compute_crop_origin,
+    crop_constants,
     project_individual_planes,
 )
 
@@ -64,6 +66,11 @@ class JointLocalizationNet(nn.Module):
         self.register_buffer(
             "center_grids", torch.as_tensor(geom.center_grids), persistent=False
         )
+        # the crop stage's constants live on the module's device, so that
+        # the forward copies nothing from the host and a CUDA graph can
+        # hold it
+        for name, value in crop_constants(geom)._asdict().items():
+            self.register_buffer(f"crop_{name}", value, persistent=False)
 
     def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor,
                 proposal_centers: torch.Tensor, train: bool = False) -> JLNOutputs:
@@ -73,13 +80,14 @@ class JointLocalizationNet(nn.Module):
         vx, vy, vz = geom.ind_voxels_per_axis
         n = B * K
         mask = proposal_centers[:, :, 3] >= 0  # (B, K)
-        centers_tl, offsets = compute_crop_origin(geom, proposal_centers[..., :3])
+        consts = CropConstants(*(getattr(self, f"crop_{f}") for f in CropConstants._fields))
+        centers_tl, offsets = compute_crop_origin(geom, proposal_centers[..., :3], consts)
         bbox_sizes = proposal_centers[..., 5:7]
 
         per_sample = [
             project_individual_planes(
                 geom, heatmaps[b], cams[b], centers_tl[b], bbox_sizes[b], mask[b],
-                self.crop_route,
+                self.crop_route, consts,
             )
             for b in range(B)
         ]
@@ -93,9 +101,9 @@ class JointLocalizationNet(nn.Module):
             feats.reshape(3, n, J, -1), self.center_grids, self.beta
         )  # (3, n, J, 2), (n,)
 
-        off = offsets.reshape(n, 1, 3)
+        off = offsets.reshape(n, 1, 3)  # sliced, not indexed by lists: no host index tensors
         plane_poses = plane_poses + torch.stack(
-            [off[..., [0, 1]], off[..., [0, 2]], off[..., [1, 2]]]
+            [off[..., 0:2], off[..., 0:3:2], off[..., 1:3]]
         )
 
         weights = self.weight_net(feats, train).reshape(3, n, J, 1)

@@ -18,7 +18,7 @@ planes by max-reduction, as the JAX package does on those settings.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,38 +166,67 @@ def project_whole_batch(
                                   whole_projection(geom))
 
 
+class CropConstants(NamedTuple):
+    """The crop stage's constants as tensors, for a module to hold as
+    buffers on its device (`JointLocalizationNet`): a forward then builds
+    no tensor from host data, which a CUDA graph could not capture and
+    which would cost the eager forward a host->device copy each."""
+
+    fine_scale: torch.Tensor  # (3,) f32, crop-origin affine
+    fine_bias: torch.Tensor  # (3,) f32
+    fine_voxels: torch.Tensor  # (3,) f32, the virtual fine grid's voxels per axis
+    space_size: torch.Tensor  # (3,) f32, mm
+    ind_space_size: torch.Tensor  # (3,) f32, mm
+    ind_voxels_i32: torch.Tensor  # (3,) int32, a crop's voxels per axis
+    fine_voxels_i32: torch.Tensor  # (3,) int32
+
+
+def crop_constants(geom: ProjectionGeometry, device=None) -> CropConstants:
+    """The CropConstants of `geom` on `device` (default the CPU)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return CropConstants(
+        fine_scale=torch.as_tensor(geom.fine_scale, device=device),
+        fine_bias=torch.as_tensor(geom.fine_bias, device=device),
+        fine_voxels=torch.tensor(geom.fine_voxels_per_axis, **f32),
+        space_size=torch.tensor(geom.space_size, **f32),
+        ind_space_size=torch.tensor(geom.ind_space_size, **f32),
+        ind_voxels_i32=torch.tensor(geom.ind_voxels_per_axis, **i32),
+        fine_voxels_i32=torch.tensor(geom.fine_voxels_per_axis, **i32),
+    )
+
+
 def compute_crop_origin(
-    geom: ProjectionGeometry, centers_mm: torch.Tensor
+    geom: ProjectionGeometry, centers_mm: torch.Tensor, consts: Optional[CropConstants] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Integer crop origin on the virtual fine grid (round half to even,
     as jnp.round) and the crop's mm offset (reference
-    project_individual.py:110-111)."""
-    dev = centers_mm.device
-    scale = torch.as_tensor(geom.fine_scale, device=dev)
-    bias = torch.as_tensor(geom.fine_bias, device=dev)
-    fine = torch.tensor(geom.fine_voxels_per_axis, dtype=torch.float32, device=dev)
-    space = torch.tensor(geom.space_size, dtype=torch.float32, device=dev)
-    ind = torch.tensor(geom.ind_space_size, dtype=torch.float32, device=dev)
-    tl = torch.round(centers_mm.float() * scale + bias).to(torch.int32)
-    offset = tl.float() / (fine - 1) * space - space / 2.0 + ind / 2.0
+    project_individual.py:110-111).  `consts` on the centres' device,
+    else built from `geom` for this call."""
+    c = consts if consts is not None else crop_constants(geom, centers_mm.device)
+    tl = torch.round(centers_mm.float() * c.fine_scale + c.fine_bias).to(torch.int32)
+    space = c.space_size
+    offset = tl.float() / (c.fine_voxels - 1) * space - space / 2.0 + c.ind_space_size / 2.0
     return tl, offset
 
 
 def crop_axis_masks(
-    geom: ProjectionGeometry, centers_tl: torch.Tensor, bbox_sizes: torch.Tensor
+    geom: ProjectionGeometry, centers_tl: torch.Tensor, bbox_sizes: torch.Tensor,
+    consts: Optional[CropConstants] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-axis factors mx (K, vx), my (K, vy), mz (K, vz) of the separable
     crop mask that zeroes voxels outside the predicted bbox or the capture
-    volume (reference project_individual.py:114-121)."""
+    volume (reference project_individual.py:114-121).  `consts` as for
+    `compute_crop_origin`."""
     dev = centers_tl.device
-    vox = torch.tensor(geom.ind_voxels_per_axis, dtype=torch.int32, device=dev)
-    fine = torch.tensor(geom.fine_voxels_per_axis, dtype=torch.int32, device=dev)
+    c = consts if consts is not None else crop_constants(geom, dev)
+    vox = c.ind_voxels_i32
     margin_xy = ((1.0 - bbox_sizes.float()) / 2.0 * (vox[:2].float() - 1)).to(torch.int32)
     margin = torch.cat(
         [margin_xy.clamp(min=0), torch.zeros_like(margin_xy[:, :1])], dim=1
     )
     start = (centers_tl + margin).clamp(min=0)
-    end = torch.minimum(centers_tl + vox - margin, fine)
+    end = torch.minimum(centers_tl + vox - margin, c.fine_voxels_i32)
     masks = []
     for a in range(3):
         f = centers_tl[:, a:a + 1] + torch.arange(
@@ -278,13 +307,15 @@ def project_individual_planes(
     bbox_sizes: torch.Tensor,  # (K, 2)
     valid: torch.Tensor,  # (K,) bool; invalid slots give zero planes
     route: CropRoute = DEFAULT_CROP_ROUTE,
+    consts: Optional[CropConstants] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-person plane projections (xy (K,X,Y,J), xz (K,X,Z,J),
     yz (K,Y,Z,J)) of the bbox-masked crop cubes
     (joint_localization_net.py:80-81), by the crop route of
-    `resolve_crop_route`."""
+    `resolve_crop_route`; `consts` as for `compute_crop_origin`."""
     source, output = route
-    mx, my, mz = (m.to(torch.uint8) for m in crop_axis_masks(geom, centers_tl, bbox_sizes))
+    mx, my, mz = (m.to(torch.uint8)
+                  for m in crop_axis_masks(geom, centers_tl, bbox_sizes, consts))
     heatmaps, valid = heatmaps.contiguous(), valid.to(torch.uint8).contiguous()
     cams, tl = cams.float().contiguous(), centers_tl.to(torch.int32).contiguous()
     crop = crop_projection(geom)

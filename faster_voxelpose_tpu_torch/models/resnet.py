@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
-from ..datasets.images import normalize_images_device
+from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD, normalize_images_device
 from .blocks import BatchNorm, Conv, Deconv
 from .faster_voxelpose import DTYPES
 
@@ -132,6 +132,10 @@ class PoseResNet(nn.Module):
             for name, m in self.named_modules():
                 if isinstance(m, Conv) and name != "final":
                     nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
+        # the normalisation of uint8 frames (images_to_heatmaps), on the
+        # module's device, so that it copies nothing from the host
+        self.register_buffer("image_mean", torch.as_tensor(IMAGENET_MEAN), persistent=False)
+        self.register_buffer("image_std", torch.as_tensor(IMAGENET_STD), persistent=False)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2).to(self.dtype)
@@ -162,7 +166,8 @@ def images_to_heatmaps(backbone: PoseResNet, images: torch.Tensor,
     `color_rgb`); float frames are taken as normalised.  The backbone runs
     over the B * V frames at once."""
     if images.dtype == torch.uint8:
-        images = normalize_images_device(images, color_rgb)
+        images = normalize_images_device(images, color_rgb, backbone.image_mean,
+                                         backbone.image_std)
     B, V = images.shape[:2]
     hm = backbone(images.reshape(B * V, *images.shape[2:]))
     return hm.reshape(B, V, *hm.shape[1:])

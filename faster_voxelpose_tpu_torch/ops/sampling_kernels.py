@@ -114,7 +114,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -141,6 +141,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Add `counts` to the launch counts: the kernels that a replay of a
+    CUDA graph launches, which no wrapper sees (`engine/service.py`
+    records them at capture, where the wrappers ran but launched
+    nothing, and adds them on each replay)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 @dataclass(frozen=True)

@@ -11,6 +11,8 @@ microbench_mma   tensor-core cost against contraction size and window
 validate         AP / recall / MPJPE of any committed snapshot on the
                  held-out synthetic scenes of its own profile
                  (counterpart of run/validate.py)
+serve            the JSON-lines inference server over PoseService's
+                 compiled graphs (counterpart of run/serve.py)
 
 They run on the card unless `--device cpu` is given, and raise when there
 is no CUDA device.

@@ -751,3 +751,145 @@ def test_infer_images_cuda_matches_cpu(dev):
         assert got["n_people"] == want["n_people"] == 4
         d = np.abs(np.asarray(got["poses_mm"]) - np.asarray(want["poses_mm"]))
         assert float(d.max()) <= 0.5
+
+
+def _tiny_service(dev, aot=True, rig=None):
+    """PoseService on the tiny geometry (float32, every slot valid) with
+    seeded fan-in scaled weights, bbox sizes near 0.6; the same weights
+    at every call."""
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+
+    cfg = tiny_cfg()
+    cfg.CAPTURE_SPEC.MIN_SCORE = -1e9
+    cfg.INDIVIDUAL_SPEC.SPACE_SIZE = (2100.0,) * 3  # no crop-origin ties
+    if rig is None:
+        rig = dome_rig(1, 3, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
+                       ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE, focal=240.0)[0]
+    svc = PoseService(cfg, rig=rig, device=dev, aot=False)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in svc.model.parameters():
+            if p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / p[0].numel()) ** 0.5)
+        svc.model.hdn.center_net.size_out.weight.mul_(0.01)
+        svc.model.hdn.center_net.size_out.bias.fill_(0.6)
+    if aot:
+        svc.warmup()
+    return svc
+
+
+def _tiny_frames(n, seed=0):
+    hm = np.random.RandomState(seed).rand(n, 3, 32, 40, 15).astype(np.float32) * 0.2
+    hm[:, :, 10:18, 14:22, :] = 1.0
+    return hm
+
+
+def _same_answers(got, want, tol=0.01):
+    """The same people, fused poses within tol mm (float32, TF32 off:
+    bit for bit expected, a cuBLAS or cuDNN algorithm chosen otherwise
+    under capture allowed)."""
+    for a, b in zip(got, want):
+        assert a["n_people"] == b["n_people"] == 4
+        assert float(np.abs(np.asarray(a["poses_mm"]) - np.asarray(b["poses_mm"])).max()) <= tol
+
+
+def test_service_graph_equals_eager(dev):
+    """The captured heatmaps graph answers as the eager forward of the
+    same weights, request by request."""
+    compiled, eager = _tiny_service(dev), _tiny_service(dev, aot=False)
+    assert compiled.warmup() == ["heatmaps"] and compiled._compiled["heatmaps"] is not None
+    assert eager._compiled == {}
+    frames = _tiny_frames(4)
+    _same_answers([compiled.infer_heatmaps(f) for f in frames],
+                  [eager.infer_heatmaps(f) for f in frames])
+    assert compiled.stats()["compiled"] == ["heatmaps"]
+
+
+def test_service_rig_swap_without_recapture(dev):
+    """set_rig on a compiled service: the same graph object replays, its
+    answers equal the eager service's on the new rig, and swapping back
+    gives the first answers bit for bit."""
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+
+    svc, eager = _tiny_service(dev), _tiny_service(dev, aot=False)
+    graph = svc._compiled["heatmaps"]
+    rig1 = svc._rig.cpu().numpy()[0]
+    rig2 = dome_rig(1, 3, space_center=svc.cfg.CAPTURE_SPEC.SPACE_CENTER,
+                    ori_image_size=(320, 240), focal=240.0, seed=7,
+                    radius_range=(3200.0, 3600.0))[0]
+    frames = _tiny_frames(3, seed=1)
+    first = [svc.infer_heatmaps(f) for f in frames]
+    svc.set_rig(rig2)
+    eager.set_rig(rig2)
+    swapped = [svc.infer_heatmaps(f) for f in frames]
+    _same_answers(swapped, [eager.infer_heatmaps(f) for f in frames])
+    assert svc._compiled["heatmaps"] is graph and sorted(svc._compiled) == ["heatmaps"]
+    assert not np.allclose(first[0]["poses_mm"], swapped[0]["poses_mm"])
+    svc.set_rig(rig1)
+    assert [svc.infer_heatmaps(f)["poses_mm"] for f in frames] == [a["poses_mm"] for a in first]
+
+
+def test_launch_counts_under_replay(dev):
+    """A replay adds the kernels the graph launched at capture: rows 1
+    and 2 once per compiled request and no other kernel; the capture
+    itself, which launches nothing, leaves the counts as they were."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    svc = _tiny_service(dev, aot=False)
+    sk.reset_launch_counts()
+    svc.warmup()
+    warm = sk.launch_counts()  # the eager forwards before the capture
+    assert warm["sample_whole_projected"] == warm["sample_crop_planes"] == 3
+    assert svc._compiled["heatmaps"].launches == {"sample_whole_projected": 1,
+                                                  "sample_crop_planes": 1}
+    sk.reset_launch_counts()
+    for f in _tiny_frames(5):
+        svc.infer_heatmaps(f)
+    counts = sk.launch_counts()
+    assert counts["sample_whole_projected"] == counts["sample_crop_planes"] == 5
+    assert sum(counts.values()) == 10
+
+
+def test_capture_with_a_host_synchronisation_raises(dev):
+    """A forward that reads a value back to the host cannot be captured:
+    warmup raises, records no graph and leaves no eager stand-in; the
+    service and the device still answer afterwards."""
+    svc = _tiny_service(dev, aot=False)
+    forward = svc.model.forward
+
+    def synced(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        out.fused_poses.sum().item()  # a host synchronisation
+        return out
+
+    svc.model.forward = synced
+    with pytest.raises(RuntimeError):
+        svc.warmup(("heatmaps",))
+    assert svc._compiled == {}
+    del svc.model.forward
+    frame = _tiny_frames(1)[0]
+    _same_answers([svc.infer_heatmaps(frame)], [_tiny_service(dev).infer_heatmaps(frame)])
+
+
+def test_non_batch_1_input_runs_eager(dev):
+    """A batch of 2 does not fit the batch-1 graph: it runs eagerly (one
+    whole-space launch for the batch, one crop launch per sample, no
+    replay) and answers its first sample as the model's own forward at
+    batch 2 does, bit for bit (against the graph at batch 1 it differs by
+    cuDNN's batch-dependent float32 algorithms, not by the service); an
+    image graph not captured runs eagerly too."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    svc = _tiny_service(dev)
+    frames = _tiny_frames(2, seed=2)
+    sk.reset_launch_counts()
+    batch = svc.infer_heatmaps(frames)
+    counts = sk.launch_counts()
+    assert counts["sample_whole_projected"] == 1 and counts["sample_crop_planes"] == 2
+    with torch.inference_mode():
+        fused = svc.model(torch.as_tensor(frames, device=dev), svc._rig.expand(2, -1, -1))
+    want = svc._decode(fused.fused_poses.cpu().numpy())
+    assert batch["poses_mm"] == want["poses_mm"] and batch["n_people"] == 4
+    u8 = np.random.RandomState(3).randint(0, 256, (3, 128, 160, 3)).astype(np.uint8)
+    assert "images_u8" not in svc._compiled and svc.infer_images(u8)["n_people"] == 4

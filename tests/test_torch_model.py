@@ -158,6 +158,7 @@ def test_port_imports_nothing_of_jax():
             "faster_voxelpose_tpu_torch/tools/sweep_sampling.py",
             "faster_voxelpose_tpu_torch/tools/microbench_mma.py",
             "faster_voxelpose_tpu_torch/tools/validate.py",
+            "faster_voxelpose_tpu_torch/tools/serve.py",
             "faster_voxelpose_tpu_torch/models/resnet.py",
             "faster_voxelpose_tpu_torch/datasets/images.py"} <= names
     assert not offenders, offenders
