@@ -17,8 +17,9 @@ backbone, normalised on the card (`infer_images`, the 'images_u8'
 graph).  Training (--train): train steps at the Panoptic profile (bf16
 conv stacks, batch 4, seeded random weights) on synthetic scenes from the
 port's generator, rendered on the card, as in chip_smoke.py's training
-phase; the batches are moved to the card before the timed window, so
-the window holds the steps alone.  Prints the card, the host wall time
+phase, by an eager and a compiled trainer (its step a CUDA graph) in one
+run; the batches are moved to the card before the timed window, so the
+window holds the steps alone.  Prints the card, the host wall time
 per request or step (each ends in a synchronisation), the device time
 and its share of the untraced wall time, the device events, the launches
 of kernel row 1 (the whole-space sampler, either mode) by the launch
@@ -129,32 +130,35 @@ def train_profile(args, card) -> None:
 
     import chip_smoke as cs
     from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.graphs import CAPTURE_WARMUP
     from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
     from faster_voxelpose_tpu_torch.models import build_model
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
     cfg = panoptic_synthetic_profile()
-    n = args.steps
-    batches = [batch_to_device(b, "cuda") for b in cs.synthetic_loader(cfg, 3 + 2 * n)]
-    torch.manual_seed(0)
-    tr = Trainer(cfg, build_model(cfg).cuda())
-    for b in batches[:3]:
-        tr.step(b)
-    torch.cuda.synchronize()
-
-    def steps(bs):
-        t0 = time.perf_counter()
-        for b in bs:
+    n, warm = args.steps, CAPTURE_WARMUP + 1
+    batches = [batch_to_device(b, "cuda") for b in cs.synthetic_loader(cfg, warm + 2 * n)]
+    for compiled in (False, True):
+        torch.manual_seed(0)
+        tr = Trainer(cfg, build_model(cfg).cuda(), compiled=compiled)
+        for b in batches[:warm]:  # the compiled trainer's warm-up and capture
             tr.step(b)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / len(bs)
 
-    wall_ms = steps(batches[3:3 + n])
-    sk.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_ms = steps(batches[3 + n:])
-    report(prof, n, wall_ms, traced_ms, card, "step", args.top, sk.launch_counts(),
-           f" of batch {cfg.TRAIN.BATCH_SIZE}")
+        def steps(bs):
+            t0 = time.perf_counter()
+            for b in bs:
+                tr.step(b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / len(bs)
+
+        wall_ms = steps(batches[warm:warm + n])
+        sk.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced_ms = steps(batches[warm + n:])
+        report(prof, n, wall_ms, traced_ms, card, "step", args.top, sk.launch_counts(),
+               f" of batch {cfg.TRAIN.BATCH_SIZE}, {'compiled' if compiled else 'eager'} trainer")
+        del tr
 
 
 def main() -> int:

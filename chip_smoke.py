@@ -44,11 +44,20 @@ another committed snapshot's profile (`config.profile`):
    stacks, losses within 1e-4 relative and every gradient tensor within
    1e-3 relative L2; with float32, within limits set between its own
    reading and a bf16 control's, which must break them;
-6. training phase: the Panoptic profile at full width, seeded random
-   weights: 8 steps on one batch of 4 synthetic scenes from the port's
-   generator, rendered on the card, must give finite losses and lower
-   the detection loss (2D + 1D) below 0.9 of its first value; then 20
-   steps on fresh batches are timed;
+6. training phases: the compiled trainer (its step a CUDA graph) against
+   the eager one at the Panoptic profile, batch 4, 12 float32 steps
+   free-running from one seeded model (the same gates; losses and state
+   within limits that a bf16 control must break) and each call from the
+   same state; then, compiled, the Panoptic profile at full width from
+   seeded random weights: 8 steps on one batch of 4 synthetic scenes
+   from the port's generator, rendered on the card, must give finite
+   losses and lower the detection loss (2D + 1D) below 0.9 of its first
+   value; then 20 steps on fresh batches with the data in series and 20
+   through `prefetch_to_device` are timed; then the training CLI in
+   subprocesses in a temporary directory (tools/make_demo_data.py, then
+   tools/train.py on configs/demo/panoptic_synthetic.yaml: 2 epochs on
+   64 scenes, then --resume to a third; the snapshot served; nothing
+   under checkpoints/ changed, by hash);
 7. window phase: the window kernel (windowed sampling from the live taps
    of a footprint staged in shared memory, csrc/window.cu) in each of its
    nine instantiations against its plain version on 64 blocks at spreads
@@ -98,16 +107,21 @@ then the compiled phase (`compiled_phase`): PoseService's CUDA graphs
 against eager services on the same 24 requests (the same people; float32
 within 0.01 mm, the bf16 gap printed), rows 1 and 2 once per replayed
 request, a rig hot-swap with no recapture, the 'images_u8' graph on
-uint8 frames, a capture holding a host synchronisation that must raise,
-the JSON-lines server (tools/serve.py) in a subprocess, and eager and
-compiled latencies.  PoseService captures its graphs at construction on
+uint8 frames, the JSON-lines server (tools/serve.py) in a subprocess,
+and eager and compiled latencies; a capture holding a host
+synchronisation that must raise runs last (`failed_capture_phase`: a
+failed capture leaves PyTorch's capture state behind, and no graph's
+memory is given back after it).  Between phases the card's cached
+memory is given back (`released`).  PoseService captures its graphs at construction on
 the card, so the serving, profiles and images phases answer through
 them too (the profiles phase's Campus service against an eager one as
 well); the route phase runs eagerly, since the coords route builds its
 pixels from host constants, which a graph cannot hold.
 Training and evaluation launch the whole-space sampler once per batch
-and the crop sampler once per sample, at every profile; the coords mode
-of row 1 runs only as the gather baseline of tools/probe_sampling.py.
+and the crop sampler once per sample (evaluation: per row of a batch
+padded to TEST.BATCH_SIZE), at every profile, from CUDA graphs; the
+coords mode of row 1 runs only as the gather baseline of
+tools/probe_sampling.py.
 
 Any failed phase raises, so the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}; the line before it holds the kernel table
@@ -998,11 +1012,11 @@ def synthetic_loader(cfg, n_batches, seed=0):
     bank of its make_demo_data.py line, made here from seeds."""
     from faster_voxelpose_tpu_torch.datasets import SyntheticDataset
     from faster_voxelpose_tpu_torch.datasets.demo_data import demo_pose_bank, demo_rig
-    from faster_voxelpose_tpu_torch.engine.loader import make_loader
+    from faster_voxelpose_tpu_torch.engine.loader import DataLoader
 
     cfg.SYNTHETIC.NUM_DATA = n_batches * cfg.TRAIN.BATCH_SIZE
     ds = SyntheticDataset(cfg, pose_bank=demo_pose_bank(cfg), cameras=demo_rig(cfg))
-    return make_loader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True, drop_last=True, seed=seed)
+    return DataLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=True, drop_last=True, seed=seed)
 
 
 def fixed_batch_check(cfg, model, batch, label, terms, steps=8):
@@ -1034,66 +1048,353 @@ def fixed_batch_check(cfg, model, batch, label, terms, steps=8):
 
 def training_phase(card, fresh_steps=20):
     """Full-width training on the card at the Panoptic profile (bf16 conv
-    stacks, batch 4) from seeded random weights.
+    stacks, batch 4) from seeded random weights, the trainer compiled (a
+    CUDA graph, replayed after CAPTURE_WARMUP eager steps).
 
     First the JAX package's own check (`fixed_batch_check`) on the first
     batch of synthetic scenes from the port's generator, heatmaps rendered
-    on the card: the detection loss (2D + 1D) must fall.  Then
-    `fresh_steps` timed steps on fresh synthetic batches at the profile's
-    LR 1e-4 and ACCUMULATION_STEPS 4.  Returns the kernels' launches over
-    the timed steps."""
+    on the card: the detection loss (2D + 1D) must fall.  Then, at the
+    profile's LR 1e-4 and ACCUMULATION_STEPS 4, a new compiled trainer
+    warmed up and captured on 4 batches takes `fresh_steps` timed steps
+    with the data in series (each batch made, uploaded and stepped, then
+    a synchronisation) and `fresh_steps` through `prefetch_to_device`
+    (batches made and uploaded ahead by its thread).  Prints the device
+    time of each step (its copy into the graph's inputs and one replay,
+    between CUDA events), the host's time to issue it, samples/s both
+    ways and peak memory.  Returns the kernels' launches over the timed
+    steps: rows 1 and 2 once and B times per replay."""
     import time
 
     import torch
 
     from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.graphs import CAPTURE_WARMUP
+    from faster_voxelpose_tpu_torch.engine.loader import prefetch_to_device
     from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
     from faster_voxelpose_tpu_torch.models import build_model
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
     cfg = panoptic_synthetic_profile()
     B = cfg.TRAIN.BATCH_SIZE
-    batches = iter(synthetic_loader(cfg, 1 + fresh_steps))
+    loader = synthetic_loader(cfg, 2 + CAPTURE_WARMUP + 2 * fresh_steps)
+    batches = iter(loader)
     torch.manual_seed(1)
     model = build_model(cfg).cuda()
     fixed_batch_check(cfg, model, batch_to_device(next(batches), "cuda"), "synthetic batch",
                       ("2d_heatmaps", "1d_heatmaps"))
 
     tr = Trainer(cfg, model)
+    for _ in range(CAPTURE_WARMUP + 1):
+        tr.step(batch_to_device(next(batches), "cuda"))
+    if tr._graph.captured is None:
+        raise AssertionError("train: the compiled trainer captured no graph")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
-    device_ms, data_ms = [], []
+    device_ms, host_ms, data_ms = [], [], []
     t_start = time.perf_counter()
     for i in range(fresh_steps):
         t0 = time.perf_counter()
         batch = batch_to_device(next(batches), "cuda")
-        data_ms.append((time.perf_counter() - t0) * 1e3)
+        t1 = time.perf_counter()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         losses = tr.step(batch)
         b.record()
+        t2 = time.perf_counter()
         b.synchronize()
+        data_ms.append((t1 - t0) * 1e3)
+        host_ms.append((t2 - t1) * 1e3)
         device_ms.append(a.elapsed_time(b))
         if not all(torch.isfinite(v) for v in losses.values()):
             raise AssertionError(f"non-finite loss at fresh step {i}: {losses}")
-    wall = time.perf_counter() - t_start
+    series_s = time.perf_counter() - t_start
+    t_start = time.perf_counter()
+    n_fed = 0
+    for batch in prefetch_to_device(batches, device="cuda"):
+        losses = tr.step(batch)
+        n_fed += 1
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t_start
+    if n_fed != fresh_steps or not all(torch.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"train: prefetch fed {n_fed} batches, last losses {losses}")
     launches = sk.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    per_step = {k: v / fresh_steps for k, v in launches.items()}
-    print(f"train fresh batches: {fresh_steps} steps of batch {B}: device ms/step median "
-          f"{np.median(device_ms):.3f} (min {min(device_ms):.3f} max {max(device_ms):.3f}), host "
-          f"data ms/batch median {np.median(data_ms):.3f}, samples/s {fresh_steps * B / wall:.3f} "
-          f"(data and steps in series), peak memory {peak / 2**30:.3f} GiB, launches per step "
-          f"{per_step}, last losses {({k: round(float(v), 6) for k, v in losses.items()})} | {card}")
-    # the whole-space sampler once per forward (one batch), the crop sampler
-    # once per sample, the coords mode never
-    want = {"sample_whole_projected": fresh_steps, "sample_crop_planes": B * fresh_steps,
-            "sample_whole": 0}
+    # the graph's pool is reserved, not allocated, between replays
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    n = 2 * fresh_steps
+    print(f"train compiled, fresh batches: {fresh_steps} steps of batch {B} with the data in "
+          f"series: device ms/step (copy in + one replay, CUDA events) median "
+          f"{np.median(device_ms):.4f} (min {min(device_ms):.4f} max {max(device_ms):.4f}), "
+          f"host ms to issue a step median {np.median(host_ms):.4f}, host data ms/batch median "
+          f"{np.median(data_ms):.3f}, samples/s {fresh_steps * B / series_s:.3f}; "
+          f"{fresh_steps} steps through prefetch_to_device: samples/s "
+          f"{fresh_steps * B / fed_s:.3f}; peak memory allocated {peak / 2**30:.3f} GiB, reserved "
+          f"(the graph's pool included) {reserved / 2**30:.3f} GiB, launches per "
+          f"replay {({k: v / n for k, v in launches.items() if v})}, last losses "
+          f"{({k: round(float(v), 6) for k, v in losses.items()})} | {card}")
+    # the whole-space sampler once per replayed step (one batch), the crop
+    # sampler once per sample, the coords mode never
+    want = {"sample_whole_projected": n, "sample_crop_planes": B * n, "sample_whole": 0}
     for name, count in want.items():
         if launches[name] != count:
-            raise AssertionError(f"{name} launched {launches[name]} times in {fresh_steps} steps "
+            raise AssertionError(f"{name} launched {launches[name]} times in {n} steps "
                                  f"of {B}, expected {count}")
+    return launches
+
+
+# Compiled against eager training in float32 (TF32 off), 12 steps: limits
+# set between the float32 readings and a bf16 control's (compiled_train_phase).
+# Six runs on an NVIDIA H100 80GB HBM3 at 700 W read float32 losses
+# 2.8e-4-5.3e-3 and, for all tensors of a kind together, parameters
+# 1.3e-4-1.6e-4, mu 3.4e-3-3.3e-2, nu 2.0e-4-3.5e-3 (the drift varies from
+# run to run: cuDNN's backward is not bit for bit); the control losses
+# 6.7e-2-7.4e-2, parameters 4.2e-3, mu 0.42-0.43, nu 0.28.
+TRAIN_GRAPH_LOSS_TOL = 2e-2
+TRAIN_GRAPH_STATE_TOL = {"param": 1e-3, "mu": 0.1, "nu": 3e-2}
+
+
+def _trainer_run(tr, batches):
+    """Losses (host floats) and (HDN Adam count, JLN Adam count, mini-step)
+    after each step, and the trainer's parameters and moments after the
+    last, by name."""
+    import torch
+
+    losses, gates = [], []
+    for b in batches:
+        out = tr.step(b)
+        losses.append({k: float(v) for k, v in out.items()})
+        gates.append((int(tr.opt_pose.count), int(tr.opt_joint.count), int(tr.mini_step)))
+    state = {f"param {k}": p.detach().double().cpu() for k, p in tr.model.named_parameters()}
+    for name, opt, prefix in (("pose", tr.opt_pose, "hdn."), ("joint", tr.opt_joint, "jln.")):
+        names = [n for n, _ in tr.model.named_parameters() if n.startswith(prefix)]
+        for key in ("mu", "nu"):
+            for n, v in zip(names, opt.views(getattr(opt, key))):
+                state[f"{key} {n}"] = v.detach().double().cpu()
+    torch.cuda.synchronize()
+    return losses, gates, state
+
+
+def _trainer_gap(ref, got):
+    """(worst relative loss error over steps and terms, {kind: relative L2
+    error of all the tensors of that kind together} for parameters, mu and
+    nu, the worst single tensor's relative L2 error and its name); a
+    tensor's norm below 1e-3 of the largest of its kind is taken at that
+    floor, as the train-parity phase floors its gradients."""
+    import torch
+
+    (l_ref, _, s_ref), (l_got, _, s_got) = ref, got
+    d_loss = max(abs(b[k] - a[k]) / max(abs(a[k]), 1e-6) for a, b in zip(l_ref, l_got) for k in a)
+    kinds = {}
+    for k in s_ref:
+        kinds.setdefault(k.split(" ", 1)[0], []).append(k)
+    whole, rel = {}, {}
+    for kind, keys in kinds.items():
+        a = torch.cat([s_ref[k].reshape(-1) for k in keys])
+        b = torch.cat([s_got[k].reshape(-1) for k in keys])
+        whole[kind] = float((b - a).norm() / a.norm())
+        scale = max(float(s_ref[k].norm()) for k in keys)
+        rel.update({k: float((s_got[k] - s_ref[k]).norm()) / max(float(s_ref[k].norm()),
+                                                                  1e-3 * scale) for k in keys})
+    worst = max(rel, key=rel.get)
+    return d_loss, whole, rel[worst], worst
+
+
+def compiled_train_phase(card, steps=12):
+    """The compiled trainer against the eager one at the Panoptic profile,
+    batch 4, from the same seeded weights (torch.manual_seed(1)) on the
+    same `steps` synthetic batches, one of them with no GT person so that
+    the JLN's Adam is skipped there.  In float32 conv stacks (TF32 off):
+    the same gates on every call (the JLN's skip and the HDN's k-th
+    step), losses at every step within TRAIN_GRAPH_LOSS_TOL relative, and
+    after the last step the parameters and both Adams' moments within
+    TRAIN_GRAPH_STATE_TOL, the relative L2 of all tensors of a kind
+    together.  cuDNN's float32 backward is not bit for bit (atomics) and
+    Adam's first steps move an element by about +-LR whatever the size of
+    its gradient, so the two trajectories drift apart, and the limits lie
+    between that reading and a control's: the compiled trainer with bf16
+    conv stacks from the same weights, which must break every one.  The
+    same comparison with each call started from the same state is printed
+    too: the step itself, without the drift."""
+    import copy
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    cfg = panoptic_synthetic_profile()
+    cfg.NETWORK.COMPUTE_DTYPE = "float32"
+    batches = [batch_to_device(b, CARD) for b in synthetic_loader(cfg, steps, seed=3)]
+    batches[steps // 2]["num_person"].zero_()
+    torch.manual_seed(1)
+    state0 = copy.deepcopy(build_model(cfg).state_dict())
+
+    def run(dtype, compiled):
+        c = copy.deepcopy(cfg)
+        c.NETWORK.COMPUTE_DTYPE = dtype
+        model = build_model(c)
+        model.load_state_dict(state0)
+        tr = Trainer(c, model.to(CARD), compiled=compiled)
+        out = _trainer_run(tr, batches)
+        if compiled and tr._graph.captured is None:
+            raise AssertionError("train graph: no capture in the compiled run")
+        return out
+
+    eager = run("float32", False)
+    compiled = run("float32", True)
+    control = run("bfloat16", True)
+    # the same comparison with each call from the eager trainer's state,
+    # copied into the tensors the graph reads: the step itself, without
+    # the trajectories' drift
+    c = copy.deepcopy(cfg)
+    models = [build_model(c) for _ in range(2)]
+    for m in models:
+        m.load_state_dict(state0)
+    te, tc = (Trainer(c, m.to(CARD), compiled=f) for m, f in zip(models, (False, True)))
+    synced = []
+    for b in batches:
+        tc.load_state_dict(te.state_dict())
+        le = {k: float(v) for k, v in te.step(b).items()}
+        lc = {k: float(v) for k, v in tc.step(b).items()}
+        synced.append(max(abs(lc[k] - v) / max(abs(v), 1e-6) for k, v in le.items()))
+    print(f"train graph: each call from the same state, compiled float32 against eager: losses "
+          f"worst rel {max(synced):.4g} (per call {[f'{x:.3g}' for x in synced]})")
+    del te, tc, models
+    joint = [l["joint"] > 0 for l in eager[0]]
+    print(f"train graph: {steps} steps of batch {cfg.TRAIN.BATCH_SIZE}, float32; joint loss > 0 "
+          f"on {sum(joint)} of {steps} calls; gates (HDN count, JLN count, mini-step) eager "
+          f"{eager[1]}, compiled {compiled[1]}, bf16 control {control[1]} | {card}")
+    if eager[1] != compiled[1]:
+        raise AssertionError("train graph: the compiled trainer gated other calls than eager")
+    if eager[1][steps // 2][1] != eager[1][steps // 2 - 1][1] or eager[1][-1][0] != steps // 4:
+        raise AssertionError(f"train graph: the skip or the k-th steps were not taken: {eager[1]}")
+    readings = {}
+    for label, got in (("compiled float32", compiled), ("bf16 control", control)):
+        d_loss, whole, d_tensor, worst = _trainer_gap(eager, got)
+        readings[label] = d_loss, whole
+        print(f"train graph [{label}] against eager float32: losses worst rel {d_loss:.4g}; "
+              f"relative L2 of all parameters, mu, nu together "
+              f"{({k: float(f'{v:.4g}') for k, v in whole.items()})}; worst single tensor "
+              f"{d_tensor:.4g} ({worst})")
+    d_loss, whole = readings["compiled float32"]
+    if not (d_loss <= TRAIN_GRAPH_LOSS_TOL
+            and all(whole[k] <= tol for k, tol in TRAIN_GRAPH_STATE_TOL.items())):
+        raise AssertionError(f"train graph: compiled float32 off eager by {d_loss} (losses) or "
+                             f"{whole} (state), limits {TRAIN_GRAPH_LOSS_TOL}, "
+                             f"{TRAIN_GRAPH_STATE_TOL}")
+    d_loss, whole = readings["bf16 control"]
+    if not (d_loss > TRAIN_GRAPH_LOSS_TOL
+            and all(whole[k] > tol for k, tol in TRAIN_GRAPH_STATE_TOL.items())):
+        raise AssertionError(f"train graph: the bf16 control passes a float32 limit: "
+                             f"{d_loss}, {whole}")
+
+
+def _tree_digest(root):
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in sorted(root.rglob("*")):
+        if p.is_file():
+            h.update(p.relative_to(root).as_posix().encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()
+
+
+def _run_tool(args, cwd, label):
+    """python -m <args> in `cwd` with the checkout importable; raises with
+    its output when it fails; returns its standard output and error."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"cli: {label} exited {proc.returncode}:\n{out[-4000:]}")
+    print(f"cli: {label} exited 0 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def cli_phase(card, num_data=64):
+    """The training CLI end to end, in subprocesses in a temporary
+    directory: tools/make_demo_data.py writes the Panoptic profile's data
+    there; tools/train.py trains configs/demo/panoptic_synthetic.yaml for
+    2 epochs on `num_data` scenes (compiled, validating every epoch,
+    snapshots into the temporary directory), then resumes for a third.
+    Checks: both exit 0; the resumed run starts at epoch 2; the log file,
+    scalars.jsonl and a TensorBoard event file exist and the event file
+    reads back; the eval record names the config repo-relative; the
+    snapshot loads and a PoseService on it answers; rows 1 and 2 were
+    launched; nothing under checkpoints/ changed.  Prints each epoch's
+    wall time and each validation's frames/s.  Returns the kernel launches
+    of the two training processes, summed."""
+    import json
+    import re
+    import tempfile
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.datasets.demo_data import demo_rig
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.engine.checkpoint import load_best_npz
+    from faster_voxelpose_tpu_torch.geometry import pack_rig
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.utils.tb_events import read_events
+    from faster_voxelpose_tpu_torch.weights import to_jax_variables
+
+    before = _tree_digest(ROOT / "checkpoints")
+    cfg_path = ROOT / "configs" / "demo" / "panoptic_synthetic.yaml"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        _run_tool(["faster_voxelpose_tpu_torch.tools.make_demo_data", "--out",
+                   str(tmp / "data" / "DemoPanoptic"), "--views", "5", "--poses", "2000",
+                   "--skeleton", "panoptic15", "--center", "0", "-500", "--radius", "2800",
+                   "--image-size", "1920", "1080"], tmp, "make_demo_data")
+        train = ["faster_voxelpose_tpu_torch.tools.train", "--cfg", str(cfg_path),
+                 "--num-data", str(num_data), "--snapshot-dir", str(tmp / "snap")]
+        logs = [_run_tool(train + ["--epochs", "2"], tmp, "train --epochs 2"),
+                _run_tool(train + ["--resume", "--epochs", "3"], tmp, "train --resume --epochs 3")]
+        for i, log in enumerate(logs):
+            epochs = re.findall(r"epoch (\d+) trained in ([0-9.]+) s", log)
+            fps = re.findall(r"validated (\d+) frames in [0-9.]+s \(([0-9.]+) frames/s\)", log)
+            print(f"cli run {i + 1}: epochs trained (epoch, wall s) {epochs}; validations "
+                  f"(frames, frames/s) {fps}")
+        if "resumed from" not in logs[1] or re.findall(r"epoch (\d+) trained", logs[1]) != ["2"]:
+            raise AssertionError(f"cli: the resumed run did not start at epoch 2:\n{logs[1][-3000:]}")
+        out_dir = tmp / "output" / "synthetic" / "panoptic_synthetic"
+        if not list(out_dir.glob("panoptic_synthetic_*_train.log")) \
+                or not (out_dir / "checkpoint.pt").exists():
+            raise AssertionError(f"cli: no log file or checkpoint in {out_dir}")
+        scalars = list((tmp / "log" / "synthetic").glob("panoptic_synthetic_*/scalars.jsonl"))
+        events = list((tmp / "log" / "synthetic").glob("panoptic_synthetic_*/events.out.tfevents.*"))
+        tags = [e.get("tag") for ev in events for e in read_events(str(ev))[1:]]
+        if not scalars or not events or tags.count("eval_metric") != 3:
+            raise AssertionError(f"cli: scalars {scalars}, events {events}, tags {tags}")
+        record = json.loads((tmp / "snap" / "eval_record.json").read_text())
+        if record["config"] != "configs/demo/panoptic_synthetic.yaml":
+            raise AssertionError(f"cli: the record's config is {record['config']!r}")
+        cfg = panoptic_synthetic_profile()
+        model = load_best_npz(str(tmp / "snap" / "model_best.npz"), build_model(cfg))
+        rig = demo_rig(cfg)
+        svc = PoseService(cfg, variables=to_jax_variables(model.state_dict()),
+                          rig=pack_rig([rig[k] for k in sorted(rig)]).astype(np.float32),
+                          device=CARD)
+        rng = np.random.RandomState(4)
+        frame = render_frame(make_people(rng, 3, cfg.CAPTURE_SPEC.SPACE_CENTER),
+                             svc._rig.cpu().numpy()[0], cfg, CARD)
+        answer = svc.infer_heatmaps(frame)
+        print(f"cli: snapshot of epoch {record['epoch']} (metric {record['metric']:.4f}) served: "
+              f"{answer['n_people']} people in {answer['latency_ms']} ms | {card}")
+        launches = {}
+        for log in logs:
+            counts = json.loads(re.findall(r"kernel launches: (\{.*\})", log)[-1])
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    if _tree_digest(ROOT / "checkpoints") != before:
+        raise AssertionError("cli: a file under checkpoints/ changed")
+    print(f"cli: launches in the two training processes {launches}; checkpoints/ unchanged")
     return launches
 
 
@@ -1182,9 +1483,10 @@ def compiled_phase(cfg, rig, card, rng, requests=N_REQUESTS):
     2 once per replayed request; a rig hot-swap with no recapture, held to
     eager on the new rig and bit for bit to the first answers on the way
     back; the 'images_u8' graph on uint8 frames through a seeded random
-    ResNet-50 (every slot valid) held the same way; a forward holding a
-    host synchronisation, whose capture must raise; the JSON-lines server
-    (tools/serve.py) in a subprocess.  Prints eager and compiled latency
+    ResNet-50 (every slot valid) held the same way; the JSON-lines server
+    (tools/serve.py) in a subprocess (a forward holding a host
+    synchronisation, whose capture must raise, is `failed_capture_phase`,
+    the script's last).  Prints eager and compiled latency
     p50 / p95 from frames on the card and from numpy frames, and one
     replay's device ms between two CUDA events.  Returns the launches of
     the compiled bf16 heatmap requests."""
@@ -1269,7 +1571,7 @@ def compiled_phase(cfg, rig, card, rng, requests=N_REQUESTS):
             for _ in range(20):
                 a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 a.record()
-                g.graph.replay()
+                g.captured.graph.replay()
                 b.record()
                 b.synchronize()
                 replay_ms.append(a.elapsed_time(b))
@@ -1307,33 +1609,6 @@ def compiled_phase(cfg, rig, card, rng, requests=N_REQUESTS):
             print("compiled: latency per image request (5 uint8 frames from numpy), "
                   + "; ".join(f"{n} {percentiles(v)}" for n, v in lat.items()) + f" | {card}")
         del eager, svc
-
-    # negative control: a forward that reads a value back to the host
-    # cannot be captured, and the service's capture raises
-    bad = PoseService(cfg, variables=variables, rig=rig, device=CARD, aot=False)
-    forward = bad.model.forward
-
-    def synced(*args, **kwargs):
-        out = forward(*args, **kwargs)
-        out.fused_poses.sum().item()  # a host synchronisation
-        return out
-
-    bad.model.forward = synced
-    try:
-        bad.warmup(("heatmaps",))
-    except RuntimeError as e:
-        raised = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
-    else:
-        raise AssertionError("compiled: a forward holding a host synchronisation was captured")
-    if bad._compiled:
-        raise AssertionError(f"compiled: a failed capture left graphs {sorted(bad._compiled)}")
-    del bad.model.forward
-    after = bad.infer_heatmaps(frames[0])
-    print(f"compiled: negative control, capturing a forward with .item() raised {raised!r}; the "
-          f"service then answered eagerly ({after['n_people']} people) | {card}")
-    if not after["n_people"]:
-        raise AssertionError("compiled: no answer after the failed capture")
-    del bad
 
     # the JSON-lines server on the card, in a subprocess
     with tempfile.TemporaryDirectory() as tmp:
@@ -1824,12 +2099,11 @@ def eval_phase(card, scenes=500):
     preds = res["preds"]
     if preds.shape[0] != scenes or preds.shape[2:] != (15, 5) or not np.isfinite(preds).all():
         raise AssertionError(f"eval: predictions of shape {preds.shape} or not finite")
-    batches = -(-scenes // panoptic_synthetic_profile().TEST.BATCH_SIZE)
-    want = {"sample_whole_projected": batches, "sample_crop_planes": scenes, "sample_whole": 0}
+    want = expected_eval_launches(panoptic_synthetic_profile(), scenes)
     for name, count in want.items():
         if launches[name] != count:
             raise AssertionError(f"eval: {name} launched {launches[name]} times for {scenes} "
-                                 f"scenes in {batches} batches, expected {count}")
+                                 f"scenes, expected {count}")
     broken = eval_limits(res)
     if broken:
         raise AssertionError("eval: " + "; ".join(broken))
@@ -1851,9 +2125,12 @@ SERVICE_SNAPSHOT = "campus_synthetic_ref"
 
 
 def expected_eval_launches(cfg, scenes):
-    """Row 1 once per batch, row 2 once per scene, row 1's coords mode never."""
+    """Row 1 once per batch, row 2 once per row of a batch (the final
+    batch is padded to TEST.BATCH_SIZE, as the JAX validator pads it),
+    row 1's coords mode never."""
     batches = -(-scenes // cfg.TEST.BATCH_SIZE)
-    return {"sample_whole_projected": batches, "sample_crop_planes": scenes, "sample_whole": 0}
+    return {"sample_whole_projected": batches,
+            "sample_crop_planes": batches * cfg.TEST.BATCH_SIZE, "sample_whole": 0}
 
 
 def profiles_phase(card, scenes=500, requests=N_REQUESTS):
@@ -2135,6 +2412,63 @@ def images_phase(card, requests=N_REQUESTS):
     return launches
 
 
+def failed_capture_phase(cfg, rig, card):
+    """Negative control, the last phase: a forward that reads a value back
+    to the host cannot be captured, and the service's capture raises and
+    leaves no graph; the service then answers eagerly.  Last, because a
+    failed capture leaves PyTorch's capture state behind (PyTorch 2.11 on
+    an H100: the device generator still counts as capturing, and no later
+    graph's memory pool is given back), so no measured phase may follow it."""
+    from faster_voxelpose_tpu_torch.engine import PoseService
+
+    with np.load(ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
+        variables = {k: npz[k] for k in npz.files}
+    frames = [render_frame(make_people(np.random.RandomState(9), 4, cfg.CAPTURE_SPEC.SPACE_CENTER),
+                           rig, cfg, CARD)]
+    # negative control: a forward that reads a value back to the host
+    # cannot be captured, and the service's capture raises
+    bad = PoseService(cfg, variables=variables, rig=rig, device=CARD, aot=False)
+    forward = bad.model.forward
+
+    def synced(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        out.fused_poses.sum().item()  # a host synchronisation
+        return out
+
+    bad.model.forward = synced
+    try:
+        bad.warmup(("heatmaps",))
+    except RuntimeError as e:
+        raised = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:160]}"
+    else:
+        raise AssertionError("compiled: a forward holding a host synchronisation was captured")
+    if bad._compiled:
+        raise AssertionError(f"compiled: a failed capture left graphs {sorted(bad._compiled)}")
+    del bad.model.forward
+    after = bad.infer_heatmaps(frames[0])
+    print(f"compiled: negative control, capturing a forward with .item() raised {raised!r}; the "
+          f"service then answered eagerly ({after['n_people']} people) | {card}")
+    if not after["n_people"]:
+        raise AssertionError("compiled: no answer after the failed capture")
+    del bad
+
+
+def released(result, label):
+    """`result`, after the card's cached memory is given back: each phase's
+    CUDA graphs have memory pools and side streams of their own, whose
+    blocks the caching allocator keeps for reuse and no later phase can
+    use.  Prints what stays allocated and reserved."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory after {label}: allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
+          f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+    return result
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2188,23 +2522,28 @@ def main(argv=None) -> int:
     parity_phase()
     # serving before the training phases, so that its latency is read on a
     # host and card that training has not yet loaded, as in earlier runs
-    paths = {"serving": serving_phase(cfg, rig, card, rng)}
-    paths["compiled"] = compiled_phase(cfg, rig, card, np.random.RandomState(9))
-    paths["route"] = route_phase(cfg, rig, card, rng)
-    train_parity_phase(card)
-    paths["train"] = training_phase(card)
+    paths = {"serving": released(serving_phase(cfg, rig, card, rng), "serving")}
+    paths["compiled"] = released(compiled_phase(cfg, rig, card, np.random.RandomState(9)),
+                                 "compiled")
+    paths["route"] = released(route_phase(cfg, rig, card, rng), "route")
+    released(train_parity_phase(card), "train parity")
+    released(compiled_train_phase(card), "train graph")
+    paths["train"] = released(training_phase(card), "train")
+    paths["cli"] = released(cli_phase(card), "cli")
     paths["tools"] = {}
     for phase in (window_phase, mma_phase):
-        tool_rows, launches = phase(card)
+        tool_rows, launches = released(phase(card), phase.__name__)
         rows += tool_rows
         paths["tools"].update(launches)
-    paths["eval"] = eval_phase(card)
-    paths["profiles"] = profiles_phase(card)
-    paths["images"] = images_phase(card)
+    paths["eval"] = released(eval_phase(card), "eval")
+    paths["profiles"] = released(profiles_phase(card), "profiles")
+    paths["images"] = released(images_phase(card), "images")
+    failed_capture_phase(cfg, rig, card)
 
     # launches: the run of the path that reaches each kernel (the row's
-    # `path`): training for the default route's kernels, the route phase
-    # for the crop sampler's other modes, the tools for the tuning kernels
+    # `path`): compiled training and serving for the default route's
+    # kernels, the route phase for the crop sampler's other modes, the
+    # tools for the tuning kernels
     kernels = []
     for r in rows:
         launches = paths[r["path"]][r["name"]]

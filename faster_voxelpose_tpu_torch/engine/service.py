@@ -39,23 +39,22 @@ from ..geometry.example_rigs import dome_rig
 from ..geometry.transforms import get_resize_transform
 from ..models.faster_voxelpose import ModelOutputs, build_model
 from ..models.resnet import build_backbone, images_to_heatmaps
-from ..ops import sampling_kernels as sk
 from ..weights import from_jax_variables
+from . import graphs
 
 GRAPHS = ("heatmaps", "images", "images_u8")
-# eager forwards on the capture's stream before a capture, so that cuDNN
-# and cuBLAS choose their algorithms and workspaces outside the graph
-CAPTURE_WARMUP_FORWARDS = 3
 
 
 class CompiledGraph(NamedTuple):
-    """One forward captured at batch 1: the graph, its static input and
-    fused poses, and the kernel launches that one replay makes."""
+    """One forward captured at batch 1 (its graph, fused poses and the
+    kernel launches that one replay makes) and its static input."""
 
-    graph: "torch.cuda.CUDAGraph"
+    captured: graphs.Captured
     input: torch.Tensor
-    fused_poses: torch.Tensor
-    launches: Dict[str, int]
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        return self.captured.launches
 
 
 class PoseService:
@@ -161,34 +160,17 @@ class PoseService:
     def _capture(self, forward: Callable[[torch.Tensor], ModelOutputs],
                  static_input: torch.Tensor) -> CompiledGraph:
         """forward(static_input) captured into a CUDA graph, by PyTorch's
-        recipe: CAPTURE_WARMUP_FORWARDS eager forwards on a side stream,
-        then the capture on that stream under inference mode.  Each graph
-        has its own memory pool (the default of `torch.cuda.graph`): the
-        service replays its graphs in any order, which graphs that share
-        a pool may not be.  The kernel wrappers counted their calls while
-        the graph was captured, but nothing ran then: those counts are
-        taken back and kept as what one replay launches.  Raises what the
-        capture raises, e.g. for a host synchronisation or a copy from
-        pageable host memory inside the forward."""
+        recipe: CAPTURE_WARMUP eager forwards on a side stream, then the
+        capture on that stream under inference mode (`graphs.capture`:
+        the graph's own memory pool, its launches kept as what one replay
+        launches).  Raises what the capture raises, e.g. for a host
+        synchronisation or a copy from pageable host memory inside the
+        forward."""
         stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream), torch.inference_mode():
-            for _ in range(CAPTURE_WARMUP_FORWARDS):
-                forward(static_input)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        before = sk.launch_counts()
-        try:
-            # the outer stream context restores the caller's stream even
-            # when a failed capture leaves torch.cuda.graph's unrestored
-            with torch.cuda.stream(stream), torch.inference_mode(), \
-                    torch.cuda.graph(graph, stream=stream):
-                fused = forward(static_input).fused_poses
-        finally:
-            launched = {k: n - before[k] for k, n in sk.launch_counts().items()
-                        if n != before[k]}
-            sk.add_launches({k: -n for k, n in launched.items()})
-        return CompiledGraph(graph, static_input, fused, launched)
+        for _ in range(graphs.CAPTURE_WARMUP):
+            graphs.run_on(stream, lambda: forward(static_input), inference=True)
+        c = graphs.capture(lambda: forward(static_input).fused_poses, stream, inference=True)
+        return CompiledGraph(c, static_input)
 
     def _input_shape(self, name: str) -> tuple:
         if name == "heatmaps":
@@ -253,9 +235,7 @@ class PoseService:
         g = self._compiled.get(name)
         if g is not None and x.shape == g.input.shape:
             g.input.copy_(x)
-            g.graph.replay()
-            sk.add_launches(g.launches)
-            return g.fused_poses
+            return graphs.replay(g.captured)
         with torch.inference_mode():
             return self._forward(name)(x.to(self.device)).fused_poses
 

@@ -4,10 +4,13 @@ lib/core/function.py:117-174): batched inference over an evaluation set,
 sequential and unshuffled, then the dataset's own metric protocol.
 
 Heatmaps come in the batch ('input_heatmaps') or are rendered on the
-device from 'hm_params', as in training.  The last batch is short, not
-padded: PyTorch needs no static shapes, so no padding rows are discarded.
-Samples are made in the calling process, in record order, so that the
-dataset's augmentation draws follow its one RandomState; nothing may call
+device from 'hm_params', as in training.  Every batch has the static
+batch size: the loader pads the final one by repeating its last sample,
+and the padding rows are dropped, as the JAX validator does.  On the card
+the eval step is a CUDA graph, captured once per `run_validation` call at
+that batch size (`graphs.GraphedStep`).  Samples are made by the
+loader's prefetch thread, in record order, so that the dataset's
+augmentation draws follow its one RandomState; nothing may call
 `dataset[i]` before the loop starts, or every later draw shifts.
 `make_eval_step` with a backbone gives the image step; `run_validation`
 has no image loader yet (the JAX package's decodes files with cv2).
@@ -27,8 +30,10 @@ from ..config import Config
 from ..device import DeviceLike, pin_float32, resolve_device
 from ..models.resnet import PoseResNet, images_to_heatmaps
 from ..ops.heatmap_render import render_heatmaps_device
-from .loader import make_loader
-from .trainer import batch_to_device
+from ..utils.bench_lock import wait_if_bench_locked
+from ..utils.profiling import StepTimer
+from .graphs import GraphedStep
+from .loader import DataLoader, prefetch_to_device
 
 logger = logging.getLogger(__name__)
 
@@ -62,28 +67,50 @@ def make_eval_step(cfg: Config, model: nn.Module,
 
 
 def run_validation(cfg: Config, model: nn.Module, dataset, batch_size: Optional[int] = None,
-                   device: DeviceLike = None) -> Tuple[float, str, np.ndarray]:
+                   device: DeviceLike = None, dataset_factory=None,
+                   num_workers: Optional[int] = None,
+                   compiled: Optional[bool] = None) -> Tuple[float, str, np.ndarray]:
     """Evaluate `model` on every record of `dataset`; returns (metric,
     message, preds (N, K, J, 5)).  Runs on the CUDA device and raises if
     there is none, unless `device` names another; the model is moved
-    there."""
+    there.  `compiled` (default: true on a CUDA device) replays the eval
+    step from a CUDA graph.  With `dataset_factory`, samples are made by
+    cfg.WORKERS (or `num_workers`) spawn processes; without it, by the
+    prefetch thread."""
     device = resolve_device(device)
     pin_float32()
     model = model.to(device).eval()
+    bs = batch_size or cfg.TEST.BATCH_SIZE
+    n = len(dataset)
     eval_step = make_eval_step(cfg, model)
-    loader = make_loader(dataset, batch_size or cfg.TEST.BATCH_SIZE, shuffle=False,
-                         drop_last=False)
+    if compiled is None:
+        compiled = device.type == "cuda"
+    if compiled:
+        graphed = GraphedStep(device, inference=True)
+        step = lambda batch: graphed(eval_step, batch)  # noqa: E731
+    else:
+        step = eval_step
+    workers = (cfg.WORKERS if num_workers is None else num_workers) \
+        if dataset_factory is not None else 0
+    loader = DataLoader(dataset, bs, shuffle=False, drop_last=False, num_workers=workers,
+                        dataset_factory=dataset_factory)
     all_preds = []
+    timer = StepTimer()
     t0 = time.perf_counter()
-    for batch in loader:
-        keys = ("cameras", "input_heatmaps" if "input_heatmaps" in batch else "hm_params")
-        all_preds.append(eval_step(batch_to_device({k: batch[k] for k in keys}, device))
-                         .cpu().numpy())
+    try:
+        for batch in prefetch_to_device(iter(loader), device=device):
+            wait_if_bench_locked()
+            key = "input_heatmaps" if "input_heatmaps" in batch else "hm_params"
+            with timer.step() as st:
+                st.set(step({k: batch[k] for k in ("cameras", key)}))
+            all_preds.append(st.result.cpu().numpy()[batch["_valid"]])
+    finally:
+        loader.close()
     preds = np.concatenate(all_preds, axis=0)
     dt = time.perf_counter() - t0
-    n = len(dataset)
-    logger.info("validated %d frames in %.1fs (%.1f frames/s) on %s", n, dt, n / max(dt, 1e-9),
-                device)
+    logger.info("validated %d frames in %.1fs (%.1f frames/s) on %s%s; %s", n, dt,
+                n / max(dt, 1e-9), device, " (CUDA graph)" if compiled else "",
+                timer.summary())
     metric, msg = dataset.evaluate(preds)
     logger.info("\n%s", msg)
     return metric, msg, preds

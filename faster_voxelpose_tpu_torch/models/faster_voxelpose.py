@@ -118,10 +118,12 @@ class FasterVoxelPoseNet(nn.Module):
         def plane_l1(pred, gt2):
             return masked_mean(torch.abs(pred * vis - gt2 * vis), mkj)
 
+        # the xy, xz and yz planes, as slices: a list index would build a
+        # tensor from host data, which a captured train step cannot hold
         loss_joint = (
-            plane_l1(jln.plane_poses[0], jsel[..., [0, 1]])
-            + plane_l1(jln.plane_poses[1], jsel[..., [0, 2]])
-            + plane_l1(jln.plane_poses[2], jsel[..., [1, 2]])
+            plane_l1(jln.plane_poses[0], jsel[..., 0:2])
+            + plane_l1(jln.plane_poses[1], jsel[..., 0::2])
+            + plane_l1(jln.plane_poses[2], jsel[..., 1:3])
             + tr.LAMBDA_LOSS_FUSED
             * masked_mean(torch.abs(jln.fused_poses * vis - jsel * vis), mkj)
         )

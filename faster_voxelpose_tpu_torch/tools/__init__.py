@@ -13,6 +13,11 @@ validate         AP / recall / MPJPE of any committed snapshot on the
                  (counterpart of run/validate.py)
 serve            the JSON-lines inference server over PoseService's
                  compiled graphs (counterpart of run/serve.py)
+train            the training CLI: compiled train and eval steps, prefetch,
+                 resumable checkpoints (counterpart of run/train.py)
+make_demo_data   the synthetic rig and pose bank that a synthetic
+                 config's DATADIR holds (counterpart of
+                 scripts/make_demo_data.py; needs no GPU)
 
 They run on the card unless `--device cpu` is given, and raise when there
 is no CUDA device.

@@ -893,3 +893,222 @@ def test_non_batch_1_input_runs_eager(dev):
     assert batch["poses_mm"] == want["poses_mm"] and batch["n_people"] == 4
     u8 = np.random.RandomState(3).randint(0, 256, (3, 128, 160, 3)).astype(np.uint8)
     assert "images_u8" not in svc._compiled and svc.infer_images(u8)["n_people"] == 4
+
+
+def _train_setup(dev, n_batches, B=2, seed=0):
+    """The tiny geometry with synthetic training scenes (device-rendered
+    'gt' heatmaps, augmentation on), float32 conv stacks: (cfg, a model
+    factory giving the same seeded weights at every call, the collated
+    numpy batches of one shuffled pass)."""
+    from faster_voxelpose_tpu_torch.datasets import SyntheticDataset
+    from faster_voxelpose_tpu_torch.datasets.demo_data import make_pose_bank, make_rig
+    from faster_voxelpose_tpu_torch.engine.loader import DataLoader
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    cfg = tiny_cfg()
+    cfg.DATASET.DEVICE_RENDER = True
+    cfg.SYNTHETIC.MAX_PEOPLE, cfg.SYNTHETIC.NUM_DATA = 3, n_batches * B
+    cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.ACCUMULATION_STEPS, cfg.TRAIN.LR = B, 2, 1e-3
+    rig = make_rig(3, 2600.0, 2200.0, (0.0, 0.0), cfg.DATASET.ORI_IMAGE_SIZE)
+    cams = {int(k): {kk: np.array(vv) for kk, vv in v.items()} for k, v in rig.items()}
+    ds = SyntheticDataset(cfg, pose_bank=make_pose_bank(40), cameras=cams)
+    batches = list(DataLoader(ds, B, shuffle=True, drop_last=True, seed=seed))
+
+    def model():
+        torch.manual_seed(seed)
+        m = build_model(cfg).to(dev)
+        with torch.no_grad():  # fan-in scaled weights: proposals near the people
+            gen = torch.Generator().manual_seed(seed)
+            for p in m.parameters():
+                if p.ndim > 1:
+                    p.copy_(torch.randn(p.shape, generator=gen).to(dev)
+                            * (2.0 / p[0].numel()) ** 0.5)
+        return m
+
+    return cfg, model, batches
+
+
+def _run_trainer(tr, batches):
+    """Losses (host floats) and (pose count, joint count, mini-step) after
+    every step."""
+    losses, gates = [], []
+    for b in batches:
+        out = tr.step(b)
+        losses.append({k: float(v) for k, v in out.items()})
+        gates.append((int(tr.opt_pose.count), int(tr.opt_joint.count), int(tr.mini_step)))
+    return losses, gates
+
+
+def _state_gap(a, b):
+    """{kind: relative L2 gap of the two trainers' flat buffers} for the
+    last step's gradients, both moments and the parameters, each kind's
+    tensors of both optimizers taken together."""
+    def flat(t, kind):
+        if kind == "params":
+            return torch.cat([p.detach().reshape(-1) for p in t.model.parameters()])
+        return torch.cat([getattr(t.opt_pose, kind), getattr(t.opt_joint, kind)])
+
+    return {kind: float((flat(b, kind) - flat(a, kind)).norm() / flat(a, kind).norm())
+            for kind in ("grad", "mu", "nu", "params")}
+
+
+def test_compiled_trainer_matches_eager(dev):
+    """12 calls on the same batches, eager and captured (3 eager warm-up
+    steps, one capture, 8 replays), each call from the same state (the
+    eager trainer's, copied in place into the tensors the graph reads):
+    the same gates on every call (the JLN's skip, the HDN's k-th step),
+    losses within 1e-4 relative, and after each call the gradients and
+    both moments within 1e-4 relative L2, the parameters within 1e-3, all
+    tensors of a kind together.  cuDNN's backward is not bit for bit
+    (atomics), and a gradient that is 0 in exact arithmetic (a conv bias
+    before a train-mode BatchNorm) is rounding noise that Adam turns into
+    a step of about LR either way: the parameters part by up to 2 LR on
+    such elements (2.3e-4 relative overall, measured on an H100), so a
+    single such tensor is not held.  Free-running, the two trainers part
+    further: chip_smoke.py holds that run between a float32 reading and a
+    bf16 control."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+
+    cfg, model, batches = _train_setup(dev, 12)
+    batches[6]["num_person"][:] = 0  # a call whose JLN step is skipped
+    eager, compiled = Trainer(cfg, model(), compiled=False), Trainer(cfg, model())
+    assert compiled.compiled and not eager.compiled
+    gates, worst = [], {}
+    for i, b in enumerate(batches):
+        compiled.load_state_dict(eager.state_dict())
+        le = {k: float(v) for k, v in eager.step(b).items()}
+        lc = {k: float(v) for k, v in compiled.step(b).items()}
+        for k in le:
+            assert abs(le[k] - lc[k]) <= 1e-4 * max(abs(le[k]), 1e-6), (i, k, le[k], lc[k])
+        gates.append([(int(t.opt_pose.count), int(t.opt_joint.count), int(t.mini_step))
+                      for t in (eager, compiled)])
+        for k, v in _state_gap(eager, compiled).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    assert compiled._graph.captured is not None
+    assert all(e == c for e, c in gates), gates
+    assert gates[6][0][1] == gates[5][0][1] and gates[-1][0][0] == 6
+    limits = {"grad": 1e-4, "mu": 1e-4, "nu": 1e-4, "params": 1e-3}
+    assert all(worst[k] <= v for k, v in limits.items()), worst
+
+
+def test_jln_skip_and_hdn_kth_step_under_replay(dev):
+    """Under replay, a call with no GT person leaves the JLN's parameters
+    and Adam state bit for bit; the HDN steps on every second call only."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+
+    cfg, model, batches = _train_setup(dev, 8)
+    tr = Trainer(cfg, model())
+    for b in batches[:5]:  # warm-up, capture and a first replay
+        tr.step(b)
+    assert tr._graph.captured is not None
+    skip = dict(batches[5], num_person=np.zeros_like(batches[5]["num_person"]))
+    jln = [p.detach().clone() for p in tr.model.jln.parameters()]
+    state = [t.clone() for t in (tr.opt_joint.mu, tr.opt_joint.nu, tr.opt_joint.count)]
+    hdn = [p.detach().clone() for p in tr.model.hdn.parameters()]
+    mini = int(tr.mini_step)
+    losses = tr.step(skip)
+    assert float(losses["joint"]) == 0.0
+    assert all(torch.equal(p, q) for p, q in zip(tr.model.jln.parameters(), jln))
+    assert all(torch.equal(a, b) for a, b in zip(
+        (tr.opt_joint.mu, tr.opt_joint.nu, tr.opt_joint.count), state))
+    moved = any(not torch.equal(p, q) for p, q in zip(tr.model.hdn.parameters(), hdn))
+    assert moved == (mini == 1) and int(tr.mini_step) == (mini + 1) % 2
+
+
+def test_trainer_launch_counts_under_replay(dev):
+    """Each replayed step adds the launches its capture recorded: the
+    whole-space sampler once and the crop sampler once per sample."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg, model, batches = _train_setup(dev, 9)
+    tr = Trainer(cfg, model())
+    sk.reset_launch_counts()
+    for b in batches[:4]:
+        tr.step(b)
+    counts = sk.launch_counts()  # 3 eager steps and one replay
+    assert counts["sample_whole_projected"] == 4 and counts["sample_crop_planes"] == 8
+    assert tr._graph.captured.launches == {"sample_whole_projected": 1, "sample_crop_planes": 2}
+    sk.reset_launch_counts()
+    for b in batches[4:]:
+        tr.step(b)
+    counts = sk.launch_counts()
+    assert counts["sample_whole_projected"] == 5 and counts["sample_crop_planes"] == 10
+    assert sum(counts.values()) == 15
+
+
+def test_compiled_eval_matches_eager_with_padded_batch(dev):
+    """run_validation on 11 held-out scenes at batch 2 (3 eager warm-up
+    batches, a capture, 2 replays, the last batch padded by 1): the CUDA
+    graph's fused poses equal the eager validator's (0.01 mm), every
+    record kept once."""
+    from faster_voxelpose_tpu_torch.datasets import SyntheticDataset
+    from faster_voxelpose_tpu_torch.datasets.demo_data import make_pose_bank, make_rig
+    from faster_voxelpose_tpu_torch.engine.validator import run_validation
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg, model, _ = _train_setup(dev, 1)
+    cfg.SYNTHETIC.NUM_DATA, cfg.TEST.BATCH_SIZE = 11, 2
+    cfg.CAPTURE_SPEC.MIN_SCORE = -1e9
+    rig = make_rig(3, 2600.0, 2200.0, (0.0, 0.0), cfg.DATASET.ORI_IMAGE_SIZE)
+    cams = {int(k): {kk: np.array(vv) for kk, vv in v.items()} for k, v in rig.items()}
+    runs = {}
+    for compiled in (False, True):
+        ds = SyntheticDataset(cfg, is_train=False, pose_bank=make_pose_bank(40), cameras=cams)
+        sk.reset_launch_counts()
+        runs[compiled] = run_validation(cfg, model(), ds, device=dev, compiled=compiled)[2]
+        # six batches of 2: one whole-space launch per batch and one crop
+        # launch per row, padding included, replays counted
+        assert sk.launch_counts()["sample_whole_projected"] == 6
+        assert sk.launch_counts()["sample_crop_planes"] == 12
+    assert runs[True].shape == runs[False].shape == (11, 4, 15, 5)
+    np.testing.assert_array_equal(runs[True][..., 3], runs[False][..., 3])
+    assert float(np.abs(runs[True] - runs[False]).max()) <= 0.01
+
+
+def test_prefetch_feeds_a_replay(dev):
+    """Batches made and uploaded by prefetch_to_device's thread on its
+    side stream feed a compiled trainer as the same batches copied in
+    series feed another: from the same state at every call, equal losses
+    (1e-4 relative; bit for bit expected, atomics in cuDNN's backward
+    allowed)."""
+    from faster_voxelpose_tpu_torch.engine.loader import prefetch_to_device
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
+
+    cfg, model, batches = _train_setup(dev, 8)
+    series, fed = Trainer(cfg, model()), Trainer(cfg, model())
+    n = 0
+    for b_fed, b in zip(prefetch_to_device(iter(batches), device=dev), batches):
+        fed.load_state_dict(series.state_dict())
+        a = {k: float(v) for k, v in series.step(batch_to_device(b, dev)).items()}
+        c = {k: float(v) for k, v in fed.step(b_fed).items()}
+        for k in a:
+            assert abs(a[k] - c[k]) <= 1e-4 * max(abs(a[k]), 1e-6), (n, k, a[k], c[k])
+        n += 1
+    assert n == 8 and fed._graph.captured is not None
+
+
+def test_trainer_capture_with_a_host_synchronisation_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    step after the warm-up raises, and so does the next one (no eager
+    stand-in).  Last in the file: a failed capture leaves PyTorch's
+    capture state behind (the device generator, the graph's pool)."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+
+    cfg, model, batches = _train_setup(dev, 6)
+    tr = Trainer(cfg, model())
+    loss = tr.loss
+
+    def synced(batch):
+        out = loss(batch)
+        out["total"].item()  # a host synchronisation
+        return out
+
+    tr.loss = synced
+    for b in batches[:3]:
+        tr.step(b)  # eager warm-up: the sync is allowed there
+    for b in batches[3:5]:
+        with pytest.raises(RuntimeError):
+            tr.step(b)
+    assert tr._graph.captured is None
+    torch.cuda.synchronize()

@@ -16,6 +16,7 @@ and the port's own `stats` keys (`device`, `backbone_random_init`)
 apart.  Image decoding and weight loading are exact.
 """
 
+import contextlib
 import io
 import json
 import os
@@ -271,11 +272,13 @@ class _HostData(torch.utils._python_dispatch.TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _guarded(monkeypatch, run):
+def _guarded(monkeypatch, run, inference=True):
     """run() with torch.tensor, torch.as_tensor and torch.from_numpy
     raising and host data recorded, except inside the sampling kernels'
     plain versions: on the card the kernel runs in their place and takes
-    its constants by value.  Returns what was recorded."""
+    its constants by value.  Under inference mode unless `inference` is
+    false (a train step's backward needs autograd).  Returns what was
+    recorded."""
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
 
     mode = _HostData()
@@ -300,7 +303,7 @@ def _guarded(monkeypatch, run):
         monkeypatch.setattr(torch, name, refuse(name, getattr(torch, name)))
     for name in ("sample_whole_projected_plain", "sample_crop_planes_plain"):
         monkeypatch.setattr(sk, name, paused(getattr(sk, name)))
-    with torch.inference_mode(), mode:
+    with (torch.inference_mode() if inference else contextlib.nullcontext()), mode:
         run()
     monkeypatch.undo()
     return mode.seen

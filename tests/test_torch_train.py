@@ -1,7 +1,9 @@
 """PyTorch port, the training path: train-mode BatchNorm against flax,
 the proposal-to-GT matching, each loss term, and one train step of the
 tiny model against the JAX package's (same flax weights, same batch, CPU),
-plus the optimizers' schedule.
+the step body against the JAX package's jitted train step over three
+calls (optimizer states included), the masked Adam, the step's freedom
+from host data, its image branch, plus the optimizers' schedule.
 
 Tolerances: BatchNorm outputs and running statistics 1e-5 (float32
 reductions in another order); loss terms on the same outputs 1e-6
@@ -134,8 +136,13 @@ def test_loss_terms_match_jax(any_valid):
 def train_pair():
     """Tiny model with float64 conv stacks, random flax weights, one batch
     whose GT roots sit near the model's own train-mode proposals (so the
-    matching, and with it the 1D and joint losses, is active); the JAX
-    train step's losses, gradients and BatchNorm statistics, from one jit."""
+    matching, and with it the 1D and joint losses, is active); from one
+    jit of the JAX package's train step (ACCUMULATION_STEPS 2, LR 1e-3):
+    the first call's losses, gradients and BatchNorm statistics, and over
+    three calls (`ref["calls"]`) the losses and the states before and
+    after each (`ref["states"]`: parameters, BatchNorm statistics,
+    optimizer states)."""
+    from faster_voxelpose_tpu.engine.trainer import create_train_state, make_train_step
     from faster_voxelpose_tpu.models.faster_voxelpose import build_model as jax_build
     from faster_voxelpose_tpu_torch.models import build_model
     from faster_voxelpose_tpu_torch.weights import from_jax_variables
@@ -176,28 +183,48 @@ def train_pair():
         "joints_3d_vis": (rng.rand(B, K, J) < 0.9).astype(np.float32),
     })
 
-    def loss_fn(params, stats, b):  # the loss of engine/trainer.py:98-138
-        targets = {k: b[k] for k in ("2d_heatmaps", "1d_heatmaps", "index", "bbox", "mask")}
-        meta = {k: b[k] for k in ("roots_3d", "bbox", "num_person", "joints_3d", "joints_3d_vis")}
-        out, mut = jm.apply({"params": params, "batch_stats": stats}, b["input_heatmaps"],
-                            b["cameras"], targets=targets, meta=meta, train=True,
-                            mutable=["batch_stats"])
-        return out.losses["total"], (out.losses, mut["batch_stats"])
+    # the JAX package's jitted train step over the calls of `calls`: the
+    # batch, the batch with no GT person (joint loss 0, the JLN's Adam
+    # skipped; the HDN's k-th call), the batch again; the state before
+    # each call and after the last.  The first call's gradients are read
+    # from the optimizer states it leaves: MultiSteps' running mean of one
+    # call is the HDN gradient itself, and Adam's first moment after one
+    # step is 0.1 of the JLN gradient.
+    calls = [batch, {**batch, "num_person": np.zeros_like(batch["num_person"])}, batch]
+
+    def snapshot(state):
+        pose, joint = state.opt_state_pose.inner_opt_state[0], state.opt_state_joint[0]
+        return {"params": _flat(state.params, "params"),
+                "stats": _flat(state.batch_stats, "batch_stats"),
+                "pose": {"mu": _flat(pose.mu, "params"), "nu": _flat(pose.nu, "params"),
+                         "count": int(pose.count),
+                         "acc": _flat(state.opt_state_pose.acc_grads, "params"),
+                         "mini_step": int(state.opt_state_pose.mini_step)},
+                "joint": {"mu": _flat(joint.mu, "params"), "nu": _flat(joint.nu, "params"),
+                          "count": int(joint.count)}}
 
     with jax.enable_x64(True):
-        variables = nest(flat)
-        (_, (losses, stats)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-            variables["params"], variables["batch_stats"], batch)
-        ref = {"losses": {k: float(v) for k, v in losses.items()},
-               "grads": {f"params/{k}": v for k, v in _flat(grads).items()},
-               "stats": {f"batch_stats/{k}": v for k, v in _flat(stats).items()}}
+        step = jax.jit(make_train_step(jcfg, jm))
+        state = create_train_state(jcfg, nest(flat))
+        states, trajectory = [snapshot(state)], []
+        for b in calls:
+            state, losses = step(state, b)
+            states.append(snapshot(state))
+            trajectory.append({k: float(v) for k, v in losses.items()})
+    after = states[1]
+    ref = {"losses": trajectory[0],
+           "grads": {**after["pose"]["acc"],
+                     **{k: v / np.float32(0.1) for k, v in after["joint"]["mu"].items()}},
+           "stats": after["stats"], "calls": calls, "trajectory": trajectory, "states": states}
     return pcfg, flat, batch, ref
 
 
-def _flat(tree):
+def _flat(tree, prefix=""):
+    """A flax tree as flat numpy arrays keyed 'prefix/path'."""
     from faster_voxelpose_tpu_torch.weights import flatten_variables
 
-    return flatten_variables(tree)
+    return {f"{prefix}/{k}" if prefix else k: np.asarray(v)
+            for k, v in flatten_variables(tree).items()}
 
 
 def _trainer(pcfg, flat):
@@ -304,12 +331,12 @@ def test_pose_optimizer_steps_every_k_calls(train_pair):
     assert float(losses["joint"]) > 0
     assert moved(hdn0, tr.model.hdn) == 0.0
     assert sum(float((p.detach() - q).abs().sum()) for p, q in zip(tr.model.jln.parameters(), jln0)) > 0
-    assert tr.opt_pose.inner.state == {} and tr.opt_pose.mini_step == 1
+    assert int(tr.opt_pose.count) == 0 and int(tr.mini_step) == 1
+    assert not tr.opt_pose.mu.any() and tr.acc.any()
     tr.step(b)
     assert moved(hdn0, tr.model.hdn) > 0
-    assert tr.opt_pose.mini_step == 0
-    assert all(int(s["step"]) == 1 for s in tr.opt_pose.inner.state.values())
-    assert all(int(s["step"]) == 2 for s in tr.opt_joint.state.values())
+    assert int(tr.mini_step) == 0 and not tr.acc.any()
+    assert int(tr.opt_pose.count) == 1 and int(tr.opt_joint.count) == 2
 
 
 def test_joint_optimizer_skips_when_joint_loss_is_zero(train_pair):
@@ -323,7 +350,165 @@ def test_joint_optimizer_skips_when_joint_loss_is_zero(train_pair):
     losses = tr.step(b)
     assert float(losses["joint"]) == 0.0 and float(losses["1d_heatmaps"]) == 0.0
     assert all(torch.equal(p, q) for p, q in zip(tr.model.jln.parameters(), jln0))
-    assert tr.opt_joint.state == {}
+    assert int(tr.opt_joint.count) == 0
+    assert not tr.opt_joint.mu.any() and not tr.opt_joint.nu.any()
+
+
+def _named(model, prefix, views):
+    """{parameter name: tensor} of an Adam's flat-buffer views."""
+    names = [n for n, _ in model.named_parameters() if n.startswith(prefix)]
+    return dict(zip(names, views))
+
+
+def _rel_l2(got, want, floor):
+    """{name: relative L2 error}, each norm taken against at least `floor`
+    times the largest norm of `want` (a near-zero tensor is rounding
+    noise, not a scale)."""
+    scale = max(float(np.linalg.norm(w)) for w in want.values())
+    return {k: float(np.linalg.norm(np.asarray(got[k], np.float64) - w))
+            / (max(float(np.linalg.norm(w)), floor * scale) or 1.0) for k, w in want.items()}
+
+
+def _load_jax_state(tr, state):
+    """Copy a JAX train state (the fixture's snapshot) into trainer `tr`."""
+    from faster_voxelpose_tpu_torch.weights import from_jax_variables
+
+    tr.model.load_state_dict(from_jax_variables({**state["params"], **state["stats"]}))
+
+    def flat_of(prefix, tree):
+        want = from_jax_variables(tree)
+        return torch.cat([want[n].reshape(-1) for n, _ in tr.model.named_parameters()
+                          if n.startswith(prefix)])
+
+    for name, opt, prefix in (("pose", tr.opt_pose, "hdn."), ("joint", tr.opt_joint, "jln.")):
+        opt.mu.copy_(flat_of(prefix, state[name]["mu"]))
+        opt.nu.copy_(flat_of(prefix, state[name]["nu"]))
+        opt.count.fill_(state[name]["count"])
+    tr.acc.copy_(flat_of("hdn.", state["pose"]["acc"]))
+    tr.mini_step.fill_(state["pose"]["mini_step"])
+
+
+def test_step_body_matches_jax_train_step(train_pair):
+    """The step body, eager on the CPU, against the JAX package's jitted
+    train step over ACCUMULATION_STEPS + 1 = 3 calls, the second with no
+    GT person (joint loss 0: the JLN's Adam skipped, on the HDN's k-th
+    call, which steps the HDN's Adam on the mean of two gradients).  Each
+    call starts from the JAX state before it: Adam's first steps move an
+    element by about +-LR whatever its gradient's size, so an element
+    whose gradient is within rounding of 0 moves either way, and two free
+    trajectories part by more than rounding (the WeightNet's moments by
+    2.4e-2 after three calls, measured).  After each call: the losses 1e-4
+    relative; every parameter, both Adams' moments and the HDN's
+    accumulator 1e-3 relative L2 per tensor (norms floored at 1e-6 of the
+    largest); the step counts and the mini-step exact."""
+    from faster_voxelpose_tpu_torch.weights import from_jax_variables
+
+    pcfg, flat, _, ref = train_pair
+    tr = _trainer(pcfg, flat)
+    states = ref["states"]
+
+    def port(d):
+        return {k: v.numpy() for k, v in from_jax_variables(d).items()}
+
+    assert [t["joint"] > 0 for t in ref["trajectory"]] == [True, False, True]
+    worst = {}
+    for i, (b, losses) in enumerate(zip(ref["calls"], ref["trajectory"])):
+        _load_jax_state(tr, states[i])
+        got = tr.step(_tensors(b))
+        for k, v in losses.items():
+            np.testing.assert_allclose(float(got[k]), v, rtol=1e-4, atol=1e-12, err_msg=(i, k))
+        want = states[i + 1]
+        params = {k: v.detach().numpy() for k, v in tr.model.named_parameters()}
+        worst[i, "params"] = max(_rel_l2(params, port(want["params"]), 1e-6).values())
+        for name, opt, prefix in (("pose", tr.opt_pose, "hdn."), ("joint", tr.opt_joint, "jln.")):
+            bufs = {"mu": opt.mu, "nu": opt.nu, **({"acc": tr.acc} if name == "pose" else {})}
+            for key, flat_buf in bufs.items():
+                ours = {k: v.numpy() for k, v in _named(tr.model, prefix, opt.views(flat_buf)).items()}
+                theirs = port(want[name][key])
+                assert set(ours) == set(theirs)
+                worst[i, f"{name} {key}"] = max(_rel_l2(ours, theirs, 1e-6).values())
+            assert int(opt.count) == want[name]["count"], (i, name)
+        assert int(tr.mini_step) == want["pose"]["mini_step"], i
+    assert [(s["pose"]["count"], s["joint"]["count"], s["pose"]["mini_step"])
+            for s in states[1:]] == [(0, 1, 1), (1, 1, 0), (1, 2, 1)]
+    assert all(v <= 1e-3 for v in worst.values()), worst
+
+
+def test_masked_adam_leaves_state_bit_for_bit():
+    """A step under a false mask leaves parameters (-0.0 and NaN among
+    them), moments and step count bit for bit; under a true mask it is
+    optax's adam."""
+    import optax
+
+    from faster_voxelpose_tpu_torch.engine.trainer import Adam
+
+    rng = np.random.RandomState(0)
+    params = [torch.nn.Parameter(torch.as_tensor(rng.randn(3, 4).astype(np.float32))),
+              torch.nn.Parameter(torch.tensor([-0.0, float("nan"), 1.5]))]
+    opt = Adam(params, 1e-2)
+    grads = [rng.randn(3, 4).astype(np.float32), np.array([0.5, -1.0, 2.0], np.float32)]
+    flat = torch.cat([torch.as_tensor(g).reshape(-1) for g in grads])
+    before = [p.detach().clone() for p in params] + [opt.mu.clone(), opt.nu.clone()]
+    opt.step(flat, torch.tensor(False))
+    after = [p.detach() for p in params] + [opt.mu, opt.nu]
+    assert all(a.view(torch.int32).equal(b.view(torch.int32)) for a, b in zip(before, after))
+    assert int(opt.count) == 0
+
+    tx = optax.adam(1e-2)
+    jp = [np.asarray(b) for b in before[:2]]
+    state = tx.init(jp)
+    for i in range(2):
+        opt.step(flat, torch.tensor(True))
+        upd, state = tx.update(grads, state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for p, q in zip(params, jp):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(q), rtol=1e-6,
+                                       atol=1e-7, equal_nan=True, err_msg=i)
+    assert int(opt.count) == int(state[0].count) == 2
+
+
+def test_step_body_builds_no_tensor_from_host_data(train_pair, monkeypatch):
+    """The train step a CUDA graph captures copies nothing from the host
+    and reads no value back: the gates are device tensors, the losses
+    slice the planes' coordinates (no list index)."""
+    from tests.test_torch_serve import _guarded
+
+    pcfg, flat, batch, _ = train_pair
+    tr = _trainer(pcfg, flat)
+    b = _tensors(batch)
+    out = []
+    assert _guarded(monkeypatch, lambda: out.append(tr.step_body(b)), inference=False) == []
+    assert float(out[0]["joint"]) > 0
+
+
+def test_image_branch_equals_heatmap_branch(train_pair):
+    """A step on uint8 images through the frozen backbone equals a step on
+    the heatmaps the same backbone makes of them, bit for bit."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone, images_to_heatmaps
+
+    _, pcfg = tiny_configs(INDIVIDUAL_SPEC__SPACE_SIZE=(2100.0,) * 3)
+    pcfg.RESNET.NUM_LAYERS = 18
+    _, _, batch, _ = train_pair
+    torch.manual_seed(3)
+    backbone = build_backbone(pcfg)
+    iw, ih = pcfg.DATASET.IMAGE_SIZE
+    B, V = batch["cameras"].shape[:2]
+    images = torch.as_tensor(np.random.RandomState(4).randint(0, 256, (B, V, ih, iw, 3))
+                             .astype(np.uint8))
+    with torch.no_grad():
+        heatmaps = images_to_heatmaps(backbone, images, pcfg.DATASET.COLOR_RGB)
+    b = {k: v for k, v in _tensors(batch).items() if k != "input_heatmaps"}
+    results = []
+    for src in ({"images": images}, {"input_heatmaps": heatmaps}):
+        torch.manual_seed(5)
+        tr = Trainer(pcfg, build_model(pcfg), backbone=backbone)
+        losses = tr.step({**b, **src})
+        results.append((losses, [p.detach().clone() for p in tr.model.parameters()]))
+    (la, pa), (lb, pb) = results
+    assert all(torch.equal(la[k], lb[k]) for k in la)
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))
 
 
 def test_partition_covers_every_parameter():
