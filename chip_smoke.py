@@ -97,7 +97,25 @@ another committed snapshot's profile (`config.profile`):
    valid, 0.01 mm); then 24 timed
    requests, rows 1 and 2 once per request and no other kernel, with
    latency p50 / p95, each request's device and host ms and the
-   backbone's device ms alone (recorded, not judged).
+   backbone's device ms alone (recorded, not judged);
+12. datasets phase, after the failed-capture control: the host
+   renderers at the Panoptic and Shelf shapes (native against numpy,
+   2e-6; host against the device renderer on the same draws, 2e-5);
+   panoptic_synthetic and shelf_synthetic_ref on 256 held-out scenes
+   with heatmaps rendered on the host by 8 spawn workers against the
+   device-rendered reading of the same run (AP@50 within 0.002, MPJPE
+   within 0.2 mm); the 'pred' source: Shelf- and Campus-format fixtures
+   written from 128 held-out scenes of their profiles, scored by PCP3D
+   with the committed weights, and on the frames with every joint inside
+   every view the same valid slots and fused poses within 1 mm of the
+   'gt' device path; the 'image' source: a Panoptic sequence of
+   1920x1080 JPEGs at the configs/panoptic/jln64.yaml profile, one
+   validation through the graphed image step and 6 compiled train steps
+   on loader-made 'images' batches (8 spawn workers, seeded random model
+   and ResNet-50); the host's cost: a loader-fed compiled trainer at
+   configs/demo/synthetic.yaml with device rendering and with host
+   rendering in the prefetch thread and in 8 workers, then tools/train.py
+   on that config with WORKERS 0 and 8.
 The serving phase (PoseService with the committed panoptic_synthetic
 weights answering 24 rendered 1-6-person frames: the default route's two
 kernels, the projected whole-space sampler and the crop sampler, launch
@@ -109,10 +127,12 @@ within 0.01 mm, the bf16 gap printed), rows 1 and 2 once per replayed
 request, a rig hot-swap with no recapture, the 'images_u8' graph on
 uint8 frames, the JSON-lines server (tools/serve.py) in a subprocess,
 and eager and compiled latencies; a capture holding a host
-synchronisation that must raise runs last (`failed_capture_phase`: a
-failed capture leaves PyTorch's capture state behind, and no graph's
-memory is given back after it).  Between phases the card's cached
-memory is given back (`released`).  PoseService captures its graphs at construction on
+synchronisation that must raise runs after the images phase
+(`failed_capture_phase`: `graphs.capture` puts PyTorch's state back, so
+the device generator draws and cached memory is given back after it,
+and the datasets phase is measured after it).  Between phases the card's
+cached memory is given back (`released`, which prints the seconds from
+the start).  PoseService captures its graphs at construction on
 the card, so the serving, profiles and images phases answer through
 them too (the profiles phase's Campus service against an eager one as
 well); the route phase runs eagerly, since the coords route builds its
@@ -150,6 +170,7 @@ TOL = 1e-5
 F32_LOSS_TOL, F32_GRAD_TOL = 1e-4, 0.5
 N_REQUESTS = 24
 CARD = "cuda"  # the device the phases drive
+T_START = time.perf_counter()
 
 # a 15-joint (panoptic-order) template skeleton, mm offsets from mid-hip
 # (the template of scripts/make_demo_data.py, which the weights trained on)
@@ -2412,15 +2433,524 @@ def images_phase(card, requests=N_REQUESTS):
     return launches
 
 
+# -- datasets phase: every heatmap source and dataset -----------------------
+
+NATIVE_NUMPY_TOL = 2e-6  # the native renderer against its numpy plain version
+HOST_DEVICE_RENDER_TOL = 2e-5  # host rendering against ops/heatmap_render.py (the JAX tests')
+# host-rendered accuracy (8 spawn workers) against the device-rendered reading of the same
+# scenes in the same run, augmentation off in both (the workers draw their own)
+HOST_AP50_TOL = 0.002
+HOST_MPJPE_TOL = 0.2  # mm
+# 'pred' source (the GT projected into every view, rendered on the host) against the 'gt'
+# device path, on frames where every joint lands inside every view: the same valid slots,
+# and fused poses within this many mm, for every person in float32 (the heatmaps differ by at
+# most 2e-5); as served in bf16 one run read a gap of 26.02 mm at Campus (a crop moved by a
+# voxel), so there a share of the people is held
+PRED_GT_POSE_TOL = 1.0
+PRED_GT_SHARE_BF16 = 0.95  # as served, the share of people within it
+
+
+def render_readings(card, scenes=2):
+    """The host renderers on held-out scenes of the Panoptic (5 views,
+    128x240x15) and Shelf (5 views, 152x200x17) profiles, augmentation off
+    and on, each view from the same RandomState: the native renderer
+    (native/render.cpp) against its numpy plain version, and host
+    rendering against the device renderer (ops/heatmap_render.py on the
+    card) on `render_heatmap_params` of the same draws.  Prints the
+    errors and the host ms per sample of both host renderers."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.datasets.base import _render_joints_numpy
+    from faster_voxelpose_tpu_torch.native.build import render_joints_native
+    from faster_voxelpose_tpu_torch.ops.heatmap_render import render_heatmaps_device
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    for name in ("panoptic_synthetic", "shelf_synthetic_ref"):
+        cfg = profile(name)
+        ds = held_out_dataset(cfg, scenes)
+        W, H = (int(v) for v in ds.heatmap_size)
+        for aug in (False, True):
+            ds.data_augmentation = aug
+            e_plain = e_dev = 0.0
+            t_native = t_plain = 0.0
+            peak = 0.0
+            for rec in ds.records:
+                native, params = [], []
+                for j2d, vis in ds._gt_joints_2d(rec):
+                    state = ds._rng.get_state()
+                    inst = ds.heatmap_instances(j2d, vis)
+                    t0 = time.perf_counter()
+                    native.append(render_joints_native(*inst))
+                    t1 = time.perf_counter()
+                    plain = _render_joints_numpy(*inst)
+                    t2 = time.perf_counter()
+                    t_native, t_plain = t_native + t1 - t0, t_plain + t2 - t1
+                    e_plain = max(e_plain, float(np.abs(plain - native[-1]).max()))
+                    ds._rng.set_state(state)
+                    params.append(ds.render_heatmap_params(j2d, vis))
+                dev = render_heatmaps_device(torch.as_tensor(np.stack(params)).to(CARD), H, W)
+                native = np.stack(native)
+                e_dev = max(e_dev, float(np.abs(dev.cpu().numpy() - native).max()))
+                peak = max(peak, float(native.max()))
+            n = len(ds.records)
+            print(f"datasets: renderers at {name} {tuple(native.shape)}, augmentation {aug}, "
+                  f"{n} scenes: native against numpy max abs {e_plain:.3g} (limit "
+                  f"{NATIVE_NUMPY_TOL}), host against the device renderer {e_dev:.3g} (limit "
+                  f"{HOST_DEVICE_RENDER_TOL}); host ms per sample: native {t_native / n * 1e3:.3f}, "
+                  f"numpy {t_plain / n * 1e3:.3f} | {card}")
+            if not (e_plain <= NATIVE_NUMPY_TOL and e_dev <= HOST_DEVICE_RENDER_TOL and peak > 0.3):
+                raise AssertionError(f"datasets: renderers at {name}, augmentation {aug}: "
+                                     f"{e_plain}, {e_dev}, peak {peak}")
+
+
+def host_render_accuracy(card, scenes=256, workers=8):
+    """Two snapshots scored on their first `scenes` held-out scenes twice
+    in this run, augmentation off: heatmaps rendered on the card from
+    'hm_params' (samples in the prefetch thread), and rendered on the host
+    by `workers` spawn processes (`tools.validate.HeldOutFactory` through
+    the loader), both through the compiled validator.  The host reading
+    must lie within HOST_AP50_TOL and HOST_MPJPE_TOL of the device one."""
+    from faster_voxelpose_tpu_torch.tools import validate
+
+    for name in ("panoptic_synthetic", "shelf_synthetic_ref"):
+        ckpt = ROOT / "checkpoints" / name
+        dev = validate.evaluate_snapshot(ckpt, scenes, CARD, augmentation=False)
+        host = validate.evaluate_snapshot(ckpt, scenes, CARD, workers=workers, device_render=False,
+                                          augmentation=False)
+        got, want = (validate.metric_table(r["message"]) for r in (host, dev))
+        rec = validate.metric_table(dev["record"]["message"])
+        keys = ("ap@25", "ap@50", "ap@100", "mpjpe@500mm")
+        table = "; ".join(f"{k} host {got[k]:.4f} device {want[k]:.4f} record {rec[k]:.4f}"
+                          for k in keys)
+        print(f"datasets: {name} on {scenes} held-out scenes, augmentation off, host rendering "
+              f"in {workers} spawn workers against device rendering: {table}; people detected "
+              f"{host['detected']} / {dev['detected']} of {dev['people']}; frames/s host "
+              f"{host['frames_per_s']:.3f}, device {dev['frames_per_s']:.3f} | {card}")
+        if not (abs(got["ap@50"] - want["ap@50"]) <= HOST_AP50_TOL
+                and abs(got["mpjpe@500mm"] - want["mpjpe@500mm"]) <= HOST_MPJPE_TOL):
+            raise AssertionError(f"datasets: {name} host-rendered reading {got} outside the "
+                                 f"limits of the device-rendered {want}")
+
+
+def write_pred_fixture(root, ds, dataset_cls, remap):
+    """Shelf/Campus-format files under `root` from the held-out scenes of
+    `ds` (the profile's own rig and poses): the rig as the flat
+    calibration JSON, the GT COCO-17 poses through `remap` as actorsGT.mat
+    (actor a = the scene's person a, metres; one frame slot of the
+    dataset's FRAME_RANGE per scene), and the GT projected into each view
+    with a score column of 1 as the prediction pickle.  Returns the frame
+    slots written."""
+    import pickle
+
+    import scipy.io as scio
+
+    from faster_voxelpose_tpu_torch.geometry.cameras import project_points_np
+
+    cams = ds.cameras["synthetic"]
+    (root / dataset_cls.CALIB_FILE).write_text(json.dumps(
+        {str(k): {kk: np.asarray(vv).tolist() for kk, vv in v.items()} for k, v in cams.items()}))
+    rig = ds.packed_rig("synthetic")
+    frames = dataset_cls.FRAME_RANGE[:len(ds.records)]
+    actors_n = max(len(r.joints_3d) for r in ds.records)
+    actors = np.empty((actors_n, 1), dtype=object)
+    for a in range(actors_n):
+        per_frame = np.empty((max(frames) + 1, 1), dtype=object)
+        for fi in range(max(frames) + 1):
+            per_frame[fi, 0] = np.zeros((1, 0))
+        actors[a, 0] = per_frame
+    preds = {}
+    for fi, rec in zip(frames, ds.records):
+        for a, pose in enumerate(rec.joints_3d):
+            actors[a, 0][fi, 0] = remap(np.asarray(pose)) / 1000.0
+        for v in range(rig.shape[0]):
+            preds[f"{v}_{fi}"] = [
+                {"pred": np.concatenate([project_points_np(pose, rig[v]), np.ones((len(pose), 1))],
+                                        1)} for pose in rec.joints_3d]
+    scio.savemat(str(root / "actorsGT.mat"), {"actor3D": actors})
+    with open(root / dataset_cls.PRED_FILE, "wb") as f:
+        pickle.dump(preds, f)
+    return frames
+
+
+def pred_readings(card, scenes=128):
+    """The 'pred' source at the Shelf and Campus profiles: Shelf- and
+    Campus-format fixtures written from `scenes` held-out scenes of
+    shelf_synthetic_ref and campus_synthetic_ref (`write_pred_fixture`),
+    read by ShelfDataset / CampusDataset and scored with the committed
+    weights through the compiled validator (PCP3D table, frames/s); the
+    same scenes through the 'gt' device path.  On the frames where every
+    joint lands inside every view the two paths' heatmaps differ by at
+    most 2e-5 (host against device rendering), and they must give the
+    same valid slots; in float32 (TF32 off) every person's fused pose
+    within PRED_GT_POSE_TOL mm, and as served (bf16 conv stacks) at least
+    PRED_GT_SHARE_BF16 of them (a bf16 rounding flipped by the heatmaps'
+    last bits can move a proposal's crop by a voxel, 31 mm).
+    Augmentation off."""
+    import copy
+    import tempfile
+
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.datasets import get_dataset
+    from faster_voxelpose_tpu_torch.datasets.evaluate import coco_to_campus_pose, coco_to_shelf_pose
+    from faster_voxelpose_tpu_torch.engine.checkpoint import load_best_npz
+    from faster_voxelpose_tpu_torch.engine.validator import run_validation
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    for snap, name, remap in (("shelf_synthetic_ref", "shelf", coco_to_shelf_pose),
+                              ("campus_synthetic_ref", "campus", coco_to_campus_pose)):
+        cfg = profile(snap)
+        cfg.SYNTHETIC.DATA_AUGMENTATION = cfg.DATASET.DATA_AUGMENTATION = False
+        gt_ds = held_out_dataset(copy.deepcopy(cfg), scenes)
+        cls = get_dataset(name)
+        inside = np.array([all(bool(np.all(v)) for _, vs in gt_ds._gt_joints_2d(rec) for v in vs)
+                           for rec in gt_ds.records])
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+            root = pathlib.Path(tmp)
+            frames = write_pred_fixture(root, gt_ds, cls, remap)
+            for dtype in ("bfloat16", "float32"):
+                mcfg = copy.deepcopy(cfg)
+                mcfg.NETWORK.COMPUTE_DTYPE = dtype
+                model = load_best_npz(str(ROOT / "checkpoints" / snap / "model_best.npz"),
+                                      build_model(mcfg))
+                pcfg = copy.deepcopy(mcfg)
+                d = pcfg.DATASET
+                d.DATADIR, d.TEST_DATASET, d.TEST_HEATMAP_SRC = str(root), name, "pred"
+                pred_ds = cls(pcfg, is_train=False)
+                if pred_ds.used_frames != frames:
+                    raise AssertionError(f"datasets: {name} used frames "
+                                         f"{pred_ds.used_frames[:5]}... of {len(pred_ds)}, "
+                                         f"wrote {len(frames)}")
+                t0 = time.perf_counter()
+                metric, msg, pred = run_validation(pcfg, model, pred_ds, device=CARD)
+                fps = len(pred_ds) / (time.perf_counter() - t0)
+                _, _, gt = run_validation(mcfg, model, gt_ds, device=CARD)
+                valid_p, valid_g = pred[..., 0, 3] >= 0, gt[..., 0, 3] >= 0
+                same_slots = bool((valid_p[inside] == valid_g[inside]).all())
+                both = valid_p & valid_g & inside[:, None]
+                gaps = np.abs(pred[both][..., :3] - gt[both][..., :3]).max(axis=(-1, -2))
+                share = float((gaps <= PRED_GT_POSE_TOL).mean()) if len(gaps) else 0.0
+                need = 1.0 if dtype == "float32" else PRED_GT_SHARE_BF16
+                over = np.sort(gaps[gaps > PRED_GT_POSE_TOL])[::-1]
+                print(f"datasets: {name} 'pred' source from {len(frames)} held-out scenes of "
+                      f"{snap} (GT projected into {cfg.DATASET.CAMERA_NUM} views, rendered on "
+                      f"the host), the committed weights in {dtype} through the compiled "
+                      f"validator: {fps:.3f} frames/s (host rendering in the prefetch thread "
+                      f"included); against the 'gt' device path on the {int(inside.sum())} frames "
+                      f"with every joint inside every view: valid slots "
+                      f"{'equal' if same_slots else 'DIFFER'}, {len(gaps)} people, fused poses "
+                      f"max abs per person: median {np.median(gaps) if len(gaps) else 0:.4g} mm, "
+                      f"{share:.4f} within {PRED_GT_POSE_TOL} mm (limit {need}), over it "
+                      f"{[round(float(g), 3) for g in over[:8]]} | {card}\n{msg}")
+                if not (np.isfinite(pred).all() and inside.sum() > 0 and same_slots
+                        and share >= need and metric > 0.5):
+                    raise AssertionError(f"datasets: {name} 'pred' path in {dtype}: metric "
+                                         f"{metric}, slots equal {same_slots}, share {share}")
+
+
+PANOPTIC_CAMS = [(0, 3), (0, 6), (0, 12), (0, 13), (0, 23)]
+AXIS_SWAP = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0]])
+
+
+def write_panoptic_sequence(root, seq, cams, scenes, interval, size=(1920, 1080)):
+    """A Panoptic sequence in the raw format under root/seq: `cams` (flat
+    calibration, one per HD camera) converted back to Panoptic axes and
+    cm, one joints19 body file per frame index (cm, confidence 1, the
+    scene's 15 joints and 4 more) of which only every `interval`-th is
+    read and written out (the others stay empty), and a 1920x1080 JPEG per
+    camera written once by cv2 and hard-linked into every frame read."""
+    import os
+
+    import cv2
+
+    seq_dir = root / seq
+    anno = seq_dir / "hdPose3d_stage1_coco19"
+    anno.mkdir(parents=True)
+    raw_cams = []
+    for (panel, node), c in zip(PANOPTIC_CAMS, cams):
+        K = np.array([[c["fx"], 0, c["cx"]], [0, c["fy"], c["cy"]], [0, 0, 1.0]], dtype=float)
+        R = np.asarray(c["R"], float)
+        dist = np.zeros(5)
+        dist[[0, 1, 4]] = np.asarray(c["k"]).ravel()
+        dist[[2, 3]] = np.asarray(c["p"]).ravel()
+        raw_cams.append({"panel": panel, "node": node, "K": K.tolist(), "distCoef": dist.tolist(),
+                         "R": (R @ np.linalg.inv(AXIS_SWAP)).tolist(),
+                         "t": (-(R @ np.asarray(c["T"], float).reshape(3, 1)) / 10.0).tolist()})
+    (seq_dir / f"calibration_{seq}.json").write_text(json.dumps({"cameras": raw_cams}))
+    W, H = size
+    ys, xs = np.mgrid[0:H, 0:W]
+    first = []
+    for v, (panel, node) in enumerate(PANOPTIC_CAMS):
+        prefix = f"{panel:02d}_{node:02d}"
+        (seq_dir / "hdImgs" / prefix).mkdir(parents=True)
+        img = np.stack([(xs * (v + 1)) % 256, (ys * 2 + 40 * v) % 256, ((xs + ys) // 4) % 256],
+                       -1).astype(np.uint8)
+        first.append(seq_dir / "hdImgs" / prefix / f"{prefix}.jpg")
+        cv2.imwrite(str(first[-1]), img)
+    for i in range(len(scenes) * interval):
+        path = anno / f"body3DScene_{i:08d}.json"
+        if i % interval:
+            path.write_text("")
+            continue
+        joints = scenes[i // interval].joints_3d
+        bodies = []
+        for pose in joints:
+            j19 = np.zeros((19, 4))
+            j19[:15, :3] = (np.asarray(pose) / 10.0) @ np.linalg.inv(AXIS_SWAP)
+            j19[:15, 3] = 1.0
+            bodies.append({"joints19": j19.ravel().tolist()})
+        path.write_text(json.dumps({"bodies": bodies}))
+        for (panel, node), src in zip(PANOPTIC_CAMS, first):
+            prefix = f"{panel:02d}_{node:02d}"
+            os.link(src, seq_dir / "hdImgs" / prefix / f"{prefix}_{i:08d}.jpg")
+
+
+def image_readings(card, workers=0, val_batches=8, train_steps=6):
+    """The 'image' source at the configs/panoptic/jln64.yaml profile
+    (PanopticDataset, 5 views of 1920x1080 JPEGs decoded and warped to
+    960x512 on the host, uint8 to the card): a validation and a training
+    sequence written here (`write_panoptic_sequence`, the people of
+    held-out scenes of the Panoptic profile on its rig); host ms per
+    sample for decode + warp; one validation through the graphed image
+    step, samples made by the loader (in `workers` spawn processes, or
+    the prefetch thread: the pool's start, about 10 s, would dominate
+    here) with a seeded random model and ResNet-50 backbone, as the images
+    phase; `train_steps` steps of the compiled Trainer on loader-made
+    'images' batches.  Returns the kernels' launches."""
+    import tempfile
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import load_config, profile
+    from faster_voxelpose_tpu_torch.datasets import panoptic
+    from faster_voxelpose_tpu_torch.datasets.demo_data import demo_rig
+    from faster_voxelpose_tpu_torch.datasets.images import load_view_images_u8
+    from faster_voxelpose_tpu_torch.engine.loader import (DataLoader, DatasetFactory,
+                                                          prefetch_to_device)
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+    from faster_voxelpose_tpu_torch.engine.validator import run_validation
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    cfg = load_config(ROOT / "configs" / "panoptic" / "jln64.yaml")
+    cfg.NETWORK.PRETRAINED_BACKBONE = ""
+    cfg.WORKERS = workers
+    B, TB = cfg.TRAIN.BATCH_SIZE, cfg.TEST.BATCH_SIZE
+    src = profile("panoptic_synthetic")  # the same room: its rig and people
+    rig = demo_rig(src)
+    scenes = held_out_dataset(src, max(val_batches * TB, train_steps * B)).records
+    sk.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_panoptic_") as tmp:
+        root = pathlib.Path(tmp)
+        cfg.DATASET.DATADIR = str(root)
+        cams = [rig[k] for k in sorted(rig)]
+        write_panoptic_sequence(root, panoptic.VAL_SEQUENCES[0], cams, scenes[:val_batches * TB], 12)
+        write_panoptic_sequence(root, panoptic.TRAIN_SEQUENCES[0], cams, scenes[:train_steps * B], 3)
+        val_ds = panoptic.PanopticDataset(cfg, is_train=False)
+        train_ds = panoptic.PanopticDataset(cfg, is_train=True)
+        if len(val_ds) != val_batches * TB or len(train_ds) != train_steps * B:
+            raise AssertionError(f"images source: {len(val_ds)} and {len(train_ds)} records")
+        t0 = time.perf_counter()
+        frames = [load_view_images_u8(r.image_paths, cfg.DATASET.IMAGE_SIZE,
+                                      val_ds.resize_transform) for r in val_ds.records[:8]]
+        decode_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+        sample = val_ds[0]
+        torch.manual_seed(0)
+        model, backbone = build_model(cfg).to(CARD), build_backbone(cfg).to(CARD).eval()
+        t0 = time.perf_counter()
+        metric, msg, preds = run_validation(
+            cfg, model, val_ds, device=CARD, backbone=backbone, num_workers=workers,
+            dataset_factory=DatasetFactory("panoptic", cfg, False) if workers else None)
+        val_s = time.perf_counter() - t0
+        tr = Trainer(cfg, model, backbone=backbone)
+        loader = DataLoader(train_ds, B, shuffle=True, drop_last=True, num_workers=workers,
+                            seed=0,
+                            dataset_factory=DatasetFactory("panoptic", cfg, True) if workers else None)
+        losses, steps, t0 = None, 0, time.perf_counter()
+        try:
+            for batch in prefetch_to_device(iter(loader), device=CARD):
+                losses = {k: float(v) for k, v in tr.step(batch).items()}
+                steps += 1
+        finally:
+            loader.close()
+        train_s = time.perf_counter() - t0
+    launches = sk.launch_counts()
+    print(f"datasets: 'image' source at configs/panoptic/jln64.yaml ({cfg.DATASET.CAMERA_NUM} "
+          f"views of 1920x1080 JPEGs -> {tuple(sample['images'].shape)} {sample['images'].dtype}): "
+          f"host ms per sample for decode + warp {decode_ms:.2f}; validation of {len(val_ds)} "
+          f"frames at batch {TB} through the graphed image step (WORKERS {workers}, random "
+          f"model and ResNet-{cfg.RESNET.NUM_LAYERS}) {len(val_ds) / val_s:.3f} frames/s, metric "
+          f"{metric:.4f}; {steps} compiled train steps of batch {B} on loader-made 'images' "
+          f"batches in {train_s:.2f} s (captured: {tr._graph.captured is not None}), last losses "
+          f"{losses}; launches {launches} | {card}")
+    if not (np.isfinite(preds).all() and preds.shape[0] == len(val_ds) and steps == train_steps
+            and tr._graph.captured is not None and all(np.isfinite(list(losses.values())))):
+        raise AssertionError(f"datasets: 'image' source: preds {preds.shape}, steps {steps}, "
+                             f"losses {losses}")
+    return launches
+
+
+def _batch_bytes(batch):
+    return sum(v.nbytes for k, v in batch.items() if not k.startswith("_"))
+
+
+def loader_readings(cfg, label, workers, card, steps=8):
+    """A compiled trainer at `cfg` fed by the loader (host rendering where
+    DEVICE_RENDER is false), seeded random weights: CAPTURE_WARMUP + 1
+    steps to capture, then `steps` with the data in series (make, upload,
+    step, synchronise) and `steps` through prefetch_to_device.  Prints
+    host ms per batch, samples/s both ways, the step's device ms (copy in
+    and one replay, CUDA events) and the upload bytes per step."""
+    import copy
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.datasets import SyntheticDataset
+    from faster_voxelpose_tpu_torch.engine.graphs import CAPTURE_WARMUP
+    from faster_voxelpose_tpu_torch.engine.loader import (DataLoader, DatasetFactory,
+                                                          prefetch_to_device)
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer, batch_to_device
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    cfg = copy.deepcopy(cfg)
+    B = cfg.TRAIN.BATCH_SIZE
+    cfg.SYNTHETIC.NUM_DATA = B * (CAPTURE_WARMUP + 1 + 2 * steps)
+    loader = DataLoader(SyntheticDataset(cfg, is_train=True), B, shuffle=True, drop_last=True,
+                        num_workers=workers, seed=cfg.TRAIN.SEED,
+                        dataset_factory=DatasetFactory("synthetic", cfg, True) if workers else None)
+    try:
+        batches = iter(loader)
+        torch.manual_seed(1)
+        tr = Trainer(cfg, build_model(cfg).to(CARD))
+        for _ in range(CAPTURE_WARMUP + 1):
+            tr.step(batch_to_device(next(batches), CARD))
+        torch.cuda.synchronize()
+        data_ms, device_ms, nbytes = [], [], 0
+        t_start = time.perf_counter()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            data_ms.append((time.perf_counter() - t0) * 1e3)
+            nbytes = _batch_bytes(batch)
+            batch = batch_to_device(batch, CARD)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            losses = tr.step(batch)
+            b.record()
+            b.synchronize()
+            device_ms.append(a.elapsed_time(b))
+        series = steps * B / (time.perf_counter() - t_start)
+        t_start, fed = time.perf_counter(), 0
+        for batch in prefetch_to_device(batches, device=CARD):
+            losses = tr.step(batch)
+            fed += 1
+        torch.cuda.synchronize()
+        prefetched = fed * B / (time.perf_counter() - t_start)
+    finally:
+        loader.close()
+    if fed != steps or not all(torch.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"datasets: {label}: {fed} prefetched steps, losses {losses}")
+    print(f"datasets: train at configs/demo/synthetic.yaml, {label}, WORKERS {workers}: host ms "
+          f"per batch median {np.median(data_ms):.3f}, samples/s in series {series:.3f}, "
+          f"prefetched {prefetched:.3f}; compiled step device ms median {np.median(device_ms):.4f}; "
+          f"upload {nbytes / 1e6:.3f} MB per step of {B} | {card}")
+    return dict(data_ms=float(np.median(data_ms)), series=series, prefetched=prefetched)
+
+
+def host_cost_readings(card, workers=8, num_data=32):
+    """The host's cost of host rendering at configs/demo/synthetic.yaml
+    (5 views, 152x200x15, batch 4) on data that tools/make_demo_data.py
+    writes into a temporary directory: the loader-fed compiled trainer
+    (`loader_readings`) with device rendering, with host rendering in the
+    prefetch thread (WORKERS 0) and in `workers` spawn processes; then
+    tools/train.py on the config in subprocesses, one epoch on `num_data`
+    scenes, once as committed (WORKERS 0) and once with WORKERS
+    `workers`.  Returns the launches of the two training processes."""
+    import re
+    import tempfile
+
+    from faster_voxelpose_tpu_torch.config import load_config
+    from faster_voxelpose_tpu_torch.tools import make_demo_data
+
+    yaml_path = ROOT / "configs" / "demo" / "synthetic.yaml"
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        tmp = pathlib.Path(tmp)
+        make_demo_data.main(["--out", str(tmp / "data" / "Demo")])
+        cfg = load_config(yaml_path)
+        cfg.DATASET.DATADIR = str(tmp / "data" / "Demo")
+        cfg.DATASET.DEVICE_RENDER = True
+        loader_readings(cfg, "device rendering", 0, card)
+        cfg.DATASET.DEVICE_RENDER = False
+        loader_readings(cfg, "host rendering", 0, card)
+        loader_readings(cfg, "host rendering", workers, card)
+        text = yaml_path.read_text()
+        for w in (0, workers):
+            cfg_w = tmp / f"synthetic_w{w}.yaml"
+            cfg_w.write_text(text.replace("WORKERS: 0", f"WORKERS: {w}"))
+            log = _run_tool(["faster_voxelpose_tpu_torch.tools.train", "--cfg", str(cfg_w),
+                             "--epochs", "1", "--num-data", str(num_data), "--snapshot-dir",
+                             str(tmp / f"snap{w}")], tmp, f"train synthetic.yaml WORKERS {w}")
+            speed = re.findall(r"Speed ([0-9.]+) samples/s", log)
+            epochs = re.findall(r"epoch (\d+) trained in ([0-9.]+) s", log)
+            fps = re.findall(r"validated (\d+) frames in [0-9.]+s \(([0-9.]+) frames/s\)", log)
+            print(f"datasets: tools/train.py configs/demo/synthetic.yaml WORKERS {w}, host "
+                  f"rendering, {num_data} scenes: epoch (index, wall s) {epochs}, logged samples/s "
+                  f"{speed}, validation (frames, frames/s) {fps} | {card}")
+            for k, v in json.loads(re.findall(r"kernel launches: (\{.*\})", log)[-1]).items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def datasets_phase(card):
+    """Every dataset and heatmap source on the card: the renderers
+    (`render_readings`), accuracy through host rendering in spawn workers
+    (`host_render_accuracy`), the 'pred' source at Shelf and Campus
+    (`pred_readings`), the 'image' source at the Panoptic jln64 profile
+    (`image_readings`), and the host's cost of host rendering
+    (`host_cost_readings`).  Returns the kernels' launches of the phase,
+    the training subprocesses' included."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    sk.reset_launch_counts()
+    render_readings(card)
+    host_render_accuracy(card)
+    pred_readings(card)
+    launches = sk.launch_counts()
+    for k, v in image_readings(card).items():
+        launches[k] = launches.get(k, 0) + v
+    sk.reset_launch_counts()
+    cli = host_cost_readings(card)
+    for counts in (sk.launch_counts(), cli):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"datasets: launches {launches}")
+    for name in ("sample_whole_projected", "sample_crop_planes"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"datasets: {name} was not launched")
+    return launches
+
+
 def failed_capture_phase(cfg, rig, card):
-    """Negative control, the last phase: a forward that reads a value back
-    to the host cannot be captured, and the service's capture raises and
-    leaves no graph; the service then answers eagerly.  Last, because a
-    failed capture leaves PyTorch's capture state behind (PyTorch 2.11 on
-    an H100: the device generator still counts as capturing, and no later
-    graph's memory pool is given back), so no measured phase may follow it."""
+    """Negative control: a forward that reads a value back to the host
+    cannot be captured, and the service's capture raises and leaves no
+    graph; the service then answers eagerly.  `graphs.capture` puts
+    PyTorch's state back after a failed capture (`abandon_capture`): the
+    device's generator draws again, and `empty_cache` gives the cached
+    memory back (both checked here), so the measured datasets phase runs
+    after this one."""
+    import gc
+
+    import torch
+
     from faster_voxelpose_tpu_torch.engine import PoseService
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
     with np.load(ROOT / "checkpoints/panoptic_synthetic/model_best.npz") as npz:
         variables = {k: npz[k] for k in npz.files}
     frames = [render_frame(make_people(np.random.RandomState(9), 4, cfg.CAPTURE_SPEC.SPACE_CENTER),
@@ -2450,7 +2980,19 @@ def failed_capture_phase(cfg, rig, card):
           f"service then answered eagerly ({after['n_people']} people) | {card}")
     if not after["n_people"]:
         raise AssertionError("compiled: no answer after the failed capture")
-    del bad
+    del bad, after, forward
+    gc.collect()
+    torch.randn(16, device=CARD).sum().item()  # the generator is out of capture mode
+    torch.empty(2 ** 28, device=CARD)  # 1 GiB, freed at once
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    print(f"compiled: after the failed capture the device generator draws, and a 1 GiB block "
+          f"freed, empty_cache leaves {reserved / 2**30:.3f} GiB reserved ({base / 2**30:.3f} GiB "
+          f"before the phase) | {card}")
+    if reserved > base + 2 ** 29:  # unrepaired, the freed 1 GiB block stays reserved
+        raise AssertionError(f"compiled: {reserved} bytes stay reserved after the failed "
+                             f"capture, {base} before it")
 
 
 def released(result, label):
@@ -2465,7 +3007,8 @@ def released(result, label):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"memory after {label}: allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
-          f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB")
+          f"reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB; "
+          f"{time.perf_counter() - T_START:.1f} s from start")
     return result
 
 
@@ -2477,7 +3020,7 @@ def main(argv=None) -> int:
                     help="only the kernel rows (1-7), each timed by tools/timing.py's three "
                          "timers, then their table; no path runs, no result line")
     args = ap.parse_args(argv)
-    t_start = time.perf_counter()
+    t_start = T_START
     import torch
 
     if not torch.cuda.is_available():
@@ -2538,7 +3081,8 @@ def main(argv=None) -> int:
     paths["eval"] = released(eval_phase(card), "eval")
     paths["profiles"] = released(profiles_phase(card), "profiles")
     paths["images"] = released(images_phase(card), "images")
-    failed_capture_phase(cfg, rig, card)
+    released(failed_capture_phase(cfg, rig, card), "failed capture")
+    paths["datasets"] = released(datasets_phase(card), "datasets")
 
     # launches: the run of the path that reaches each kernel (the row's
     # `path`): compiled training and serving for the default route's

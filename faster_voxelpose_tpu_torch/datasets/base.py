@@ -1,14 +1,22 @@
-"""Dataset foundations of the port, the parts synthetic training uses
-(counterpart of `faster_voxelpose_tpu/datasets/base.py`, reference
-lib/dataset/JointsDataset.py): frame records, supervision targets and the
-device renderer's heatmap parameters.
+"""Dataset foundations of the port (counterpart of
+`faster_voxelpose_tpu/datasets/base.py`, reference
+lib/dataset/JointsDataset.py): frame records, supervision targets and
+the three heatmap sources.
 
 Every sample is a dict of fixed-shape numpy arrays padded to MAX_PEOPLE,
 and `collate` stacks them, so that one seed gives the JAX package's
 samples and batches: the augmentation draws run on the same
-`np.random.RandomState` in the same order.  Of the heatmap sources only
-'gt' with DEVICE_RENDER is ported; host rendering and the 'pred' and
-'image' sources are not.
+`np.random.RandomState` in the same order.  The sources:
+- 'gt': the GT poses projected into each view; with DEVICE_RENDER the
+  sample holds the Gaussians' parameters ('hm_params', rendered in the
+  step by `ops/heatmap_render.py`), without it heatmaps rendered on the
+  host ('input_heatmaps');
+- 'pred': heatmaps rendered on the host at precomputed 2D pose
+  predictions ('input_heatmaps');
+- 'image': the views' frames, decoded and warped on the host and shipped
+  as uint8 ('images'; the step normalises them on the device).
+Host rendering runs the native renderer (`native/render.cpp`), built at
+first use; `_render_joints_numpy` is its plain version, for tests.
 """
 
 from __future__ import annotations
@@ -33,11 +41,14 @@ def root_center(joints: np.ndarray, root_id: Union[int, Sequence[int]]) -> np.nd
 
 @dataclasses.dataclass
 class FrameRecord:
-    """One multi-view frame and its ground truth."""
+    """One multi-view frame: ground truth (optional), precomputed 2D pose
+    predictions (optional), image paths (optional)."""
 
     seq: str
     joints_3d: Optional[np.ndarray] = None  # (P, J, 3) mm
     joints_3d_vis: Optional[np.ndarray] = None  # (P, J)
+    pred_pose2d: Optional[list] = None  # per view: list of (J2d, 3) arrays
+    image_paths: Optional[List[str]] = None
 
 
 class PoseDatasetBase:
@@ -84,16 +95,22 @@ class PoseDatasetBase:
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         rec = self.records[idx]
-        if self.heatmap_src != "gt" or not self.cfg.DATASET.DEVICE_RENDER:
-            raise NotImplementedError(
-                f"heatmap source {self.heatmap_src!r} with DEVICE_RENDER "
-                f"{self.cfg.DATASET.DEVICE_RENDER}: the port renders 'gt' "
-                "heatmaps on the device only"
-            )
-        sample: Dict[str, np.ndarray] = {
-            "cameras": self.packed_rig(rec.seq),
-            "hm_params": self._heatmap_params_from_gt(rec),
-        }
+        sample: Dict[str, np.ndarray] = {"cameras": self.packed_rig(rec.seq)}
+        if self.heatmap_src == "pred":
+            sample["input_heatmaps"] = self._heatmaps_from_preds(rec)
+        elif self.heatmap_src == "gt":
+            if self.cfg.DATASET.DEVICE_RENDER:
+                sample["hm_params"] = self._heatmap_params_from_gt(rec)
+            else:
+                sample["input_heatmaps"] = self._heatmaps_from_gt(rec)
+        elif self.heatmap_src == "image":
+            from .images import load_view_images_u8
+
+            sample["images"] = load_view_images_u8(rec.image_paths, self.image_size,
+                                                   self.resize_transform)
+        else:
+            raise ValueError(f"unknown heatmap source {self.heatmap_src!r}; "
+                             "have 'gt', 'pred' and 'image'")
         if rec.joints_3d is not None:
             sample.update(self._build_supervision(rec))
         return sample
@@ -187,6 +204,52 @@ class PoseDatasetBase:
         )
         return float(np.clip(extent**2, 96**2 / 4.0, 4 * 96**2))
 
+    def heatmap_instances(self, joints_2d: list, joints_vis: Optional[list] = None):
+        """The Gaussians of one view as the host renderer takes them:
+        (H, W, J, mu (M, 2) int32, joint_id (M,) int32, sigma, tmp_size,
+        scale (M,) float32, occl (M, 4) int32).  joints_2d: per person
+        (J, >=2) pixel coords in the input-image frame.  Scale-adaptive
+        sigma, the reference's instance gating, and the augmentation draws
+        (`_augment_params`) in the JAX package's order."""
+        W, H = self.heatmap_size
+        J = joints_2d[0].shape[0] if joints_2d else self.num_joints
+        stride = self.image_size / self.heatmap_size
+        mu, joint_id, sigmas, tmps, scales, occls = [], [], [], [], [], []
+        for n in range(len(joints_2d)):
+            scale2 = 2 * self._human_scale(joints_2d[n][:, :2] / stride, np.ones(J))
+            if scale2 == 0:
+                continue
+            cur_sigma = self.sigma * np.sqrt(scale2 / (96.0 * 96.0))
+            tmp = cur_sigma * 3
+            for j in range(J):
+                if joints_vis is not None and joints_vis[n][j] == 0:
+                    continue
+                mu_x = int(joints_2d[n][j][0] / stride[0])
+                mu_y = int(joints_2d[n][j][1] / stride[1])
+                if (int(mu_x - tmp) >= W or int(mu_y - tmp) >= H
+                        or int(mu_x + tmp + 1) < 0 or int(mu_y + tmp + 1) < 0):
+                    continue
+                scale, occl = self._augment_params(j)
+                mu.append((mu_x, mu_y))
+                joint_id.append(j)
+                sigmas.append(cur_sigma)
+                tmps.append(tmp)
+                scales.append(scale)
+                occls.append(occl)
+        return (int(H), int(W), int(J), np.asarray(mu, np.int32).reshape(-1, 2),
+                np.asarray(joint_id, np.int32), np.asarray(sigmas, np.float32),
+                np.asarray(tmps, np.float32), np.asarray(scales, np.float32),
+                np.asarray(occls, np.int32).reshape(-1, 4))
+
+    def render_heatmap(self, joints_2d: list, joints_vis: Optional[list] = None) -> np.ndarray:
+        """Per-joint Gaussians of one view, (H, W, J) channels-last, by the
+        native renderer (`native/render.cpp`; reference
+        generate_input_heatmap, JointsDataset.py:271-338).  Its plain
+        version is `_render_joints_numpy(*self.heatmap_instances(...))`."""
+        from ..native.build import render_joints_native
+
+        return render_joints_native(*self.heatmap_instances(joints_2d, joints_vis))
+
     def _augment_params(self, joint_id: int):
         """Augmentation of one joint instance: magnitude scale and an
         occlusion rectangle [y0, y1, x0, x1) of its local window
@@ -259,6 +322,23 @@ class PoseDatasetBase:
         return np.stack([self.render_heatmap_params(j2d, vis)
                          for j2d, vis in self._gt_joints_2d(rec)], axis=0)
 
+    def _heatmaps_from_preds(self, rec: FrameRecord) -> np.ndarray:
+        """'pred' source: Gaussians at precomputed 2D pose predictions
+        mapped into the input-image frame, (V, H, W, J) (reference
+        JointsDataset.py:144-154)."""
+        views = []
+        for preds in rec.pred_pose2d:
+            mapped = [np.concatenate([affine_transform_points(p[:, :2], self.resize_transform),
+                                      p[:, 2:]], axis=1) for p in preds]
+            views.append(self.render_heatmap(mapped))
+        return np.stack(views, axis=0)
+
+    def _heatmaps_from_gt(self, rec: FrameRecord) -> np.ndarray:
+        """'gt' source, host rendering: the GT poses projected into each
+        view and rendered, (V, H, W, J)."""
+        return np.stack([self.render_heatmap(j2d, vis)
+                         for j2d, vis in self._gt_joints_2d(rec)], axis=0)
+
     def _gt_joints_2d(self, rec: FrameRecord):
         """Per view: (joints_2d, vis_2d) of the GT poses (reference
         JointsDataset.py:156-191); visibility combines GT visibility with
@@ -285,6 +365,37 @@ class PoseDatasetBase:
         """(metric, message) of preds (N, K, J, 5) against the records;
         each dataset brings its own protocol."""
         raise NotImplementedError
+
+
+def _render_joints_numpy(H, W, J, mu, joint_id, sigmas, tmps, scales, occls) -> np.ndarray:
+    """The plain version of `native/render.cpp`: the same windowed
+    Gaussian, occlusion cut and max-accumulation in numpy, (H, W, J)
+    clipped to [0, 1] (the JAX package's fallback renderer)."""
+    out = np.zeros((H, W, J), np.float32)
+    for m in range(mu.shape[0]):
+        mu_x, mu_y = int(mu[m, 0]), int(mu[m, 1])
+        tmp = float(tmps[m])
+        ul = [int(mu_x - tmp), int(mu_y - tmp)]
+        br = [int(mu_x + tmp + 1), int(mu_y + tmp + 1)]
+        if ul[0] >= W or ul[1] >= H or br[0] < 0 or br[1] < 0:
+            continue
+        size = 2 * tmp + 1
+        xs = np.arange(0, size, 1, np.float32)
+        ys = xs[:, None]
+        c = size // 2
+        g = np.exp(-((xs - c) ** 2 + (ys - c) ** 2) / (2 * float(sigmas[m]) ** 2))
+        g = g * scales[m]
+        y0, y1, x0, x1 = occls[m]
+        if y1 > y0:
+            g[y0:y1, x0:x1] = 0.0
+        gx = (max(0, -ul[0]), min(br[0], W) - ul[0])
+        gy = (max(0, -ul[1]), min(br[1], H) - ul[1])
+        ix = (max(0, ul[0]), min(br[0], W))
+        iy = (max(0, ul[1]), min(br[1], H))
+        j = int(joint_id[m])
+        out[iy[0]:iy[1], ix[0]:ix[1], j] = np.maximum(
+            out[iy[0]:iy[1], ix[0]:ix[1], j], g[gy[0]:gy[1], gx[0]:gx[1]])
+    return np.clip(out, 0, 1)
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

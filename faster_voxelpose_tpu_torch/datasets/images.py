@@ -1,12 +1,16 @@
-"""Image normalisation for the backbone (counterpart of
+"""Image loading and normalisation for the backbone (counterpart of
 `faster_voxelpose_tpu/datasets/images.py`, reference run/train.py:60-66:
 ToTensor then ImageNet Normalize), channels last.
 
-`normalize_images_device` runs on the tensor's device, so that frames
-travel to the card as uint8; `normalize_image` and `denormalize_images`
-are the host's numpy forms.  `load_view_images_u8` decodes a frame's
-files with cv2, as the JAX package does; `load_view_images`, which
-normalises on the host with the native warp, is not ported here.
+- `load_view_images_u8`: a frame's files decoded with cv2 and warped to
+  the network's input size, uint8 BGR, as the 'image' source ships them;
+  `normalize_images_device` normalises them on the tensor's device.
+- `load_view_images`: the same frames normalised on the host, float32,
+  through `preprocess_view_native` (cv2's warp, then the native fused
+  normalisation and channel swap of `native/warp.cpp`).  The native
+  code is built at first use; a failed build raises (the JAX package
+  falls back to a numpy chain instead).
+- `normalize_image` and `denormalize_images`: the host's numpy forms.
 """
 
 from __future__ import annotations
@@ -64,6 +68,48 @@ def load_view_images_u8(paths: List[str], image_size,
                                  flags=cv2.INTER_LINEAR)
         views.append(np.ascontiguousarray(img))
     return np.stack(views, axis=0)
+
+
+def load_view_images(paths: List[str], image_size,
+                     resize_transform: Optional[np.ndarray] = None,
+                     color_rgb: bool = True) -> np.ndarray:
+    """One image file per view -> (V, H, W, 3) float32, ImageNet-
+    normalised, RGB when `color_rgb`, each warped to image_size (W, H) by
+    the 2x3 `resize_transform` where it is not at that size already
+    (preprocessed datasets skip the warp, as reference preprocess.py)."""
+    import cv2
+
+    W, H = int(image_size[0]), int(image_size[1])
+    views = []
+    for p in paths:
+        img = cv2.imread(p, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+        if img is None:
+            raise FileNotFoundError(p)
+        if (img.shape[1] != W or img.shape[0] != H) and resize_transform is None:
+            raise ValueError(f"image {p} is {img.shape[1]}x{img.shape[0]}, expected {W}x{H}; "
+                             "pass resize_transform for on-the-fly warping")
+        views.append(preprocess_view_native(img, (W, H), resize_transform, color_rgb))
+    return np.stack(views, axis=0)
+
+
+def preprocess_view_native(img: np.ndarray, image_size,
+                           resize_transform: Optional[np.ndarray],
+                           color_rgb: bool) -> np.ndarray:
+    """A decoded uint8 HWC BGR frame -> (H, W, 3) float32 normalised:
+    cv2's fixed-point bilinear warpAffine on the BGR frame where it is not
+    at image_size (W, H) (the warp commutes with the channel swap), then
+    the native fused normalisation and swap (`native/warp.cpp`
+    normalize_u8).  `native.build.warp_normalize_native` is the fully
+    native single pass, for callers without cv2."""
+    from ..native.build import normalize_u8_native
+
+    W, H = int(image_size[0]), int(image_size[1])
+    if img.shape[1] != W or img.shape[0] != H:
+        import cv2
+
+        img = cv2.warpAffine(img, resize_transform.astype(np.float32), (W, H),
+                             flags=cv2.INTER_LINEAR)
+    return normalize_u8_native(img, IMAGENET_MEAN, IMAGENET_STD, color_rgb)
 
 
 def normalize_image(img: np.ndarray) -> np.ndarray:

@@ -3,8 +3,9 @@
 lib/dataset/synthetic.py): 1..MAX_PEOPLE poses from a pose bank, placed
 at random positions and rotations in the capture space with a retry loop
 that keeps bboxes in bounds, every person visible from >= 2 cameras and
-pairwise IoU near zero.  Heatmaps are rendered on the device from the
-'gt' source's Gaussian parameters.  The draws follow the JAX package's
+pairwise IoU near zero.  The 'gt' source's heatmaps are rendered on the
+host, or on the device from their Gaussian parameters where
+DATASET.DEVICE_RENDER is set.  The draws follow the JAX package's
 order, so one seed gives the same scenes in both packages.
 """
 

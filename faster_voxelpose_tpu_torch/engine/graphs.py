@@ -16,7 +16,8 @@ the host issues one graph launch in place of the step's kernels.
   replayed on every later call with its inputs copied into the graph's
   static inputs.
 
-Nothing here falls back to eager: a capture that fails raises.
+Nothing here falls back to eager: a capture that fails raises, and
+leaves the process as it was before the capture (`abandon_capture`).
 """
 
 from __future__ import annotations
@@ -59,25 +60,57 @@ def run_on(stream: "torch.cuda.Stream", fn: Callable[[], Any], inference: bool =
 
 def capture(fn: Callable[[], Any], stream: "torch.cuda.Stream",
             inference: bool = False) -> Captured:
-    """fn() captured into a CUDA graph on `stream` (its own memory pool,
-    the default of `torch.cuda.graph`, so that graphs replay in any
-    order).  Raises what the capture raises, e.g. for a host
-    synchronisation or a copy from pageable host memory inside fn.  Only
-    this thread's calls are held to the capture's rules
+    """fn() captured into a CUDA graph on `stream` (a memory pool of its
+    own, so that graphs replay in any order).  Raises what the capture
+    raises, e.g. for a host synchronisation or a copy from pageable host
+    memory inside fn, after `abandon_capture` has put PyTorch's state
+    back.  Only this thread's calls are held to the capture's rules
     ("thread_local"): a `prefetch_to_device` thread may pin host memory
     and upload the next batch meanwhile."""
     graph = torch.cuda.CUDAGraph()
+    pool = torch.cuda.graph_pool_handle()
     before = sk.launch_counts()
+    ended = False
     try:
         # the outer stream context restores the caller's stream even when
         # a failed capture leaves torch.cuda.graph's unrestored
         with torch.cuda.stream(stream), _mode(inference), \
-                torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                torch.cuda.graph(graph, pool=pool, stream=stream,
+                                 capture_error_mode="thread_local"):
             outputs = fn()
+        ended = True
     finally:
         launched = {k: n - before[k] for k, n in sk.launch_counts().items() if n != before[k]}
         sk.add_launches({k: -n for k, n in launched.items()})
+        if not ended:
+            abandon_capture(pool, stream.device)
     return Captured(graph, outputs, launched)
+
+
+def abandon_capture(pool, device: torch.device) -> bool:
+    """Undo what a capture into `pool` that never ended leaves behind.
+
+    When a capture is invalidated (a host synchronisation inside it),
+    `CUDAGraph.capture_end` raises before it ends PyTorch's side of the
+    capture (PyTorch 2.11): the caching allocator keeps routing the
+    capture stream's allocations into the pool and, while it counts a
+    capture underway, `empty_cache` gives back none of its cached blocks;
+    and the device's default generator stays in capture mode, so that
+    every later random op on the device raises "Offset increment outside
+    graph capture".  This ends the allocation to the pool, releases the
+    pool and gives the generator a fresh copy of its state (seed and
+    offset kept).  Returns False, and touches nothing, where the capture
+    did end (fn raised without invalidating it)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:  # not allocating to the pool: the capture ended
+        return False
+    torch._C._cuda_releasePool(index, pool)
+    gen = torch.cuda.default_generators[index]
+    gen.graphsafe_set_state(gen.clone_state())
+    return True
 
 
 def replay(captured: Captured) -> Any:

@@ -12,15 +12,16 @@ that batch size (`graphs.GraphedStep`).  Samples are made by the
 loader's prefetch thread, in record order, so that the dataset's
 augmentation draws follow its one RandomState; nothing may call
 `dataset[i]` before the loop starts, or every later draw shifts.
-`make_eval_step` with a backbone gives the image step; `run_validation`
-has no image loader yet (the JAX package's decodes files with cv2).
+`make_eval_step` with a backbone gives the image step, which
+`run_validation` graphs in the same way, fed the batch's uint8 'images'
+or the frames of an `image_loader`.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Mapping, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,20 +70,34 @@ def make_eval_step(cfg: Config, model: nn.Module,
 def run_validation(cfg: Config, model: nn.Module, dataset, batch_size: Optional[int] = None,
                    device: DeviceLike = None, dataset_factory=None,
                    num_workers: Optional[int] = None,
-                   compiled: Optional[bool] = None) -> Tuple[float, str, np.ndarray]:
+                   compiled: Optional[bool] = None, backbone: Optional[PoseResNet] = None,
+                   image_loader: Optional[Callable[[List[int]], np.ndarray]] = None,
+                   ) -> Tuple[float, str, np.ndarray]:
     """Evaluate `model` on every record of `dataset`; returns (metric,
     message, preds (N, K, J, 5)).  Runs on the CUDA device and raises if
-    there is none, unless `device` names another; the model is moved
-    there.  `compiled` (default: true on a CUDA device) replays the eval
-    step from a CUDA graph.  With `dataset_factory`, samples are made by
-    cfg.WORKERS (or `num_workers`) spawn processes; without it, by the
-    prefetch thread."""
+    there is none, unless `device` names another; the model (and the
+    backbone) are moved there.  `compiled` (default: true on a CUDA
+    device) replays the eval step from a CUDA graph.  With
+    `dataset_factory`, samples are made by cfg.WORKERS (or
+    `num_workers`) spawn processes; without it, by the prefetch thread.
+
+    Heatmaps are the batch's 'input_heatmaps' (host rendering), or are
+    rendered on the device from its 'hm_params'.  With `backbone`, the
+    step is the image step: the frames are the batch's 'images' (the
+    'image' source), or `image_loader(record indices)` -> (B, V, ih, iw,
+    3) uint8 where it is given (the JAX package's argument; the padded
+    tail repeats the last index)."""
     device = resolve_device(device)
     pin_float32()
     model = model.to(device).eval()
+    if backbone is not None:
+        backbone = backbone.to(device).eval()
     bs = batch_size or cfg.TEST.BATCH_SIZE
     n = len(dataset)
-    eval_step = make_eval_step(cfg, model)
+    eval_step = make_eval_step(cfg, model, backbone)
+    if backbone is not None:
+        images_step = eval_step
+        eval_step = lambda batch: images_step(batch["images"], batch["cameras"])  # noqa: E731
     if compiled is None:
         compiled = device.type == "cuda"
     if compiled:
@@ -98,11 +113,26 @@ def run_validation(cfg: Config, model: nn.Module, dataset, batch_size: Optional[
     timer = StepTimer()
     t0 = time.perf_counter()
     try:
-        for batch in prefetch_to_device(iter(loader), device=device):
+        for bi, batch in enumerate(prefetch_to_device(iter(loader), device=device)):
             wait_if_bench_locked()
-            key = "input_heatmaps" if "input_heatmaps" in batch else "hm_params"
+            inputs = {"cameras": batch["cameras"]}
+            if backbone is not None:
+                if image_loader is not None:
+                    idxs = list(range(bi * bs, min((bi + 1) * bs, n)))
+                    idxs += [idxs[-1]] * (bs - len(idxs))
+                    inputs["images"] = torch.as_tensor(image_loader(idxs)).to(device)
+                elif "images" in batch:
+                    inputs["images"] = batch["images"]
+                else:
+                    raise ValueError("the image step needs the batch's 'images' (the 'image' "
+                                     "source) or an image_loader")
+            elif "images" in batch:
+                raise ValueError("a batch of 'images' needs the backbone")
+            else:
+                key = "input_heatmaps" if "input_heatmaps" in batch else "hm_params"
+                inputs[key] = batch[key]
             with timer.step() as st:
-                st.set(step({k: batch[k] for k in ("cameras", key)}))
+                st.set(step(inputs))
             all_preds.append(st.result.cpu().numpy()[batch["_valid"]])
     finally:
         loader.close()

@@ -95,7 +95,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg.TRAIN.RESUME = True
     if cfg.TRAIN.VISUALIZATION:
         raise NotImplementedError("TRAIN.VISUALIZATION needs utils/vis.py, which the port "
-                                  "has not yet (ROADMAP.md Queue 1 item 5)")
+                                  "has not yet (ROADMAP.md Queue 1, 'The remaining CLIs and "
+                                  "utils/vis.py')")
+    if cfg.TRAIN.UPDATE_BACKBONE_BN_STATS:
+        raise NotImplementedError("TRAIN.UPDATE_BACKBONE_BN_STATS: the port's backbone is "
+                                  "frozen, its BatchNorm statistics too (ROADMAP.md Queue 1, "
+                                  "'Training with the backbone's BatchNorm statistics')")
     device = resolve_device(args.device)
     pin_float32()
 
@@ -168,7 +173,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     cfg, model, test_ds, device=device,
                     dataset_factory=DatasetFactory(cfg.DATASET.TEST_DATASET, cfg, False)
                     if cfg.WORKERS > 0 else None,
-                    compiled=trainer.compiled)
+                    compiled=trainer.compiled,
+                    backbone=backbone if cfg.DATASET.TEST_HEATMAP_SRC == "image" else None)
                 writer.add_scalar("eval_metric", metric, epoch)
                 is_best = metric > best_metric
                 best_metric = max(metric, best_metric)

@@ -22,6 +22,7 @@ for that one departure.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import pathlib
 import sys
@@ -78,22 +79,49 @@ def held_out_dataset(cfg: Config, scenes: Optional[int] = None) -> SyntheticData
                             cameras=demo_rig(cfg))
 
 
+class HeldOutFactory:
+    """Picklable maker of `held_out_dataset(cfg, scenes)`, for the
+    loader's spawn workers (`engine.loader.DataLoader`'s
+    dataset_factory): each worker generates the same scenes from the
+    seed."""
+
+    def __init__(self, cfg: Config, scenes: Optional[int] = None):
+        self.cfg, self.scenes = cfg, scenes
+
+    def __call__(self) -> SyntheticDataset:
+        return held_out_dataset(copy.deepcopy(self.cfg), self.scenes)
+
+
 def evaluate_snapshot(checkpoint: pathlib.Path = DEFAULT_CHECKPOINT, scenes: Optional[int] = None,
-                      device=None, model=None) -> dict:
+                      device=None, model=None, workers: int = 0,
+                      device_render: Optional[bool] = None,
+                      augmentation: Optional[bool] = None) -> dict:
     """Score checkpoint/model_best.npz on the held-out scenes of its
     profile; returns metric, message, the people detected and the people
     there are, frames per second (scene generation excluded, sample making
     included), the profile and the snapshot's eval record.  `model` takes
-    an already loaded model of the profile in place of the checkpoint's."""
+    an already loaded model of the profile in place of the checkpoint's.
+    `workers` > 0 makes the samples in that many spawn processes;
+    `device_render` and `augmentation`, where given, set the profile's
+    DATASET.DEVICE_RENDER (false: heatmaps rendered on the host) and
+    SYNTHETIC.DATA_AUGMENTATION (the loader's workers draw their own
+    augmentation, so only a reading without it is the same in and out of
+    workers)."""
     checkpoint = pathlib.Path(checkpoint)
     device = resolve_device(device)
     cfg = snapshot_profile(checkpoint)
+    if device_render is not None:
+        cfg.DATASET.DEVICE_RENDER = device_render
+    if augmentation is not None:
+        cfg.SYNTHETIC.DATA_AUGMENTATION = augmentation
     if model is None:
         model = load_best_npz(str(checkpoint / "model_best.npz"), build_model(cfg))
     t0 = time.perf_counter()
     dataset = held_out_dataset(cfg, scenes)
     t1 = time.perf_counter()
-    metric, msg, preds = run_validation(cfg, model, dataset, device=device)
+    metric, msg, preds = run_validation(
+        cfg, model, dataset, device=device,
+        dataset_factory=HeldOutFactory(cfg, scenes) if workers else None, num_workers=workers)
     t2 = time.perf_counter()
     return dict(metric=metric, message=msg, scenes=len(dataset), scene_s=t1 - t0,
                 eval_s=t2 - t1, frames_per_s=len(dataset) / (t2 - t1),

@@ -1091,8 +1091,7 @@ def test_prefetch_feeds_a_replay(dev):
 def test_trainer_capture_with_a_host_synchronisation_raises(dev):
     """A step that reads a value back to the host cannot be captured: the
     step after the warm-up raises, and so does the next one (no eager
-    stand-in).  Last in the file: a failed capture leaves PyTorch's
-    capture state behind (the device generator, the graph's pool)."""
+    stand-in)."""
     from faster_voxelpose_tpu_torch.engine.trainer import Trainer
 
     cfg, model, batches = _train_setup(dev, 6)
@@ -1112,3 +1111,120 @@ def test_trainer_capture_with_a_host_synchronisation_raises(dev):
             tr.step(b)
     assert tr._graph.captured is None
     torch.cuda.synchronize()
+
+
+_CAPTURE_RECOVERY = r"""
+import gc, json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from faster_voxelpose_tpu_torch.engine import graphs
+
+if sys.argv[2] == "unrepaired":
+    graphs.abandon_capture = lambda pool, device: False
+dev = torch.device("cuda")
+stream = torch.cuda.Stream(dev)
+x = torch.randn(1024, device=dev)
+n = 2 ** 28  # 1 GiB of float32
+
+
+def reserved():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def synced():
+    y = x * 2
+    y.sum().item()  # a host synchronisation: invalidates the capture
+    return y
+
+
+def python_error():
+    torch.ones(4, device=dev)
+    raise ValueError("not a CUDA error")
+
+
+out = {"base_gib": reserved() / 2 ** 30, "raised": []}
+for fn in (synced, synced, python_error, synced):
+    try:
+        graphs.capture(fn, stream)
+    except Exception as e:
+        out["raised"].append(type(e).__name__)
+try:
+    torch.randn(8, device=dev).sum().item()
+    out["randn"] = "ok"
+except RuntimeError as e:
+    out["randn"] = str(e).splitlines()[0]
+t = torch.empty(n, device=dev)
+del t
+out["after_eager_gib"] = reserved() / 2 ** 30
+good = graphs.capture(lambda: torch.ones(n, device=dev) + 1, stream)
+graphs.replay(good)
+torch.cuda.synchronize()
+out["replay_ok"] = float(good.outputs[0]) == 2.0 and float(good.outputs[-1]) == 2.0
+del good
+out["after_graph_gib"] = reserved() / 2 ** 30
+print("CAPTURE_RECOVERY " + json.dumps(out))
+"""
+
+
+def _capture_recovery(mode):
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    r = subprocess.run([sys.executable, "-c", _CAPTURE_RECOVERY, str(root), mode],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = next(s for s in r.stdout.splitlines() if s.startswith("CAPTURE_RECOVERY "))
+    print(mode, line)
+    return json.loads(line.split(" ", 1)[1])
+
+
+def test_failed_capture_leaves_the_process_usable(dev):
+    """In a fresh process: three captures invalidated by a host
+    synchronisation and one whose fn raises a Python error each raise,
+    and after them the device's generator draws, an eager 1 GiB block and
+    a 1 GiB graph pool are given back by `empty_cache`, and a new capture
+    replays.  The same script with `abandon_capture` disabled shows the
+    fault it repairs (PyTorch 2.11: the generator left in capture mode,
+    cached blocks never given back); that reading is printed, not held,
+    since a later PyTorch may repair it itself."""
+    fixed = _capture_recovery("repaired")
+    assert len(fixed["raised"]) == 4 and fixed["raised"][2] == "ValueError", fixed
+    assert fixed["randn"] == "ok", fixed
+    assert fixed["replay_ok"], fixed
+    slack = 0.125  # GiB: the allocator's small blocks and the context's workspace
+    assert fixed["after_eager_gib"] <= fixed["base_gib"] + slack, fixed
+    assert fixed["after_graph_gib"] <= fixed["base_gib"] + slack, fixed
+    _capture_recovery("unrepaired")
+
+
+@pytest.mark.parametrize("aug", [False, True])
+@pytest.mark.parametrize("name", ["panoptic_synthetic", "shelf_synthetic_ref",
+                                  "campus_synthetic_ref"])
+def test_host_rendering_matches_the_device_renderer(dev, name, aug):
+    """Host rendering (native/render.cpp) against ops/heatmap_render.py on
+    the card, each view of two held-out scenes from the same draws:
+    within 2e-5, the JAX package's tolerance for its two renderers."""
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.ops.heatmap_render import render_heatmaps_device
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    ds = held_out_dataset(profile(name), 2)
+    ds.data_augmentation = aug
+    W, H = (int(v) for v in ds.heatmap_size)
+    peak = 0.0
+    for rec in ds.records:
+        for j2d, vis in ds._gt_joints_2d(rec):
+            state = ds._rng.get_state()
+            host = ds.render_heatmap(j2d, vis)
+            ds._rng.set_state(state)
+            params = torch.as_tensor(ds.render_heatmap_params(j2d, vis), device=dev)
+            got = render_heatmaps_device(params[None], H, W)[0].cpu().numpy()
+            np.testing.assert_allclose(got, host, rtol=0, atol=2e-5)
+            peak = max(peak, float(host.max()))
+    assert peak > 0.3

@@ -340,12 +340,17 @@ def test_make_demo_data_matches_the_script(tmp_path, monkeypatch):
 
 
 def test_get_dataset_names_what_is_not_ported():
-    from faster_voxelpose_tpu_torch.datasets import SyntheticDataset, get_dataset
+    """Every dataset of the JAX package's registry is ported; an unknown
+    name raises KeyError, as in the JAX package."""
+    from faster_voxelpose_tpu.datasets import DATASETS as JAX_DATASETS
+    from faster_voxelpose_tpu_torch.datasets import (CampusDataset, PanopticDataset,
+                                                     ShelfDataset, SyntheticDataset, get_dataset)
 
-    assert get_dataset("synthetic") is SyntheticDataset
-    for name in ("panoptic", "shelf", "campus"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            get_dataset(name)
+    ours = {"synthetic": SyntheticDataset, "panoptic": PanopticDataset, "shelf": ShelfDataset,
+            "campus": CampusDataset}
+    assert set(ours) == set(JAX_DATASETS)
+    for name, cls in ours.items():
+        assert get_dataset(name) is cls
     with pytest.raises(KeyError):
         get_dataset("coco")
 
@@ -376,6 +381,77 @@ def test_bench_lock_is_the_jax_packages(tmp_path):
     assert bench_lock.wait_if_bench_locked(path) == 0.0
     with bench_lock.hold_bench_lock(path):
         assert pathlib.Path(path).exists()
+    assert not pathlib.Path(path).exists()
+
+
+def test_bench_lock_refuses_or_waits_for_a_second_holder(tmp_path, monkeypatch):
+    """The JAX copy opens the lock with "w": a second holder overwrites
+    it and the first one's exit removes the second's lock.  The port's
+    refuses a fresh lock, or waits for it, and leaves it to its maker."""
+    import time
+
+    from faster_voxelpose_tpu_torch.utils import bench_lock
+
+    monkeypatch.setattr(bench_lock, "POLL_S", 0.02)
+    path = str(tmp_path / "lock")
+    with bench_lock.hold_bench_lock(path):
+        first = pathlib.Path(path).read_text()
+        with pytest.raises(bench_lock.BenchLockHeld, match="is held"):
+            with bench_lock.hold_bench_lock(path):
+                pass
+        assert pathlib.Path(path).read_text() == first  # not overwritten, not removed
+
+    held, order = threading.Event(), []
+
+    def first_holder():
+        with bench_lock.hold_bench_lock(path):
+            held.set()
+            time.sleep(0.3)
+            order.append("first out")
+
+    t = threading.Thread(target=first_holder)
+    t.start()
+    held.wait(5)
+    t0 = time.monotonic()
+    with bench_lock.hold_bench_lock(path, wait_s=10):
+        order.append("second in")
+        assert time.monotonic() - t0 >= 0.1
+        assert pathlib.Path(path).exists()
+    t.join()
+    assert order == ["first out", "second in"]
+    assert not pathlib.Path(path).exists()
+
+    # a stale lock (a crashed holder) is taken over at once
+    pathlib.Path(path).write_text("crashed")
+    old = time.time() - bench_lock.STALE_S - 10
+    import os
+
+    os.utime(path, (old, old))
+    with bench_lock.hold_bench_lock(path):
+        assert pathlib.Path(path).read_text() != "crashed"
+    assert not pathlib.Path(path).exists()
+
+
+def test_bench_lock_stays_fresh_through_a_long_hold(tmp_path, monkeypatch):
+    """A hold longer than STALE_S keeps the lock: its mtime is refreshed
+    every STALE_S / 4, so waiters go on waiting (the JAX copy's lock
+    goes stale under a long run)."""
+    import time
+
+    from faster_voxelpose_tpu_torch.utils import bench_lock
+
+    monkeypatch.setattr(bench_lock, "STALE_S", 0.4)
+    monkeypatch.setattr(bench_lock, "POLL_S", 0.02)
+    path = str(tmp_path / "lock")
+    ages = []
+    with bench_lock.hold_bench_lock(path):
+        for _ in range(12):  # 1.2 s, three times STALE_S
+            time.sleep(0.1)
+            ages.append(bench_lock._lock_age(path))
+        with pytest.raises(bench_lock.BenchLockHeld):
+            with bench_lock.hold_bench_lock(path):
+                pass
+    assert all(a is not None and a < bench_lock.STALE_S for a in ages), ages
     assert not pathlib.Path(path).exists()
 
 
