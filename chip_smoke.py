@@ -57,7 +57,17 @@ another committed snapshot's profile (`config.profile`):
    subprocesses in a temporary directory (tools/make_demo_data.py, then
    tools/train.py on configs/demo/panoptic_synthetic.yaml: 2 epochs on
    64 scenes, then --resume to a third; the snapshot served; nothing
-   under checkpoints/ changed, by hash);
+   under checkpoints/ changed, by hash), and the other CLIs there:
+   tools/validate.py --cfg on that config's first 64 held-out scenes
+   against `evaluate_snapshot` on the same scenes (the committed
+   snapshot, the same metric table), again with TEST.VISUALIZATION (the
+   drawings decode), tools/train.py one epoch with TRAIN.VISUALIZATION
+   (the drawings, the losses of the step after one finite), tools/demo.py
+   on a calibration JSON of the served dome rig, 5 JPEGs and upstream
+   checkpoints of the committed weights and a seeded ResNet-50 (--repeat
+   20, its latency printed; every slot against a PoseService on the same
+   files within 0.01), tools/preprocess.py twice on a written Panoptic
+   sequence (20 frames resized, then none);
 7. window phase: the window kernel (windowed sampling from the live taps
    of a footprint staged in shared memory, csrc/window.cu) in each of its
    nine instantiations against its plain version on 64 blocks at spreads
@@ -115,7 +125,16 @@ another committed snapshot's profile (`config.profile`):
    and ResNet-50); the host's cost: a loader-fed compiled trainer at
    configs/demo/synthetic.yaml with device rendering and with host
    rendering in the prefetch thread and in 8 workers, then tools/train.py
-   on that config with WORKERS 0 and 8.
+   on that config with WORKERS 0 and 8;
+13. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
+   compiled DP train step (collectives in its CUDA graph) against the
+   compiled Trainer on one batch of 4 at the Panoptic profile in float32,
+   and the DP eval step against run_validation on 8 held-out scenes; two
+   ranks over gloo on the card in spawned processes: DP train in float64
+   conv stacks (3 free steps' losses; every parameter after each step
+   from one process's state), DP eval, the view-sharded forward at V = 4;
+   PipelinedStream on two CUDA streams, 24 frames of 5 uint8 960x512
+   images against the serial path, frames/s of both.
 The serving phase (PoseService with the committed panoptic_synthetic
 weights answering 24 rendered 1-6-person frames: the default route's two
 kernels, the projected whole-space sampler and the crop sampler, launch
@@ -1322,9 +1341,11 @@ def _tree_digest(root):
     return h.hexdigest()
 
 
-def _run_tool(args, cwd, label):
+def _run_tool(args, cwd, label, fails_with=None):
     """python -m <args> in `cwd` with the checkout importable; raises with
-    its output when it fails; returns its standard output and error."""
+    its output when it fails (or, given `fails_with`, unless it fails
+    with that text in its output); returns its standard output and
+    error."""
     import os
     import subprocess
 
@@ -1333,9 +1354,9 @@ def _run_tool(args, cwd, label):
     proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=300)
     out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    if (proc.returncode != 0) != (fails_with is not None) or (fails_with or "") not in out:
         raise AssertionError(f"cli: {label} exited {proc.returncode}:\n{out[-4000:]}")
-    print(f"cli: {label} exited 0 in {time.perf_counter() - t0:.1f} s")
+    print(f"cli: {label} exited {proc.returncode} in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1408,15 +1429,255 @@ def cli_phase(card, num_data=64):
         answer = svc.infer_heatmaps(frame)
         print(f"cli: snapshot of epoch {record['epoch']} (metric {record['metric']:.4f}) served: "
               f"{answer['n_people']} people in {answer['latency_ms']} ms | {card}")
-        launches = {}
-        for log in logs:
-            counts = json.loads(re.findall(r"kernel launches: (\{.*\})", log)[-1])
-            for k, v in counts.items():
-                launches[k] = launches.get(k, 0) + v
+        launches = _summed_launches(logs)
+        print(f"cli: launches in the two training processes {launches}")
+        tool_logs = cli_validate(tmp, card) + cli_panoptic(tmp, card) + cli_demo(tmp, card)
+        for k, v in _summed_launches(tool_logs).items():
+            launches[k] = launches.get(k, 0) + v
     if _tree_digest(ROOT / "checkpoints") != before:
         raise AssertionError("cli: a file under checkpoints/ changed")
-    print(f"cli: launches in the two training processes {launches}; checkpoints/ unchanged")
+    print(f"cli: launches in every tool process {launches}; checkpoints/ unchanged")
     return launches
+
+
+def _summed_launches(logs):
+    """The kernel launches that each tool's log reports last, summed."""
+    import re
+
+    launches = {}
+    for log in logs:
+        for k, v in json.loads(re.findall(r"kernel launches: (\{.*\})", log)[-1]).items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _config_variant(dst, edits, src=ROOT / "configs" / "demo" / "panoptic_synthetic.yaml"):
+    """A copy of a committed config at `dst` with each (old, new) edit made
+    where `old` stands once; the stem stays the source's, so that the
+    validator's fallback finds the same committed snapshot."""
+    text = src.read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise AssertionError(f"cli: {old!r} is not once in {src}")
+        text = text.replace(old, new)
+    dst.mkdir(parents=True, exist_ok=True)
+    (dst / src.name).write_text(text)
+    return dst / src.name
+
+
+def cli_validate(tmp, card, scenes=64):
+    """tools/validate.py --cfg in a subprocess, in `tmp` where
+    tools/make_demo_data.py wrote data/DemoPanoptic: on the Panoptic
+    profile's first `scenes` held-out scenes it scores the committed
+    snapshot as `evaluate_snapshot` does (the same message).  Returns its
+    log."""
+    import re
+
+    from faster_voxelpose_tpu_torch.tools.validate import evaluate_snapshot
+
+    logs = []
+    snapshot = ROOT / "checkpoints" / "panoptic_synthetic"
+    val = _config_variant(tmp / "validate", [("  NUM_DATA: 5000", f"  NUM_DATA: {scenes}"),
+                                             ("OUTPUT_DIR: 'output'", "OUTPUT_DIR: 'output_validate'")])
+    log = _run_tool(["faster_voxelpose_tpu_torch.tools.validate", "--cfg", str(val), "--device",
+                     CARD], tmp, "validate --cfg")
+    logs.append(log)
+    res = evaluate_snapshot(snapshot, scenes, CARD)
+    loaded = re.findall(r"=> loaded best model (\S+)", log)
+    printed = re.findall(r"^metric: ([0-9.]+)$", log, re.M)
+    print(f"cli: validate --cfg {val.name} ({scenes} scenes) loaded {loaded}, printed metric "
+          f"{printed}; evaluate_snapshot on the same scenes {res['metric']:.4f} | {card}")
+    if loaded != [str(snapshot / "model_best.npz")] or printed != [f"{res['metric']:.4f}"] \
+            or res["message"] not in log:
+        raise AssertionError(f"cli: validate --cfg does not score what evaluate_snapshot scores:\n"
+                             f"{log[-3000:]}\n{res['message']}")
+
+    return logs
+
+
+def cli_demo(tmp, card, repeat=20):
+    """tools/demo.py in `tmp` on a calibration JSON of the served dome rig,
+    5 JPEGs of 1920x1080 and upstream checkpoints of the committed
+    weights and a seeded ResNet-50, --repeat 20, against a PoseService on
+    the same files.  Returns its log."""
+    import importlib.util
+    import re
+
+    import cv2
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.datasets.images import load_view_images_u8
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry.example_rigs import dome_camera
+    from faster_voxelpose_tpu_torch.geometry.transforms import get_resize_transform
+    from faster_voxelpose_tpu_torch.weights import to_jax_variables
+
+    cfg = panoptic_synthetic_profile()
+    V = cfg.DATASET.CAMERA_NUM
+    cams = {str(i): {k: np.asarray(v).tolist() for k, v in
+                     dome_camera(i, V, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER).items()}
+            for i in range(V)}
+    (tmp / "calibration.json").write_text(json.dumps(cams))
+    rng = np.random.RandomState(11)
+    images = [str(tmp / f"view{v}.jpg") for v in range(V)]
+    for path in images:
+        cv2.imwrite(path, rng.randint(0, 256, (1080, 1920, 3), np.uint8))
+    model, backbone = _upstream_checkpoints(tmp)
+    # the plane figure needs matplotlib, which the card's machine may lack:
+    # there the demo fails at the figure, after writing the poses
+    plotting = importlib.util.find_spec("matplotlib") is not None
+    log = _run_tool(["faster_voxelpose_tpu_torch.tools.demo", "--cfg",
+                     str(ROOT / "configs" / "demo" / "panoptic_synthetic.yaml"), "--calibration",
+                     str(tmp / "calibration.json"), "--images", *images, "--torch-weights",
+                     str(tmp / "model.pth"), "--backbone-weights", str(tmp / "backbone.pth"),
+                     "--out", str(tmp / "demo_out"), "--repeat", str(repeat), "--device", CARD],
+                    tmp, f"demo --repeat {repeat}",
+                    fails_with=None if plotting else "No module named 'matplotlib'")
+    fused = np.load(tmp / "demo_out" / "fused_poses.npy")
+    svc = PoseService(cfg, to_jax_variables(model.state_dict()),
+                      to_jax_variables(backbone.state_dict()), device=CARD, aot=False)
+    svc.set_rig_from_calibration(str(tmp / "calibration.json"))
+    svc.warmup(("images_u8",))
+    d = cfg.DATASET
+    want = svc.infer_images_raw(load_view_images_u8(
+        images, d.IMAGE_SIZE, get_resize_transform(d.ORI_IMAGE_SIZE, d.IMAGE_SIZE)))[0][0]
+    valid = want[:, 0, 3] >= 0
+    gap = float(np.abs(fused - want).max()) if fused.shape == want.shape else float("inf")
+    latency = re.findall(r"steady-state latency: .*", log)
+    print(f"cli: demo, 5 JPEGs of 1920x1080 through the 'images_u8' graph: {latency}; "
+          f"{int(valid.sum())} people; every slot's fused pose, flag and score against a "
+          f"PoseService on the same files: largest gap {gap:.3g} | {card}")
+    drawn = (tmp / "demo_out" / "demo_2d_planes.png").exists()
+    if not (np.isfinite(fused).all() and latency and gap <= 0.01 and drawn == plotting):
+        raise AssertionError(f"cli: demo:\n{log[-3000:]}")
+    return [log]
+
+
+def _upstream_checkpoints(tmp):
+    """The committed panoptic_synthetic weights and a seeded ResNet-50 as
+    upstream checkpoints under `tmp` (what --torch-weights and
+    --backbone-weights read); returns (model, backbone) as loaded."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.checkpoint import load_best_npz
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone
+    from faster_voxelpose_tpu_torch.weights import upstream_backbone, upstream_model
+
+    cfg = panoptic_synthetic_profile()
+    model = load_best_npz(str(ROOT / "checkpoints" / "panoptic_synthetic" / "model_best.npz"),
+                          build_model(cfg))
+    torch.manual_seed(0)
+    backbone = build_backbone(cfg)
+    if not (tmp / "model.pth").exists():
+        torch.save({"state_dict": upstream_model(model.state_dict())}, tmp / "model.pth")
+        torch.save(upstream_backbone(backbone.state_dict(), cfg.RESNET.NUM_LAYERS),
+                   tmp / "backbone.pth")
+    return model, backbone
+
+
+def cli_panoptic(tmp, card):
+    """The CLIs on Panoptic sequences of 1920x1080 JPEGs written in `tmp`
+    under configs/panoptic/jln64.yaml's DATADIR (4 validation frames, 8
+    training frames, 5 views, the people of held-out scenes on the
+    profile's rig): tools/validate.py --cfg with the 'image' source, an
+    upstream checkpoint of the committed weights (--torch-weights), a
+    seeded ResNet-50 and TEST.VISUALIZATION; tools/train.py one epoch (2
+    steps of 4) on 'images' with TRAIN.VISUALIZATION; then
+    tools/preprocess.py twice on a tree of its own (one frame of each
+    sequence: every image resized to 960x512 once, then none), in a
+    thread beside the validation and the training.  The drawings are 'image_with_poses', which needs cv2 alone
+    (matplotlib, which the plane and heatmap figures need, may be absent
+    beside the card).  Returns the logs."""
+    import math
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.datasets import panoptic
+    from faster_voxelpose_tpu_torch.datasets.demo_data import demo_rig
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    src = profile("panoptic_synthetic")
+    rig = demo_rig(src)
+    cams = [rig[k] for k in sorted(rig)]
+    scenes = held_out_dataset(src, 16).records
+    root = tmp / "data" / "Panoptic"  # configs/panoptic/jln64.yaml's DATADIR, from tmp
+    write_panoptic_sequence(root, panoptic.VAL_SEQUENCES[0], cams, scenes[:4], 12)
+    write_panoptic_sequence(root, panoptic.TRAIN_SEQUENCES[0], cams, scenes[:8], 3)
+    pre = tmp / "pre" / "data" / "Panoptic"  # preprocess's tree, from tmp / "pre"
+    write_panoptic_sequence(pre, panoptic.VAL_SEQUENCES[0], cams, scenes[:1], 12)
+    write_panoptic_sequence(pre, panoptic.TRAIN_SEQUENCES[0], cams, scenes[1:2], 3)
+    for p in sorted(pre.rglob("*.jpg")):  # a file of its own per frame: no shared inode
+        data = p.read_bytes()
+        p.unlink()
+        p.write_bytes(data)
+    _upstream_checkpoints(tmp)
+    jln64 = ROOT / "configs" / "panoptic" / "jln64.yaml"
+
+    def preprocess_twice():
+        return [re.findall(r"^resized (\d+) images", _run_tool(
+            ["faster_voxelpose_tpu_torch.tools.preprocess", "--cfg", str(jln64), "--workers", "2"],
+            tmp / "pre", f"preprocess, run {run}"), re.M) for run in (1, 2)]
+
+    # preprocess needs no card: its two runs go on beside the validation and
+    # training subprocesses, whose times no check reads
+    pool = ThreadPoolExecutor(1)
+    preprocessed = pool.submit(preprocess_twice)
+    common = [("WORKERS: 8", "WORKERS: 0"),
+              ('"backbone/pose_resnet50_panoptic.pth.tar"', f'"{tmp / "backbone.pth"}"')]
+    logs = []
+    val = _config_variant(tmp / "vis", common + [
+        ("OUTPUT_DIR: 'output'", "OUTPUT_DIR: 'output_vis'"),
+        ("  MODEL_FILE: 'model_best'\n  BATCH_SIZE: 8\n  VISUALIZATION: false",
+         "  MODEL_FILE: 'model_best'\n  BATCH_SIZE: 8\n  VISUALIZATION: true\n"
+         "  VIS_TYPE: ['image_with_poses']")], src=jln64)
+    log = _run_tool(["faster_voxelpose_tpu_torch.tools.validate", "--cfg", str(val),
+                     "--torch-weights", str(tmp / "model.pth"), "--device", CARD], tmp,
+                    "validate --cfg, 'image' source, TEST.VISUALIZATION")
+    logs.append(log)
+    vis_dir = tmp / "output_vis" / "panoptic" / "jln64" / "validation_vis"
+    want = {f"val_{i:04d}_view{v}_poses.jpg" for i in range(4) for v in range(5)}
+    drawn = {p.name for p in vis_dir.iterdir()} if vis_dir.is_dir() else set()
+    metric = re.findall(r"^metric: ([0-9.]+)$", log, re.M)
+    print(f"cli: validate --cfg at jln64 ('image' source, upstream checkpoints): metric {metric}; "
+          f"TEST.VISUALIZATION drew {len(drawn)} frames")
+    if drawn != want or any(cv2.imread(str(vis_dir / n)) is None for n in want) or not metric:
+        raise AssertionError(f"cli: validation drawings {sorted(drawn)}:\n{log[-3000:]}")
+
+    tv = _config_variant(tmp / "trainvis", common + [
+        ("OUTPUT_DIR: 'output'", "OUTPUT_DIR: 'output_trainvis'"),
+        ("TRAIN:\n  BATCH_SIZE: 8", "TRAIN:\n  BATCH_SIZE: 4"),
+        ("PRINT_FREQ: 100", "PRINT_FREQ: 1"),
+        ("  VISUALIZATION: false\n\nTEST:", "  VISUALIZATION: true\n  VIS_TYPE: ['image_with_poses']"
+                                            "\n\nTEST:")], src=jln64)
+    log = _run_tool(["faster_voxelpose_tpu_torch.tools.train", "--cfg", str(tv), "--epochs", "1",
+                     "--snapshot-dir", str(tmp / "snap_vis"), "--device", CARD], tmp,
+                    "train, 'image' source, TRAIN.VISUALIZATION")
+    logs.append(log)
+    tv_dir = tmp / "output_trainvis" / "panoptic" / "jln64" / "train_vis"
+    drawn = sorted(p.name for p in tv_dir.iterdir()) if tv_dir.is_dir() else []
+    after = re.findall(r"Epoch \[0\]\[1/2\].* Loss (\S+) \(2d (\S+) 1d (\S+) bbox (\S+) "
+                       r"joint (\S+)\)", log)
+    print(f"cli: TRAIN.VISUALIZATION drew {len(drawn)} frames; losses of step 1, after the "
+          f"drawing of step 0: {after}")
+    if drawn != sorted(f"0_{i:06d}_{s:04d}_view{v}_poses.jpg" for i in range(2) for s in range(4)
+                       for v in range(5)) \
+            or len(after) != 1 or not all(math.isfinite(float(x)) for x in after[0]):
+        raise AssertionError(f"cli: train with TRAIN.VISUALIZATION:\n{log[-3000:]}")
+
+    resized = preprocessed.result()
+    pool.shutdown()
+    frames = sorted(p for p in pre.rglob("*_*_*.jpg"))
+    sizes = {cv2.imread(str(p)).shape[:2] for p in frames}
+    print(f"cli: preprocess resized {resized[0]} of {len(frames)} frames, then {resized[1]}; "
+          f"sizes now {sorted(sizes)}")
+    if resized != [[str(len(frames))], ["0"]] or sizes != {(512, 960)} or len(frames) != 10:
+        raise AssertionError(f"cli: preprocess: {resized}, {len(frames)} frames, sizes {sizes}")
+    return logs
 
 
 def serving_phase(cfg, rig, card, rng):
@@ -2995,6 +3256,430 @@ def failed_capture_phase(cfg, rig, card):
                              f"capture, {base} before it")
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _states_equal(a, b, rtol=2e-4, atol=2e-6):
+    """(every tensor within rtol/atol, bit for bit, the largest gap) of two
+    state dicts of one model."""
+    import torch
+
+    gaps = {k: (a[k].double() - b[k].double()).abs() for k in a}
+    within = all(bool((g <= atol + rtol * b[k].double().abs()).all()) for k, g in gaps.items())
+    return (within, all(torch.equal(a[k], b[k]) for k in a),
+            max(float(g.max()) for g in gaps.values()))
+
+
+def _eval_batches(cfg, scenes):
+    """The held-out scenes' samples in record order (as the validator's
+    loader makes them), collated by TEST.BATCH_SIZE, heatmaps rendered on
+    the card: [(heatmaps, cameras)]."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.datasets import collate
+    from faster_voxelpose_tpu_torch.ops.heatmap_render import render_heatmaps_device
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    ds = held_out_dataset(cfg, scenes)
+    W, H = cfg.DATASET.HEATMAP_SIZE
+    bs = cfg.TEST.BATCH_SIZE
+    out = []
+    for i in range(0, scenes, bs):
+        b = collate([ds[j] for j in range(i, i + bs)])
+        out.append((render_heatmaps_device(torch.as_tensor(b["hm_params"]).to(CARD), H, W),
+                    torch.as_tensor(b["cameras"]).to(CARD)))
+    return out
+
+
+def _trajectory(cfg, weights, batch, steps=3):
+    """One process's Trainer (eager) on the card from `weights`: the
+    losses of `steps` steps and its state (numpy) before each step and
+    after the last."""
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    model = build_model(cfg)
+    model.load_state_dict(weights)
+    tr = Trainer(cfg, model.to(CARD), compiled=False)
+    states, losses = [_host(tr.state_dict())], []
+    for _ in range(steps):
+        losses.append([float(v) for v in tr.step(batch).values()])
+        states.append(_host(tr.state_dict()))
+    return np.array(losses), states
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def _as_tensors(state):
+    import torch
+
+    return {k: torch.as_tensor(v) for k, v in state.items()}
+
+
+def _tensors(tree, device):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)
+
+
+def _gloo_rank(rank, world, port, job_path, out_path, device):
+    """One rank of the two-rank gloo group on the one card: the DP train
+    step (3 free steps, then each step from one process's state before
+    it), the DP eval step and the view-sharded forward, on the job's
+    inputs; writes its results (and its kernel launches) to out_path."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from faster_voxelpose_tpu_torch.device import pin_float32
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.parallel import (Sharding, make_dp_eval_step,
+                                                     make_dp_train_step, make_mesh,
+                                                     make_view_sharded_forward, shard_batch)
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    pin_float32()
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    out = {}
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        mesh = make_mesh(world)  # no device named: the card, under gloo too
+        if mesh.device != torch.device(device, 0):
+            raise AssertionError(f"make_mesh under gloo chose {mesh.device}, not the card")
+
+        def model_of(cfg, weights):
+            model = build_model(cfg)
+            model.load_state_dict(_tensors(weights, "cpu"))
+            return model
+
+        sk.reset_launch_counts()
+        tr = make_dp_train_step(job["cfg64"], model_of(job["cfg64"], job["weights64"]), mesh,
+                                compiled=False)
+        shard = shard_batch(job["batch"], mesh)
+        out["losses"] = np.array([[float(v) for v in tr.step(shard).values()] for _ in range(3)])
+        out["states"] = []
+        for before in job["states"][:-1]:
+            tr.load_state_dict(_tensors(before, device))
+            tr.step(shard)
+            out["states"].append(_host(tr.model.state_dict()))
+        eval_step = make_dp_eval_step(job["cfg"], model_of(job["cfg"], job["weights"]), mesh)
+        out["eval"] = [eval_step(*shard_batch({"h": h, "c": c}, mesh).values()).cpu().numpy()
+                       for h, c in job["eval"]]
+        forward = make_view_sharded_forward(job["view_cfg"],
+                                            model_of(job["view_cfg"], job["weights"]), mesh)
+        views = Sharding(mesh, 1)
+        out["view"] = forward(views.shard(job["view_hm"]), views.shard(job["view_cams"])).cpu().numpy()
+        out["launches"] = sk.launch_counts()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def scale_out_phase(card, steps=5):
+    """`parallel/mesh.py` on the one card.  (1) One rank over NCCL: the
+    compiled DP train step (its collectives captured into the trainer's
+    CUDA graph) against the compiled single-process Trainer, `steps`
+    steps of one batch of 4 synthetic scenes at the Panoptic profile in
+    float32 from one seeded model: the losses of the free steps, the state
+    after them (rtol 2e-4, atol 1e-5), and every parameter and BatchNorm
+    statistic after each step replayed from the Trainer's state before it
+    (bit for bit on the eager steps, rtol 2e-4 and atol 1e-5 on all);
+    beside them, as the witness of what two runs
+    of one graph give, a second compiled Trainer from the same seed
+    against the first; the DP eval step against run_validation's
+    poses on 8 held-out scenes with the committed weights.  (2) Two ranks
+    over gloo on the card in spawned subprocesses (compiled=False), which
+    start before (1) and run beside it: DP
+    train in float64 conv stacks (as the CPU tests: float32 rounding of
+    gradients that are zero in exact arithmetic makes Adam's sign-like
+    steps part free trajectories), the losses of 3 free steps and every
+    parameter after each step taken from one process's state; DP eval;
+    the view-sharded forward at V = 4 over 2 ranks.  (3) PipelinedStream
+    on two CUDA streams: 24 frames of 5 uint8 960x512 images, committed
+    weights and a seeded ResNet-50 in float32, against the serial path
+    per frame with the one-frame lag; frames/s of both.  Tolerances are
+    the CPU tests' (tests/test_torch_parallel.py).  Returns the kernel
+    launches of the DP steps, the ranks and the stream."""
+    import copy
+    import multiprocessing as mp
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from faster_voxelpose_tpu_torch.config import panoptic_synthetic_profile
+    from faster_voxelpose_tpu_torch.engine.checkpoint import load_best_npz
+    from faster_voxelpose_tpu_torch.engine.graphs import CAPTURE_WARMUP
+    from faster_voxelpose_tpu_torch.engine.trainer import Trainer
+    from faster_voxelpose_tpu_torch.engine.validator import run_validation
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone, images_to_heatmaps
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.parallel import (PipelinedStream, make_dp_eval_step,
+                                                     make_dp_train_step, make_mesh, shard_batch)
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    launches = {}
+
+    def count(fn):
+        sk.reset_launch_counts()
+        result = fn()
+        for k, v in sk.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return result
+
+    snapshot = str(ROOT / "checkpoints" / "panoptic_synthetic" / "model_best.npz")
+    cfg = panoptic_synthetic_profile()
+    cfg.NETWORK.COMPUTE_DTYPE = "float32"
+    batch = next(iter(synthetic_loader(copy.deepcopy(cfg), 1)))
+
+    # the gloo ranks' job: inputs and one process's references
+    committed = load_best_npz(snapshot, build_model(cfg)).state_dict()
+    cfg64 = copy.deepcopy(cfg)
+    cfg64.NETWORK.COMPUTE_DTYPE = "float64"
+    torch.manual_seed(0)
+    weights64 = build_model(cfg64).state_dict()
+    losses64, states64 = _trajectory(cfg64, weights64, {k: torch.as_tensor(v).to(CARD)
+                                                      for k, v in batch.items()
+                                                      if not k.startswith("_")})
+    model = build_model(cfg)
+    model.load_state_dict(committed)
+    model.to(CARD)
+    evals = _eval_batches(copy.deepcopy(cfg), 8)
+    with torch.no_grad():
+        one_eval = np.concatenate([model(h, c).fused_poses.cpu().numpy() for h, c in evals])
+    vcfg = copy.deepcopy(cfg)
+    vcfg.DATASET.CAMERA_NUM = 4
+    view_cams = dome_rig(2, 4, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER)
+    W, H = cfg.DATASET.HEATMAP_SIZE
+    view_hm = torch.rand((2, 4, H, W, cfg.DATASET.NUM_JOINTS),
+                         generator=torch.Generator().manual_seed(5)).numpy()
+    vmodel = build_model(vcfg)
+    vmodel.load_state_dict(committed)
+    with torch.no_grad():
+        one_view = vmodel.to(CARD)(torch.as_tensor(view_hm).to(CARD),
+                                   torch.as_tensor(view_cams).to(CARD)).fused_poses.cpu().numpy()
+    del model, vmodel
+    job = {"cfg": cfg, "cfg64": cfg64, "weights": _host(committed), "weights64": _host(weights64),
+           "batch": {k: v for k, v in batch.items() if not k.startswith("_")}, "states": states64,
+           "eval": [(h.cpu().numpy(), c.cpu().numpy()) for h, c in evals], "view_cfg": vcfg,
+           "view_hm": view_hm, "view_cams": view_cams}
+    # (2) two ranks over gloo on the one card, spawned first: they run
+    # beside (1), whose times no check reads
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_gloo_"))
+    with open(tmp / "job.pkl", "wb") as f:
+        pickle.dump(job, f)
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, port, str(tmp / "job.pkl"),
+                                                    str(tmp / f"rank{r}.pkl"), CARD))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        # (1) one rank over NCCL
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+                                rank=0)
+        try:
+            mesh = make_mesh(1)
+            torch.manual_seed(0)
+            single = Trainer(cfg, build_model(cfg).to(CARD))
+            states, losses = [_host(single.state_dict())], []
+            for _ in range(steps):
+                losses.append([float(v) for v in single.step(batch).values()])
+                states.append(_host(single.state_dict()))
+            g1 = single._graph.captured if single.compiled else None
+            del single
+            # the witness: a second compiled Trainer from the same seed, free and
+            # then each step from the first's state, holds two runs of one graph
+            # against each other
+            torch.manual_seed(0)
+            twin = Trainer(cfg, build_model(cfg).to(CARD))
+            for _ in range(steps):
+                twin.step(batch)
+            twin_free = _states_equal(*(_as_tensors(t) for t in (_host(twin.model.state_dict()),
+                                                                 states[-1]["model"])),
+                                      atol=1e-5)
+            twin_step = []
+            for before, after in zip(states[:-1], states[1:]):
+                twin.load_state_dict(_tensors(before, CARD))
+                twin.step(batch)
+                twin_step.append(_states_equal(_as_tensors(_host(twin.model.state_dict())),
+                                               _as_tensors(after["model"])))
+            del twin
+            torch.manual_seed(0)
+            model = build_model(cfg).to(CARD)
+            dp, feed = make_dp_train_step(cfg, model, mesh), shard_batch(batch, mesh)
+            free = count(lambda: [[float(v) for v in dp.step(feed).values()] for _ in range(steps)])
+            free_state = _host(model.state_dict())
+            # then each step replayed from the one process's state before it, so
+            # that no step inherits a gap of the ones before: the eager steps
+            # bit for bit, every step within rtol 2e-4 and atol 1e-5 (two
+            # compiled Trainers from one state, the witness above, part by up
+            # to 2.42e-6 on a replay, over an atol of 2e-6)
+            per_step = []
+            for before, after in zip(states[:-1], states[1:]):
+                dp.load_state_dict(_tensors(before, CARD))
+                count(lambda: dp.step(feed))
+                per_step.append(_states_equal(_as_tensors(_host(model.state_dict())),
+                                              _as_tensors(after["model"]), atol=1e-5))
+            eager_exact = all(b for _, b, _ in per_step[:CAPTURE_WARMUP])
+            g2 = dp._graph.captured if dp.compiled else None
+            del dp, model
+            d_loss = float(np.max(np.abs(np.array(free) - losses) / np.maximum(np.abs(losses), 1e-12)))
+            # after the free steps: within rtol 2e-4 and atol 1e-5, above the
+            # 5.36e-6 that two compiled Trainers read (a DP step that drifts
+            # still fails)
+            free_ok, _, free_gap = _states_equal(_as_tensors(free_state),
+                                                 _as_tensors(states[-1]["model"]), atol=1e-5)
+            print(f"scale-out: NCCL, 1 rank: compiled DP train step against the compiled Trainer, "
+                  f"{steps} steps of batch 4 at the Panoptic profile in float32 (captured after 3): "
+                  f"losses {d_loss:.3g} relative, state after {steps} free steps largest gap "
+                  f"{free_gap:.3g} (within rtol 2e-4 atol 1e-5: {free_ok}); each step from the "
+                  f"Trainer's state: within rtol 2e-4 atol 1e-5 {[w for w, _, _ in per_step]}, bit "
+                  f"for bit {[b for _, b, _ in per_step]}, largest gap "
+                  f"{max(g for _, _, g in per_step):.3g}; DP graph's launches per replay "
+                  f"{g2.launches if g2 else None} | {card}")
+            print(f"scale-out: witness, a second compiled Trainer from the same seed against the "
+                  f"first: state after {steps} free steps largest gap {twin_free[2]:.3g} (bit "
+                  f"for bit {twin_free[1]}, within rtol 2e-4 atol 1e-5 {twin_free[0]}); each "
+                  f"step from the first's state: within rtol 2e-4 atol 2e-6 "
+                  f"{[w for w, _, _ in twin_step]}, bit for bit {[b for _, b, _ in twin_step]}, "
+                  f"largest gap {max(g for _, _, g in twin_step):.3g} | {card}")
+            if not ((g1 is not None and g2 is not None or CARD != "cuda") and d_loss <= 1e-5
+                    and free_ok and eager_exact and all(w for w, _, _ in per_step)):
+                raise AssertionError(f"scale-out: NCCL DP step off the Trainer: losses {d_loss}, "
+                                     f"free steps {free_gap}, per step {per_step}, captured "
+                                     f"{g1 is not None}, {g2 is not None}")
+            model = load_best_npz(snapshot, build_model(cfg)).to(CARD)
+            _, _, preds = run_validation(cfg, model, held_out_dataset(copy.deepcopy(cfg), 8),
+                                         device=CARD)
+            eval_step = make_dp_eval_step(cfg, model, mesh)
+            dp = count(lambda: np.concatenate([eval_step(h, c).cpu().numpy()
+                                                for h, c in _eval_batches(copy.deepcopy(cfg), 8)]))
+            gap = float(np.abs(dp - preds).max())
+            print(f"scale-out: NCCL, 1 rank: DP eval step against run_validation on 8 held-out "
+                  f"scenes, committed weights: largest gap {gap:.3g}")
+            if dp.shape != preds.shape or not np.allclose(dp, preds, rtol=1e-4, atol=1e-3):
+                raise AssertionError(f"scale-out: DP eval off run_validation by {gap}")
+        finally:
+            dist.destroy_process_group()
+
+    finally:
+        for p in procs:
+            p.join(300)
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    try:
+        if alive or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"scale-out: gloo ranks alive after 300 s {alive}, exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(2):
+            with open(tmp / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError("scale-out: a gloo rank failed (gloo refused a CUDA collective, or "
+                             "the step did not run):\n" + "\n".join(errors))
+    d_loss = max(float(np.max(np.abs(r["losses"] - losses64) / np.maximum(np.abs(losses64), 1e-12)))
+                 for r in ranks)
+    gaps, ok = [], True
+    for step, (got0, got1) in enumerate(zip(ranks[0]["states"], ranks[1]["states"]), 1):
+        want = states64[step]["model"]
+        for k, v in want.items():
+            ok &= bool(np.array_equal(got0[k], got1[k])
+                       and np.allclose(got0[k], v, rtol=2e-4, atol=2e-6))
+            gaps.append((float(np.abs(got0[k] - v).max()), step, k))
+    d_eval = max(float(np.abs(np.concatenate(r["eval"]) - one_eval).max()) for r in ranks)
+    d_view = max(float(np.abs(r["view"] - one_view).max()) for r in ranks)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"scale-out: gloo, 2 ranks on the one card beside the NCCL rank, "
+          f"{time.perf_counter() - t0:.1f} s from spawn to join: DP train "
+          f"(float64 conv stacks, batch 4) losses of 3 free steps {d_loss:.3g} relative, every "
+          f"parameter after each step from one process's state within rtol 2e-4 atol 2e-6: "
+          f"{ok} (largest gap {max(gaps)[0]:.3g}, {max(gaps)[2]} after step {max(gaps)[1]}); DP eval on 8 scenes largest gap {d_eval:.3g}; "
+          f"view-sharded forward (V = 4 over 2 ranks) largest gap {d_view:.3g} | {card}")
+    if not (d_loss <= 1e-5 and ok
+            and all(np.allclose(np.concatenate(r["eval"]), one_eval, rtol=1e-4, atol=1e-3)
+                    and np.allclose(r["view"], one_view, rtol=1e-4, atol=1e-3) for r in ranks)):
+        raise AssertionError(f"scale-out: gloo ranks off one process: losses {d_loss}, "
+                             f"states {ok}, eval {d_eval}, view {d_view}")
+
+    # (3) PipelinedStream on two CUDA streams
+    model = load_best_npz(snapshot, build_model(cfg)).to(CARD)
+    torch.manual_seed(0)
+    backbone = build_backbone(cfg).to(CARD)
+    rig = dome_rig(1, cfg.DATASET.CAMERA_NUM, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER)[0]
+    iw, ih = cfg.DATASET.IMAGE_SIZE
+    rng = np.random.RandomState(3)
+    frames = [rng.randint(0, 256, (cfg.DATASET.CAMERA_NUM, ih, iw, 3)).astype(np.uint8)
+              for _ in range(24)]
+    cams = torch.as_tensor(rig)[None].to(CARD)
+
+    def serial_frame(f):
+        with torch.no_grad():
+            hm = images_to_heatmaps(backbone, torch.as_tensor(f)[None].to(CARD),
+                                    cfg.DATASET.COLOR_RGB)
+            out = model(hm, cams)
+        return out.fused_poses[0].cpu().numpy(), out.proposal_centers[0].cpu().numpy()
+
+    serial_frame(frames[0])  # cuDNN's algorithms chosen outside the timings
+    t0 = time.perf_counter()
+    serial = [serial_frame(f) for f in frames]
+    serial_s = time.perf_counter() - t0
+    stream = PipelinedStream(cfg, model, backbone, rig, devices=(CARD, CARD))
+
+    def pipelined():
+        t = time.perf_counter()
+        outs = [stream.push(f) for f in frames] + [stream.flush()]
+        return outs, time.perf_counter() - t
+
+    outs, stream_s = count(pipelined)
+    gap = max(float(np.abs(g - w).max()) for o, s_ in zip(outs[1:], serial)
+              for g, w in zip(o, s_)) if all(o is not None for o in outs[1:]) else float("inf")
+    print(f"scale-out: PipelinedStream, one card, two CUDA streams: 24 frames of 5 uint8 "
+          f"{iw}x{ih} images (committed weights, seeded ResNet-{cfg.RESNET.NUM_LAYERS}, float32): "
+          f"{24 / stream_s:.3f} frames/s pipelined against {24 / serial_s:.3f} serial; poses and "
+          f"centres against the serial path with the lag: largest gap {gap:.3g} | {card}")
+    if not (outs[0] is None and stream.flush() is None and gap <= 1e-5):
+        raise AssertionError(f"scale-out: PipelinedStream off the serial path by {gap}")
+    print(f"scale-out: launches {launches}")
+    return launches
+
+
 def released(result, label):
     """`result`, after the card's cached memory is given back: each phase's
     CUDA graphs have memory pools and side streams of their own, whose
@@ -3083,6 +3768,7 @@ def main(argv=None) -> int:
     paths["images"] = released(images_phase(card), "images")
     released(failed_capture_phase(cfg, rig, card), "failed capture")
     paths["datasets"] = released(datasets_phase(card), "datasets")
+    paths["scale-out"] = released(scale_out_phase(card), "scale-out")
 
     # launches: the run of the path that reaches each kernel (the row's
     # `path`): compiled training and serving for the default route's

@@ -77,6 +77,7 @@ def load_best_model(output_dir: str, model: nn.Module,
                                 + ("" if repo_snapshot_fallback else
                                    " (the repo's snapshots are reached only with "
                                    "repo_snapshot_fallback)"))
+    logger.info("=> loaded best model %s", path)
     return load_best_npz(str(path), model)
 
 

@@ -18,6 +18,10 @@ camera rig and latency accounting.
   host->device copy and no recapture.
 - **Latency accounting.** Per-request wall time, and count / mean / p50
   / p95 over the last 10,000 requests (`stats`).
+- **Raw outputs.** Each graph returns the fused poses and the proposal
+  centres.  A request copies the poses alone to the host;
+  `infer_images_raw` replays a graph for both (`tools/demo.py` draws its
+  proposals' boxes from the centres).
 
 `tools/serve.py` wraps this in the JSON-lines protocol of `run/serve.py`.
 """
@@ -26,7 +30,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +50,9 @@ GRAPHS = ("heatmaps", "images", "images_u8")
 
 
 class CompiledGraph(NamedTuple):
-    """One forward captured at batch 1 (its graph, fused poses and the
-    kernel launches that one replay makes) and its static input."""
+    """One forward captured at batch 1 (its graph, fused poses and
+    proposal centres, and the kernel launches that one replay makes) and
+    its static input."""
 
     captured: graphs.Captured
     input: torch.Tensor
@@ -55,6 +60,10 @@ class CompiledGraph(NamedTuple):
     @property
     def launches(self) -> Dict[str, int]:
         return self.captured.launches
+
+
+def _poses_and_centers(out: ModelOutputs) -> Tuple[torch.Tensor, torch.Tensor]:
+    return out.fused_poses, out.proposal_centers
 
 
 class PoseService:
@@ -169,7 +178,8 @@ class PoseService:
         stream = torch.cuda.Stream(self.device)
         for _ in range(graphs.CAPTURE_WARMUP):
             graphs.run_on(stream, lambda: forward(static_input), inference=True)
-        c = graphs.capture(lambda: forward(static_input).fused_poses, stream, inference=True)
+        c = graphs.capture(lambda: _poses_and_centers(forward(static_input)), stream,
+                           inference=True)
         return CompiledGraph(c, static_input)
 
     def _input_shape(self, name: str) -> tuple:
@@ -229,15 +239,16 @@ class PoseService:
 
     # -- inference --------------------------------------------------------
 
-    def _run(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """The fused poses of x: by the compiled graph `name` where there
-        is one for x's shape, else by the eager forward."""
+    def _run(self, name: str, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused poses and proposal centres of x: by the compiled
+        graph `name` where there is one for x's shape, else by the eager
+        forward."""
         g = self._compiled.get(name)
         if g is not None and x.shape == g.input.shape:
             g.input.copy_(x)
             return graphs.replay(g.captured)
         with torch.inference_mode():
-            return self._forward(name)(x.to(self.device)).fused_poses
+            return _poses_and_centers(self._forward(name)(x.to(self.device)))
 
     @staticmethod
     def _decode(fused: np.ndarray) -> dict:
@@ -249,11 +260,11 @@ class PoseService:
             "n_people": int(valid.sum()),
         }
 
-    def _answer(self, t0: float, fused: torch.Tensor) -> dict:
+    def _answer(self, t0: float, outputs: Tuple[torch.Tensor, torch.Tensor]) -> dict:
         """The decoded poses of a request begun at `t0`, its latency
         recorded; the poses are copied to the host, so that the next
         replay does not overwrite them."""
-        fused = fused.cpu().numpy()
+        fused = outputs[0].cpu().numpy()
         ms = (time.perf_counter() - t0) * 1e3
         self._latencies_ms.append(ms)
         self._total_requests += 1
@@ -281,6 +292,18 @@ class PoseService:
         counted as for `infer_heatmaps`."""
         self._require_rig()
         t0 = time.perf_counter()
+        return self._answer(t0, self._run(*self._images_input(images)))
+
+    def infer_images_raw(self, images) -> Tuple[np.ndarray, np.ndarray]:
+        """The frames of `infer_images` -> the fused poses (1, K, J, 5) and
+        proposal centres (1, K, 7) on the host, from the same graph; not a
+        request (no latency recorded)."""
+        self._require_rig()
+        fused, centers = self._run(*self._images_input(images))
+        return fused.cpu().numpy(), centers.cpu().numpy()
+
+    def _images_input(self, images) -> Tuple[str, torch.Tensor]:
+        """The graph's name and the (1, V, ih, iw, 3) input of frames."""
         x = torch.as_tensor(images)
         if x.dtype != torch.uint8:
             x = x.to(torch.float32)
@@ -289,8 +312,7 @@ class PoseService:
         if tuple(x.shape[1:]) != (self._V, self._ih, self._iw, 3):
             raise ValueError(f"images of shape {tuple(x.shape)}, the service takes "
                              f"(1, {self._V}, {self._ih}, {self._iw}, 3)")
-        name = "images_u8" if x.dtype == torch.uint8 else "images"
-        return self._answer(t0, self._run(name, x))
+        return ("images_u8" if x.dtype == torch.uint8 else "images"), x
 
     def infer_image_paths(self, paths: Sequence[str]) -> dict:
         """One image file per view, in camera order -> poses: each decoded

@@ -200,6 +200,7 @@ class Trainer:
         self.opt_joint.grad.zero_()
         losses = self.loss(batch)
         losses["total"].backward()
+        losses = self.reduce({k: v.detach() for k, v in losses.items()})
         with torch.no_grad():
             n = self.mini_step
             emit = n == self.every_k - 1
@@ -208,7 +209,14 @@ class Trainer:
             self.acc.copy_(torch.where(emit, 0.0, acc))
             self.mini_step.copy_(torch.where(emit, 0, n + 1))
             self.opt_joint.step(self.opt_joint.grad, losses["joint"] > 0)
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
+
+    def reduce(self, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step's losses and gradients (`opt_pose.grad`,
+        `opt_joint.grad`) after the backward, made those of the whole
+        batch: on one process they already are.  A data-parallel trainer
+        sums them over the ranks (`parallel.mesh`)."""
+        return losses
 
     def _inputs(self, batch: Mapping[str, object]) -> Dict[str, torch.Tensor]:
         src = next((k for k in HEATMAP_KEYS if k in batch), None)

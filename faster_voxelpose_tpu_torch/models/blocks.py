@@ -13,7 +13,7 @@ that `weights.from_jax_variables` maps the flax paths mechanically.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -109,7 +109,16 @@ class BatchNorm(nn.Module):
     E[x^2] - E[x]^2 (floored at 0) over the batch and spatial axes, both
     to normalise and for the running update ra = 0.9 ra + 0.1 batch.
     `F.batch_norm(training=True)` would update the running variance with
-    the unbiased variance instead, n/(n-1) away from the JAX package's."""
+    the unbiased variance instead, n/(n-1) away from the JAX package's.
+
+    The statistics are taken as per-channel sums over the count.
+    `global_sum`, set only inside a data-parallel train step
+    (`parallel.mesh`), sums a tensor over the ranks with autograd through
+    the sum: the sum, sum of squares and count are then those of the
+    global batch, as flax's BatchNorm under a batch-sharded jit takes
+    them, and over one rank the step is bit for bit the single process's."""
+
+    global_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -128,8 +137,11 @@ class BatchNorm(nn.Module):
             )
             return y.to(self.dtype)
         dims = [0] + list(range(2, x.ndim))
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+        count = x.new_full((x.shape[1],), float(x.numel() // x.shape[1]))
+        sums = torch.stack([x.sum(dims), (x * x).sum(dims), count])
+        s, s2, n = sums if self.global_sum is None else self.global_sum(sums)
+        mean = s / n
+        var = (s2 / n - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.9 * self.running_mean + (1 - 0.9) * mean)
             self.running_var.copy_(0.9 * self.running_var + (1 - 0.9) * var)

@@ -7,12 +7,13 @@ training loss.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..config import Config
+from .blocks import BatchNorm
 from .hdn import HDNOutputs, HumanDetectionNet
 from .jln import JLNOutputs, JointLocalizationNet
 from .projection import make_projection_geometry, resolve_crop_route
@@ -28,17 +29,37 @@ class ModelOutputs(NamedTuple):
     losses: Optional[Dict[str, torch.Tensor]]
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+GlobalSum = Callable[[torch.Tensor], torch.Tensor]
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                global_sum: Optional[GlobalSum] = None) -> torch.Tensor:
     """Mean of values where mask (broadcastable) is true; 0 when the mask
     is empty (reference early return when no proposal is valid,
-    faster_voxelpose.py:70-78)."""
+    faster_voxelpose.py:70-78).  With `global_sum` (a data-parallel step)
+    the count is the global batch's: the ranks' results then sum to the
+    global batch's mean."""
     mask = torch.broadcast_to(mask, values.shape).to(values.dtype)
     total = torch.sum(values * mask)
     count = torch.sum(mask)
+    if global_sum is not None:
+        count = global_sum(count)
     return torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
 
 
+def full_mean(values: torch.Tensor, global_sum: Optional[GlobalSum] = None) -> torch.Tensor:
+    """The mean of every element: the sum over the element count, with
+    `global_sum` the global batch's count."""
+    count = values.new_full((), float(values.numel()))
+    if global_sum is not None:
+        count = global_sum(count)
+    return torch.sum(values) / count
+
+
 class FasterVoxelPoseNet(nn.Module):
+    # set only inside a data-parallel train step (`set_global_sum`)
+    global_sum: Optional[GlobalSum] = None
+
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
@@ -55,6 +76,16 @@ class FasterVoxelPoseNet(nn.Module):
             cfg.NETWORK.NUM_CHANNEL_JOINT_HIDDEN,
             dtype=dtype, width=width, crop_route=resolve_crop_route(cfg),
         )
+
+    def set_global_sum(self, fn: Optional[GlobalSum]) -> None:
+        """Make the train-mode losses and every BatchNorm's statistics
+        those of the global batch of a data-parallel step: `fn` sums a
+        tensor over the ranks, with autograd through the sum
+        (`parallel.mesh`); None puts the model back to one process."""
+        self.global_sum = fn
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.global_sum = fn
 
     def forward(self, heatmaps: torch.Tensor, cams: torch.Tensor,
                 targets: Optional[Dict[str, torch.Tensor]] = None,
@@ -91,22 +122,23 @@ class FasterVoxelPoseNet(nn.Module):
         package models/faster_voxelpose.py:239-300)."""
         tr = self.cfg.TRAIN
         J = self.cfg.DATASET.NUM_JOINTS
+        gs = self.global_sum
         p2g = hdn.proposal_centers[:, :, 3].clamp(min=0.0).long()  # (B, K)
 
         # BEV center-heatmap MSE over the full map
-        loss_2d = tr.LAMBDA_LOSS_2D * torch.mean((hdn.heatmaps_2d - targets["2d_heatmaps"]) ** 2)
+        loss_2d = tr.LAMBDA_LOSS_2D * full_mean((hdn.heatmaps_2d - targets["2d_heatmaps"]) ** 2, gs)
 
         # 1D height MSE on matched proposals only
         t1d = targets["1d_heatmaps"]
         matched_1d = torch.gather(t1d, 1, p2g[..., None].expand(-1, -1, t1d.shape[-1]))
         sq = (hdn.heatmaps_1d - matched_1d) ** 2
-        loss_1d = tr.LAMBDA_LOSS_1D * masked_mean(sq, mask[..., None])
+        loss_1d = tr.LAMBDA_LOSS_1D * masked_mean(sq, mask[..., None], gs)
 
         # bbox-size L1 supervised at GT center positions
         gt_index = targets["index"].long()  # (B, Kgt)
         bbox_at_gt = torch.gather(hdn.bbox_maps, 1, gt_index[..., None].expand(-1, -1, 2))
         l1 = torch.abs(bbox_at_gt - targets["bbox"])
-        loss_bbox = tr.LAMBDA_LOSS_BBOX * masked_mean(l1, targets["mask"][..., None])
+        loss_bbox = tr.LAMBDA_LOSS_BBOX * masked_mean(l1, targets["mask"][..., None], gs)
 
         # visibility-masked joint L1 per plane + weighted fused term
         gt_joints = meta["joints_3d"].float()  # (B, Kgt, J, 3)
@@ -116,7 +148,7 @@ class FasterVoxelPoseNet(nn.Module):
         mkj = mask[:, :, None, None]
 
         def plane_l1(pred, gt2):
-            return masked_mean(torch.abs(pred * vis - gt2 * vis), mkj)
+            return masked_mean(torch.abs(pred * vis - gt2 * vis), mkj, gs)
 
         # the xy, xz and yz planes, as slices: a list index would build a
         # tensor from host data, which a captured train step cannot hold
@@ -125,9 +157,12 @@ class FasterVoxelPoseNet(nn.Module):
             + plane_l1(jln.plane_poses[1], jsel[..., 0::2])
             + plane_l1(jln.plane_poses[2], jsel[..., 1:3])
             + tr.LAMBDA_LOSS_FUSED
-            * masked_mean(torch.abs(jln.fused_poses * vis - jsel * vis), mkj)
+            * masked_mean(torch.abs(jln.fused_poses * vis - jsel * vis), mkj, gs)
         )
-        loss_joint = torch.where(mask.any(), loss_joint, torch.zeros_like(loss_joint))
+        n_valid = mask.sum().float()
+        if gs is not None:
+            n_valid = gs(n_valid)
+        loss_joint = torch.where(n_valid > 0, loss_joint, torch.zeros_like(loss_joint))
         return {
             "2d_heatmaps": loss_2d,
             "1d_heatmaps": loss_1d,

@@ -11,7 +11,10 @@ heatmap source is 'image', the two optimizers of `engine.trainer` in a
 train step captured into a CUDA graph (`--eager`: none), samples made
 and uploaded ahead of the step by `engine.loader.prefetch_to_device`,
 validation every `--eval-every` epochs (and after the last) with
-best-model tracking, and a resumable checkpoint every epoch
+best-model tracking, with TRAIN.VISUALIZATION the artifacts of
+`utils/vis.train_vis_all` on every PRINT_FREQ-th batch (an eval-mode
+forward of the current weights after the step, outside its graph, into
+`<output dir>/train_vis/<epoch>_<batch>`), and a resumable checkpoint every epoch
 (`<OUTPUT_DIR>/<TEST_DATASET>/<cfg stem>/checkpoint.pt`; `--resume`
 continues it, the loader's order and augmentation draws included).
 
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import sys
 import time
@@ -38,8 +42,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import load_config
+from ..config import Config, load_config
 from ..datasets import get_dataset
+from ..datasets.images import denormalize_images
 from ..device import pin_float32, resolve_device
 from ..engine.checkpoint import load_checkpoint, save_checkpoint, write_repo_snapshot
 from ..engine.loader import DataLoader, DatasetFactory, prefetch_to_device
@@ -84,6 +89,29 @@ def config_path_for_record(cfg_path: str) -> str:
         return str(path)
 
 
+def train_vis(cfg: Config, trainer: Trainer, batch, resize_transform, prefix: str) -> list:
+    """`utils/vis.train_vis_all` of a batch after its train step: an eval
+    forward (train=False: BatchNorm reads its running statistics and
+    updates nothing) of the current weights on the batch's heatmaps (its
+    own, rendered from its 'hm_params', or the backbone's of its
+    'images'), eagerly and outside the step's CUDA graph, whose static
+    inputs it does not touch.  Returns the files written."""
+    from ..utils.vis import train_vis_all
+
+    with torch.no_grad():
+        hm = trainer.heatmaps(batch)
+        out = trainer.model(hm, batch["cameras"], train=False)
+    images = None
+    if "images" in batch:
+        images = batch["images"].cpu().numpy()
+        if images.dtype != np.uint8:
+            images = denormalize_images(images)
+    return train_vis_all(cfg, out.fused_poses.cpu().numpy(), out.proposal_centers.cpu().numpy(),
+                         hm.cpu().numpy(), prefix, images=images,
+                         packed_rigs=batch["cameras"].cpu().numpy(),
+                         resize_transform=resize_transform if images is not None else None)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     cfg = load_config(args.cfg)
@@ -93,14 +121,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         cfg.SYNTHETIC.NUM_DATA = args.num_data
     if args.resume:
         cfg.TRAIN.RESUME = True
-    if cfg.TRAIN.VISUALIZATION:
-        raise NotImplementedError("TRAIN.VISUALIZATION needs utils/vis.py, which the port "
-                                  "has not yet (ROADMAP.md Queue 1, 'The remaining CLIs and "
-                                  "utils/vis.py')")
     if cfg.TRAIN.UPDATE_BACKBONE_BN_STATS:
-        raise NotImplementedError("TRAIN.UPDATE_BACKBONE_BN_STATS: the port's backbone is "
-                                  "frozen, its BatchNorm statistics too (ROADMAP.md Queue 1, "
-                                  "'Training with the backbone's BatchNorm statistics')")
+        raise NotImplementedError("TRAIN.UPDATE_BACKBONE_BN_STATS: the backbone is frozen, its "
+                                  "BatchNorm statistics too; the JAX package declares this key "
+                                  "but never reads it (its backbone always runs with "
+                                  "train=False), and the port refuses it rather than ignore it")
     device = resolve_device(args.device)
     pin_float32()
 
@@ -159,6 +184,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         epoch, i, len(loader), cfg.TRAIN.BATCH_SIZE / max(batch_time, 1e-9),
                         batch_time, losses["total"], losses["2d_heatmaps"],
                         losses["1d_heatmaps"], losses["bbox"], losses["joint"])
+                    if cfg.TRAIN.VISUALIZATION:
+                        train_vis(cfg, trainer, batch, train_ds.resize_transform,
+                                  os.path.join(output_dir, "train_vis", f"{epoch}_{i:06d}"))
                     end = time.time()
                 global_step += 1
             if device.type == "cuda":

@@ -20,6 +20,8 @@ dicts (the reference's FasterVoxelPoseNet, the Pose-ResNet backbone) to
 the port's state dicts directly: the port's modules keep PyTorch's
 layouts, so this is a renaming (the port's own copy of the JAX package's
 `utils/weights_torch.py`, which converts the same dicts to flax).
+`upstream_model` and `upstream_backbone` rename the other way, e.g. to
+write a snapshot as an upstream checkpoint that `--torch-weights` reads.
 """
 
 from __future__ import annotations
@@ -156,24 +158,30 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 class _Renamer:
-    """Collects upstream tensors under the port's names (float32); which
-    upstream keys are read follows the JAX package's converter."""
+    """Collects upstream tensors under the port's names (float32), or with
+    `inverse` the port's tensors under the upstream names; which upstream
+    keys are read follows the JAX package's converter."""
 
-    def __init__(self, sd: Mapping):
-        self.sd, self.out = sd, {}
+    def __init__(self, sd: Mapping, inverse: bool = False):
+        self.sd, self.inverse, self.out = sd, inverse, {}
 
-    def _put(self, path, leaf, value):
-        self.out[".".join(path + (leaf,))] = torch.as_tensor(np.asarray(value, np.float32))
+    def has(self, upstream: str, port: tuple) -> bool:
+        return (".".join(port) if self.inverse else upstream) in self.sd
+
+    def _map(self, upstream: str, port: tuple) -> None:
+        if self.inverse:
+            self.out[upstream] = torch.as_tensor(self.sd[".".join(port)]).detach().float().clone()
+        else:
+            self.out[".".join(port)] = torch.as_tensor(np.asarray(self.sd[upstream], np.float32))
 
     def conv(self, tname: str, path: tuple, bias: bool = True) -> None:
-        self._put(path, "weight", self.sd[tname + ".weight"])
-        if bias and tname + ".bias" in self.sd:
-            self._put(path, "bias", self.sd[tname + ".bias"])
+        self._map(tname + ".weight", path + ("weight",))
+        if bias and self.has(tname + ".bias", path + ("bias",)):
+            self._map(tname + ".bias", path + ("bias",))
 
     def bn(self, tname: str, path: tuple) -> None:
-        for src, dst in (("weight", "weight"), ("bias", "bias"),
-                         ("running_mean", "running_mean"), ("running_var", "running_var")):
-            self._put(path, dst, self.sd[f"{tname}.{src}"])
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            self._map(f"{tname}.{leaf}", path + (leaf,))
 
 
 def _as_numpy(sd: Mapping) -> Dict[str, np.ndarray]:
@@ -186,7 +194,7 @@ def _res_block(b: _Renamer, tname: str, path: tuple) -> None:
     b.bn(f"{tname}.res_branch.1", path + ("bn1",))
     b.conv(f"{tname}.res_branch.3", path + ("conv2",))
     b.bn(f"{tname}.res_branch.4", path + ("bn2",))
-    if f"{tname}.skip_con.0.weight" in b.sd:
+    if b.has(f"{tname}.skip_con.0.weight", path + ("skip_conv", "weight")):
         b.conv(f"{tname}.skip_con.0", path + ("skip_conv",))
         b.bn(f"{tname}.skip_con.1", path + ("skip_bn",))
 
@@ -211,6 +219,21 @@ def convert_model(sd: Mapping, model: Optional[nn.Module] = None) -> Dict[str, t
     FasterVoxelPoseNet state dict; with `model`, misfits raise as in
     `from_jax_variables`."""
     b = _Renamer(_as_numpy(sd))
+    _model_names(b)
+    if model is not None:
+        check_fits(b.out, model)
+    return b.out
+
+
+def upstream_model(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's FasterVoxelPoseNet state dict under the reference's
+    names: the inverse of `convert_model`."""
+    b = _Renamer(state_dict, inverse=True)
+    _model_names(b)
+    return b.out
+
+
+def _model_names(b: _Renamer) -> None:
     cn = ("hdn", "center_net")
     _front(b, "pose_net.center_net.front_layers", cn + ("front",))
     _encdec(b, "pose_net.center_net.encoder_decoder", cn + ("encdec",))
@@ -231,20 +254,33 @@ def convert_model(sd: Mapping, model: Optional[nn.Module] = None) -> Dict[str, t
     b.bn("joint_net.weight_net.heatmap_feature_net.1", wn + ("feat_bn",))
     b.conv("joint_net.weight_net.output.0", wn + ("fc1",))
     b.conv("joint_net.weight_net.output.2", wn + ("fc2",))
-    if model is not None:
-        check_fits(b.out, model)
-    return b.out
 
 
 def convert_backbone(sd: Mapping, num_layers: int = 50,
                      model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """The upstream Pose-ResNet state dict -> the port's `PoseResNet`
     state dict; with `model`, misfits raise as in `from_jax_variables`."""
+    b = _Renamer(_as_numpy(sd))
+    _backbone_names(b, num_layers)
+    if model is not None:
+        check_fits(b.out, model)
+    return b.out
+
+
+def upstream_backbone(state_dict: Mapping[str, torch.Tensor],
+                      num_layers: int = 50) -> Dict[str, torch.Tensor]:
+    """The port's `PoseResNet` state dict under the upstream Pose-ResNet's
+    names: the inverse of `convert_backbone`."""
+    b = _Renamer(state_dict, inverse=True)
+    _backbone_names(b, num_layers)
+    return b.out
+
+
+def _backbone_names(b: _Renamer, num_layers: int) -> None:
     from .models.resnet import RESNET_SPEC
 
     _, layout = RESNET_SPEC[num_layers]
     n_convs = 3 if num_layers >= 50 else 2
-    b = _Renamer(_as_numpy(sd))
     b.conv("conv1", ("conv1",), bias=False)
     b.bn("bn1", ("bn1",))
     for stage, blocks in enumerate(layout):
@@ -253,7 +289,7 @@ def convert_backbone(sd: Mapping, num_layers: int = 50,
             for c in range(1, n_convs + 1):
                 b.conv(f"{t}.conv{c}", p + (f"conv{c}",), bias=False)
                 b.bn(f"{t}.bn{c}", p + (f"bn{c}",))
-            if f"{t}.downsample.0.weight" in b.sd:
+            if b.has(f"{t}.downsample.0.weight", p + ("down_conv", "weight")):
                 b.conv(f"{t}.downsample.0", p + ("down_conv",), bias=False)
                 b.bn(f"{t}.downsample.1", p + ("down_bn",))
     # deconv_layers: ConvTranspose at 0, 3, 6 and BatchNorm at 1, 4, 7
@@ -261,6 +297,3 @@ def convert_backbone(sd: Mapping, num_layers: int = 50,
         b.conv(f"deconv_layers.{i * 3}", (f"deconv{i + 1}",))
         b.bn(f"deconv_layers.{i * 3 + 1}", (f"deconv_bn{i + 1}",))
     b.conv("final_layer", ("final",))
-    if model is not None:
-        check_fits(b.out, model)
-    return b.out

@@ -225,6 +225,31 @@ def test_convert_model_matches_jax():
         assert torch.equal(ours[k], ref[k]), k
 
 
+@pytest.mark.parametrize("num_layers", [18, 50])
+def test_upstream_names_invert_the_converters(num_layers):
+    """upstream_model and upstream_backbone give the port's state dicts
+    the upstream names (the model's as this module's own table names
+    them, the backbone's as the upstream Pose-ResNet's, num_batches_tracked
+    aside), bit for bit, and convert_* takes them back."""
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
+    from faster_voxelpose_tpu_torch.weights import (
+        convert_backbone, convert_model, upstream_backbone, upstream_model)
+
+    sd = _upstream_backbone(num_layers, np.random.RandomState(num_layers))
+    port = convert_backbone(sd, num_layers, model=PoseResNet(num_layers, 5, (32, 32, 32)))
+    back = upstream_backbone(port, num_layers)
+    assert sorted(back) == sorted(k for k in sd if not k.endswith("num_batches_tracked"))
+    for k, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), sd[k], err_msg=k)
+    _, pcfg = tiny_configs()
+    model = build_model(pcfg)
+    theirs = upstream_model(model.state_dict())
+    assert sorted(theirs) == sorted(_upstream_name(k) for k in model.state_dict())
+    again = convert_model(theirs, model=model)
+    assert all(torch.equal(again[k], v) for k, v in model.state_dict().items())
+
+
 def test_converters_reject_misfits(tmp_path):
     from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
     from faster_voxelpose_tpu_torch.weights import convert_backbone, load_torch_state_dict

@@ -1228,3 +1228,20 @@ def test_host_rendering_matches_the_device_renderer(dev, name, aug):
             np.testing.assert_allclose(got, host, rtol=0, atol=2e-5)
             peak = max(peak, float(host.max()))
     assert peak > 0.3
+
+
+def test_make_mesh_under_gloo_is_on_the_card(dev, tmp_path):
+    """A gloo group's mesh with no device named lies on the card, so that
+    the DP steps keep a model and its batches there."""
+    import torch.distributed as dist
+
+    from faster_voxelpose_tpu_torch.parallel import make_mesh, shard_batch
+
+    dist.init_process_group("gloo", init_method="file://" + str(tmp_path / "init"),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.device == torch.device("cuda", 0)
+        assert shard_batch({"x": np.zeros((2, 3), np.float32)}, mesh)["x"].device.type == "cuda"
+    finally:
+        dist.destroy_process_group()

@@ -553,10 +553,12 @@ def test_train_cli_records_repo_relative_config_and_refuses_vis(tmp_path, monkey
     assert train.config_path_for_record("configs/demo/synthetic.yaml") == \
         "configs/demo/synthetic.yaml"
     assert train.config_path_for_record(str(tmp_path / "x.yaml")) == str(tmp_path / "x.yaml")
+    # TRAIN.VISUALIZATION runs (tests/test_torch_cli.py); the key the JAX
+    # package declares and never reads is refused, not ignored
     cfg = _tiny_experiment(tmp_path)
     cfg.write_text(TINY_YAML.replace("  ACCUMULATION_STEPS: 2\n",
-                                     "  ACCUMULATION_STEPS: 2\n  VISUALIZATION: true\n"))
-    with pytest.raises(NotImplementedError, match="vis.py"):
+                                     "  ACCUMULATION_STEPS: 2\n  UPDATE_BACKBONE_BN_STATS: true\n"))
+    with pytest.raises(NotImplementedError, match="never reads it"):
         train.main(["--cfg", str(cfg), "--device", "cpu"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--cfg", str(_tiny_experiment(tmp_path / "b"))])
