@@ -108,7 +108,20 @@ another committed snapshot's profile (`config.profile`):
    requests, rows 1 and 2 once per request and no other kernel, with
    latency p50 / p95, each request's device and host ms and the
    backbone's device ms alone (recorded, not judged);
-12. datasets phase, after the failed-capture control: the host
+12. bench phase: tools/bench.py (the counterpart of bench.py) once, full
+   size, in a subprocess with nothing else on the card: the worst case
+   (configs/panoptic/jln64.yaml, MIN_SCORE -1, seeded random model and
+   ResNet-50) at latency and batch-8 throughput, the realistic load
+   (committed weights, 24 held-out scenes) fused alone and end to end at
+   batch 1 and 8, each measurement one CUDA graph of F steps; its last
+   line must hold bench.py's keys and a device time per mode, finite
+   positive rates, every worst-case slot valid, rows 1 and 2 in each
+   graph (row 1 once a step, row 2 once a frame) and detected people
+   within 10% of true people; then the worst case's 2-frame graph
+   against the eager step (float32: the same slots, all valid, poses
+   within 0.01 mm; bf16 printed) and the live voxels of every crop; then
+   tools.profile_stages and tools.bench_width in this process;
+13. datasets phase, after the failed-capture control: the host
    renderers at the Panoptic and Shelf shapes (native against numpy,
    2e-6; host against the device renderer on the same draws, 2e-5);
    panoptic_synthetic and shelf_synthetic_ref on 256 held-out scenes
@@ -126,7 +139,7 @@ another committed snapshot's profile (`config.profile`):
    configs/demo/synthetic.yaml with device rendering and with host
    rendering in the prefetch thread and in 8 workers, then tools/train.py
    on that config with WORKERS 0 and 8;
-13. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
+14. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
    compiled DP train step (collectives in its CUDA graph) against the
    compiled Trainer on one batch of 4 at the Panoptic profile in float32,
    and the DP eval step against run_validation on 8 held-out scenes; two
@@ -146,7 +159,7 @@ within 0.01 mm, the bf16 gap printed), rows 1 and 2 once per replayed
 request, a rig hot-swap with no recapture, the 'images_u8' graph on
 uint8 frames, the JSON-lines server (tools/serve.py) in a subprocess,
 and eager and compiled latencies; a capture holding a host
-synchronisation that must raise runs after the images phase
+synchronisation that must raise runs after the bench phase
 (`failed_capture_phase`: `graphs.capture` puts PyTorch's state back, so
 the device generator draws and cached memory is given back after it,
 and the datasets phase is measured after it).  Between phases the card's
@@ -171,6 +184,7 @@ is present or the port is not beside this file.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import sys
 import time
@@ -2694,6 +2708,153 @@ def images_phase(card, requests=N_REQUESTS):
     return launches
 
 
+# -- bench phase: the end-to-end benchmark and its stage and width tools -----
+
+BENCH_GRAPH_TOL = 0.01  # mm: float32 graph against eager, as for the service's graphs
+BENCH_DETECTED_OF_TRUE = 0.10  # realistic detected people within 10% of true people
+
+
+def _graph_launch_check(line, K):
+    """Each measurement's graph of F steps launched rows 1 and 2: row 1
+    once a step, row 2 once a frame."""
+    batch = line["throughput_batch"]
+    per = {("graph_launches", "latency"): 1, ("graph_launches", "throughput"): batch,
+           ("realistic_graph_launches", "fusion"): 1,
+           ("realistic_graph_launches", "fusion_batched"): batch,
+           ("realistic_graph_launches", "e2e"): 1,
+           ("realistic_graph_launches", "e2e_batched"): batch}
+    for (key, mode), frames in per.items():
+        for steps, counts in line[key][mode].items():
+            want = {"sample_whole_projected": int(steps),
+                    "sample_crop_planes": int(steps) * frames}
+            if counts != want:
+                raise AssertionError(f"bench: the {mode} graph of {steps} steps launched "
+                                     f"{counts}, expected {want}")
+    if line["worst_case_valid_slots"] != [K, K]:
+        raise AssertionError(f"bench: worst-case valid slots per frame (min, max) "
+                             f"{line['worst_case_valid_slots']}, expected all {K}")
+
+
+def bench_graph_check(card):
+    """The worst case's 2-frame latency graph (bench.py's first frames,
+    RandomState(0)) against the same 2 frames through the eager step: in
+    float32 with TF32 off the same valid slots, all K, and fused poses
+    within BENCH_GRAPH_TOL mm; in bf16, as the bench runs, the gap is
+    printed.  The live voxels of each crop of the first frame (from an
+    eager forward's proposals, float32) must cover every slot."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.projection import compute_crop_origin, crop_axis_masks
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone
+    from faster_voxelpose_tpu_torch.tools import bench
+    from faster_voxelpose_tpu_torch.tools.timing import scan_time
+
+    dev = torch.device(CARD)
+    cfg = bench.worst_case_config()
+    V, K = cfg.DATASET.CAMERA_NUM, cfg.CAPTURE_SPEC.MAX_PEOPLE
+    iw, ih = cfg.DATASET.IMAGE_SIZE
+    frames = torch.as_tensor(np.random.RandomState(0).randn(2, V, ih, iw, 3)
+                             .astype(np.float32)).to(dev)
+    gaps = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg.NETWORK.COMPUTE_DTYPE = dtype
+        model = bench.seeded(build_model, cfg, 0, dev)
+        backbone = bench.seeded(build_backbone, cfg, 0, dev)
+        cams = torch.as_tensor(bench.bench_rig(cfg)).to(dev)
+        step = bench.frame_step(model, backbone, cams)
+        graph = scan_time(step, (frames,), 2, dev, reps=1).outputs
+        with torch.inference_mode():
+            carry, eager = torch.zeros((), device=dev), []
+            for i in range(2):
+                carry, out = step(carry, (frames[i],))
+                eager.append(out)
+            eager = torch.stack(eager).cpu()
+            if dtype == "float32":
+                pc = model(backbone(frames[0])[None], cams).proposal_centers[0]
+                tl, _ = compute_crop_origin(model.geom, pc[:, :3])
+                mx, my, mz = crop_axis_masks(model.geom, tl, pc[:, 5:7])
+                live = [int(mx[k].sum() * my[k].sum() * mz[k].sum())
+                        for k in range(K) if pc[k, 3] >= 0]
+        same = torch.equal(graph[..., 0, 3], eager[..., 0, 3])
+        valid = int((graph[..., 0, 3] >= 0).sum())
+        gaps[dtype] = float((graph[..., :3] - eager[..., :3]).abs().max())
+        print(f"bench: worst case, 2-frame graph against eager, {dtype}: same valid slots "
+              f"{same} ({valid} of {2 * K}), fused poses max gap {gaps[dtype]:.3g} mm | {card}")
+        if dtype == "float32" and not (same and valid == 2 * K
+                                       and gaps[dtype] <= BENCH_GRAPH_TOL):
+            raise AssertionError(f"bench: float32 graph against eager: slots equal {same}, "
+                                 f"{valid} valid, gap {gaps[dtype]} mm > {BENCH_GRAPH_TOL}")
+        del model, backbone, step
+    print(f"bench: live voxels of the {len(live)} crops of the first frame {live} "
+          f"(of {np.prod(cfg.INDIVIDUAL_SPEC.VOXELS_PER_AXIS)} each)")
+    if len(live) != K or min(live) <= 0:
+        raise AssertionError(f"bench: the worst case's crops are not all live: {live}")
+    return gaps
+
+
+def _tool_in_process(tool, label):
+    """tool.main([]) in this process, its output printed; returns its JSON
+    line and the kernel launches of its run."""
+    import contextlib
+    import io
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main([])
+    print(buf.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"bench: {label} returned {rc}")
+    print(f"bench: {label} ran in {time.perf_counter() - t0:.1f} s")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), sk.launch_counts()
+
+
+def bench_phase(card):
+    """The end-to-end benchmark: `python3 -m faster_voxelpose_tpu_torch.tools.bench`
+    once, full size, in a subprocess with nothing else on the card; its
+    last line holds every key of bench.py's line and a device time per
+    mode, finite positive rates, every worst-case slot valid, each
+    graph's launches of rows 1 and 2, and realistic detected people
+    within 10% of true people over the same 24 frames.  Then the worst
+    case's graph against eager (`bench_graph_check`), and the stage and
+    width tools (tools.profile_stages, tools.bench_width) in this process.
+    Returns the launches of the bench process and of the two tools."""
+    from faster_voxelpose_tpu_torch.tools import bench, bench_width, profile_stages
+
+    t0 = time.perf_counter()
+    out = _run_tool(["faster_voxelpose_tpu_torch.tools.bench"], ROOT, "tools.bench")
+    print("\n".join(out.strip().splitlines()[-4:]))
+    line = json.loads(next(ln for ln in reversed(out.splitlines()) if ln.startswith('{"metric"')))
+    bench.check_line(line)
+    _graph_launch_check(line, bench.worst_case_config().CAPTURE_SPEC.MAX_PEOPLE)
+    true, detected = line["realistic_true_people"], line["realistic_detected_people"]
+    if not abs(detected - true) <= BENCH_DETECTED_OF_TRUE * true:
+        raise AssertionError(f"bench: detected people {detected} not within "
+                             f"{BENCH_DETECTED_OF_TRUE:.0%} of true people {true}")
+    launches = {"bench": _summed_launches([out])}
+    print(f"bench: tools.bench in {time.perf_counter() - t0:.1f} s: worst case "
+          f"{line['value']} frames/s (device {line['latency_device_ms']:.4f} ms a frame), "
+          f"batch {line['throughput_batch']} {line['throughput_fps']} frames/s (device "
+          f"{line['throughput_device_ms']:.4f} ms a step); realistic detected {detected} of "
+          f"{true} people; launches {launches['bench']} | {card}")
+    bench_graph_check(card)
+    stages, counts = _tool_in_process(profile_stages, "tools.profile_stages")
+    if not all(math.isfinite(v["host_ms"]) and v["device_ms"] > 0 for v in stages.values()):
+        raise AssertionError(f"bench: profile_stages readings {stages}")
+    width, more = _tool_in_process(bench_width, "tools.bench_width")
+    sides = (width["base"], width["narrow"])
+    if not all(w["weights"] == "trained snapshot" and w["fusion_device_ms_per_frame"] > 0
+               for w in sides):
+        raise AssertionError(f"bench: bench_width readings {width}")
+    launches["bench tools"] = {k: counts[k] + more[k] for k in counts}
+    print(f"bench: phase {time.perf_counter() - t0:.1f} s; launches of the stage and width "
+          f"tools {launches['bench tools']} | {card}")
+    return launches
+
+
 # -- datasets phase: every heatmap source and dataset -----------------------
 
 NATIVE_NUMPY_TOL = 2e-6  # the native renderer against its numpy plain version
@@ -3766,6 +3927,7 @@ def main(argv=None) -> int:
     paths["eval"] = released(eval_phase(card), "eval")
     paths["profiles"] = released(profiles_phase(card), "profiles")
     paths["images"] = released(images_phase(card), "images")
+    paths.update(released(bench_phase(card), "bench"))
     released(failed_capture_phase(cfg, rig, card), "failed capture")
     paths["datasets"] = released(datasets_phase(card), "datasets")
     paths["scale-out"] = released(scale_out_phase(card), "scale-out")

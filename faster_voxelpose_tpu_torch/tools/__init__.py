@@ -26,6 +26,15 @@ serve_latency    PoseService's per-request latency on held-out scenes, run
 train            the training CLI: compiled train and eval steps, prefetch,
                  resumable checkpoints, TRAIN.VISUALIZATION (counterpart of
                  run/train.py)
+bench            the end-to-end benchmark: the worst case (every proposal
+                 slot valid) at latency and batch-8 throughput and the
+                 realistic load (committed weights, held-out scenes), each
+                 measurement one CUDA graph of F frames, on the host's and
+                 the device's clocks (counterpart of bench.py)
+profile_stages   per-stage time of the pipeline by the same scan slope
+                 (counterpart of scripts/profile_stages.py)
+bench_width      the half-width fusion trunk against full width
+                 (counterpart of scripts/bench_width.py)
 make_demo_data   the synthetic rig and pose bank that a synthetic
                  config's DATADIR holds (counterpart of
                  scripts/make_demo_data.py; needs no GPU)

@@ -15,16 +15,24 @@ device_timing
 host_ms    the host's wall time per call when n calls are issued back to
            back and the device is synchronised once at the end, what a
            caller's loop sees.
+
+`scan_slope` times a whole step (a frame through the model) as the JAX
+package's bench.py does: F steps chained by a scalar carry, captured into
+one CUDA graph (the counterpart of one `lax.scan` dispatch), the per-step
+time the slope between two lengths F1 < F2, on the host's clock up to
+the outputs on the host and on the device's clock.
 """
 
 from __future__ import annotations
 
 import subprocess
 import time
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..engine import graphs
 
 
 def card_line() -> str:
@@ -158,3 +166,98 @@ def host_ms(fn: Callable[[], object], n: int = 20, reps: int = 5, warm: int = 3,
         sync()
         totals.append((now() - t0) * 1e3)
     return per_call_ms(totals, n)
+
+
+Step = Callable[[torch.Tensor, Tuple[torch.Tensor, ...]], Tuple[torch.Tensor, Any]]
+
+
+def scan(step: Step, xs: Sequence[torch.Tensor], length: int,
+         carry: torch.Tensor) -> torch.Tensor:
+    """`lax.scan` of `step(carry, x) -> (carry, out)` over `length` steps,
+    step i taking x = tuple(x[i] for x in xs); the outputs stacked."""
+    outs = []
+    for i in range(length):
+        carry, out = step(carry, tuple(x[i] for x in xs))
+        outs.append(out)
+    return torch.stack(outs)
+
+
+class ScanTime(NamedTuple):
+    """One length's reading: the least of `reps` runs on the host's clock
+    (ms, up to the outputs on the host) and on the device's (ms, None on
+    the CPU), the outputs of the last run on the host, and the kernel
+    launches of one replay of the graph (empty on the CPU)."""
+
+    host_ms: float
+    device_ms: Optional[float]
+    outputs: torch.Tensor
+    launches: Dict[str, int]
+
+
+def scan_time(step: Step, xs: Sequence[torch.Tensor], length: int, device: torch.device,
+              reps: int = 3) -> ScanTime:
+    """`scan` of `length` steps from a zero carry, on inputs `xs` already on
+    `device`.  On the card it runs once eagerly on a side stream (cuDNN
+    and cuBLAS choose their algorithms there), is captured into one CUDA
+    graph (`engine.graphs.capture`, its own memory pool, inference mode)
+    and the graph is replayed `reps` times, each replay between two CUDA
+    events and followed by a copy of its outputs to the host; the graph
+    and its pool are freed before returning.  On the CPU the scan runs
+    eagerly, once to warm up and then `reps` times."""
+    carry = torch.zeros((), device=device)
+    run = lambda: scan(step, xs, length, carry)  # noqa: E731
+    if device.type != "cuda":
+        with torch.inference_mode():
+            run()
+            best, out = np.inf, None
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = run().cpu()
+                best = min(best, (time.perf_counter() - t0) * 1e3)
+        return ScanTime(best, None, out, {})
+    stream = torch.cuda.Stream(device)
+    graphs.run_on(stream, run, inference=True)
+    captured = graphs.capture(run, stream, inference=True)
+    best_host = best_dev = np.inf
+    try:
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            a.record()
+            graphs.replay(captured)
+            b.record()
+            out = captured.outputs.cpu()
+            best_host = min(best_host, (time.perf_counter() - t0) * 1e3)
+            best_dev = min(best_dev, a.elapsed_time(b))
+        return ScanTime(best_host, best_dev, out, dict(captured.launches))
+    finally:
+        del captured
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+
+
+class Slope(NamedTuple):
+    """Per-step ms between two scan lengths on both clocks (device None on
+    the CPU), and each length's reading."""
+
+    host_ms: float
+    device_ms: Optional[float]
+    short: ScanTime
+    long: ScanTime
+
+
+def scan_slope(step: Step, n1: int, n2: int, device: torch.device,
+               inputs: Callable[[int], Sequence[torch.Tensor]] = lambda n: (),
+               reps: int = 3) -> Slope:
+    """The per-step time of `step` as the slope between scans of n1 < n2
+    steps (`scan_time`): what the scan's launch, the copy of its outputs
+    and any constant cost add cancels.  `inputs(F)` stages the F steps'
+    inputs on `device` (each tensor's first axis the step); the inputs
+    and the graph of one length are freed before the next is made."""
+    if not 0 < n1 < n2:
+        raise ValueError(f"scan lengths must be 0 < n1 < n2, got {n1}, {n2}")
+    short = scan_time(step, inputs(n1), n1, device, reps)
+    long = scan_time(step, inputs(n2), n2, device, reps)
+    dev = None if short.device_ms is None else (long.device_ms - short.device_ms) / (n2 - n1)
+    return Slope((long.host_ms - short.host_ms) / (n2 - n1), dev, short, long)

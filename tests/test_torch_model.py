@@ -154,6 +154,9 @@ def test_port_imports_nothing_of_jax():
             "faster_voxelpose_tpu_torch/engine/validator.py",
             "faster_voxelpose_tpu_torch/ops/window_kernels.py",
             "faster_voxelpose_tpu_torch/tools/timing.py",
+            "faster_voxelpose_tpu_torch/tools/bench.py",
+            "faster_voxelpose_tpu_torch/tools/profile_stages.py",
+            "faster_voxelpose_tpu_torch/tools/bench_width.py",
             "faster_voxelpose_tpu_torch/tools/probe_sampling.py",
             "faster_voxelpose_tpu_torch/tools/sweep_sampling.py",
             "faster_voxelpose_tpu_torch/tools/microbench_mma.py",
