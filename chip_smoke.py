@@ -121,7 +121,26 @@ another committed snapshot's profile (`config.profile`):
    against the eager step (float32: the same slots, all valid, poses
    within 0.01 mm; bf16 printed) and the live voxels of every crop; then
    tools.profile_stages and tools.bench_width in this process;
-13. datasets phase, after the failed-capture control: the host
+13. script tools phase, after the bench phase: the counterparts of the
+   JAX repo's last eleven scripts, in this process at short settings in a
+   temporary directory: capture_trace and analyze_trace (4 worst-case
+   frames in one graph under torch.profiler: rows 1 and 2 by name, once
+   a frame, and the trace's device ms a frame within 5% of the bench's
+   latency_device_ms); profile_backbone (the stages and the whole
+   ResNet-50, each under the card's bf16 peak); run_real_parity (with no
+   data a skip per dataset and PARITY.md only in the temporary directory;
+   then --preprocess, conversion and validation of a 4-frame Panoptic
+   'image' sequence from upstream checkpoints of the committed weights
+   and a seeded ResNet-50); export_best_npz (panoptic_synthetic's
+   committed npz as the best model, --snapshot-dir in the temporary
+   directory: the same arrays, the record's epoch from a train log),
+   diagnose_campus (campus_synthetic_ref's npz) and bench_realistic
+   (panoptic_synthetic) on 64 scenes of data written by make_demo_data;
+   check_sampling_parity at Panoptic and Campus without timing (every
+   float32 route within 0.01 mm of 'quad', rows 2-4 each reached);
+   smoke_kernels whole; each sweep on three variants, the production
+   build among them; checkpoints/ hashed before and after;
+14. datasets phase, after the failed-capture control: the host
    renderers at the Panoptic and Shelf shapes (native against numpy,
    2e-6; host against the device renderer on the same draws, 2e-5);
    panoptic_synthetic and shelf_synthetic_ref on 256 held-out scenes
@@ -139,7 +158,7 @@ another committed snapshot's profile (`config.profile`):
    configs/demo/synthetic.yaml with device rendering and with host
    rendering in the prefetch thread and in 8 workers, then tools/train.py
    on that config with WORKERS 0 and 8;
-14. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
+15. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
    compiled DP train step (collectives in its CUDA graph) against the
    compiled Trainer on one batch of 4 at the Panoptic profile in float32,
    and the DP eval step against run_validation on 8 held-out scenes; two
@@ -2821,7 +2840,8 @@ def bench_phase(card):
     within 10% of true people over the same 24 frames.  Then the worst
     case's graph against eager (`bench_graph_check`), and the stage and
     width tools (tools.profile_stages, tools.bench_width) in this process.
-    Returns the launches of the bench process and of the two tools."""
+    Returns the launches of the bench process and of the two tools, and
+    the bench's line."""
     from faster_voxelpose_tpu_torch.tools import bench, bench_width, profile_stages
 
     t0 = time.perf_counter()
@@ -2852,6 +2872,253 @@ def bench_phase(card):
     launches["bench tools"] = {k: counts[k] + more[k] for k in counts}
     print(f"bench: phase {time.perf_counter() - t0:.1f} s; launches of the stage and width "
           f"tools {launches['bench tools']} | {card}")
+    return launches, line
+
+
+# -- script tools phase: the counterparts of the JAX repo's last scripts ------
+
+TRACE_OF_BENCH = 0.05  # the trace's device ms a frame within 5% of the bench's latency_device_ms
+TRACE_FRAMES = 4
+ROUTE_TOL = 0.01  # mm: every float32 route against 'quad', as in route_phase
+
+
+def _in_process(label, fn, *args, **kwargs):
+    """fn(*args, **kwargs) in this process, its printed output shown after
+    it, its seconds printed; the root logger's handlers, which the tools'
+    create_logger extends, are put back."""
+    import contextlib
+    import io
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kwargs)
+    finally:
+        for h in root.handlers:
+            if h not in handlers:
+                h.close()
+        root.handlers[:] = handlers
+        root.setLevel(level)
+        print(buf.getvalue(), end="")
+        print(f"script tools: {label} ran in {time.perf_counter() - t0:.1f} s")
+
+
+def _tools_trace(tmp, card, bench_ms):
+    """capture_trace and analyze_trace: the worst case's frames in one
+    graph under the profiler; rows 1 and 2 by name in the trace, once a
+    frame, and the trace's device time a frame within TRACE_OF_BENCH of
+    the bench's device ms a frame, `bench_ms`."""
+    from faster_voxelpose_tpu_torch.tools import analyze_trace, capture_trace
+
+    logdir = str(tmp / "trace")
+    res = _in_process("capture_trace", capture_trace.main, [logdir, str(TRACE_FRAMES)])
+    got = _in_process("analyze_trace", analyze_trace.main,
+                      [logdir, "15", "--frames", str(TRACE_FRAMES)])
+    count = {row: sum(n for name, n in got["count"].items() if key in name)
+             for row, key in (("row 1", "whole_kernel"), ("row 2", "crop_kernel<false, false>"))}
+    per_frame = got["sum_us"] / 1e3 / TRACE_FRAMES
+    print(f"script tools: trace of {TRACE_FRAMES} worst-case frames: device {per_frame:.4f} ms "
+          f"a frame against the bench's {bench_ms:.4f} ({per_frame / bench_ms - 1:+.2%}), busy "
+          f"share {got['busy_share']:.4f}, kernels by name {count}, launches "
+          f"{ {k: n for k, n in res['launches'].items() if n} } | {card}")
+    if got["kind"] != "device" or count != {"row 1": TRACE_FRAMES, "row 2": TRACE_FRAMES} \
+            or abs(per_frame / bench_ms - 1) > TRACE_OF_BENCH:
+        raise AssertionError(f"script tools: the trace reads {got['kind']}, {count}, "
+                             f"{per_frame} ms a frame against {bench_ms}")
+
+
+def _tools_backbone(card):
+    """profile_backbone: the stages and the whole backbone, each a finite
+    time under the card's peak."""
+    from faster_voxelpose_tpu_torch.tools import profile_backbone
+
+    tags = ",".join(profile_backbone.STAGES + ("full",))
+    line = _in_process("profile_backbone", profile_backbone.main, [tags, "--lengths", "1,3"])
+    bad = {t: r for t, r in line.items() if isinstance(r, dict)
+           and not (r["device_ms"] > 0 and 0 < r["share_of_peak"] < 1)}
+    if bad or "stage_sum_ms" not in line:
+        raise AssertionError(f"script tools: profile_backbone readings {bad or line}")
+
+
+def _tools_parity(tmp, card):
+    """run_real_parity: with no data a skip for each dataset and PARITY.md
+    in the temporary directory only; then, on a Panoptic 'image' sequence
+    of 4 frames with the committed weights and a seeded ResNet-50 as
+    upstream checkpoints, --preprocess, conversion and validation."""
+    import shutil
+
+    from faster_voxelpose_tpu_torch.config import profile
+    from faster_voxelpose_tpu_torch.datasets import panoptic
+    from faster_voxelpose_tpu_torch.datasets.demo_data import demo_rig
+    from faster_voxelpose_tpu_torch.tools import run_real_parity
+    from faster_voxelpose_tpu_torch.tools.validate import held_out_dataset
+
+    repo_md = (ROOT / "PARITY.md").exists(), pathlib.Path("PARITY.md").exists()
+    none = str(tmp / "none")
+    skips = _in_process("run_real_parity, no data", run_real_parity.main,
+                        ["--data-dir", none, "--weights-dir", none, "--out",
+                         str(tmp / "PARITY.md")])
+    if [r["status"] for r in skips] != ["no-data"] * 3 or not (tmp / "PARITY.md").exists() \
+            or ((ROOT / "PARITY.md").exists(), pathlib.Path("PARITY.md").exists()) != repo_md:
+        raise AssertionError(f"script tools: run_real_parity without data: {skips}")
+
+    src = profile("panoptic_synthetic")
+    rig = demo_rig(src)
+    write_panoptic_sequence(tmp / "data" / "Panoptic", panoptic.VAL_SEQUENCES[0],
+                            [rig[k] for k in sorted(rig)], held_out_dataset(src, 4).records, 12)
+    _upstream_checkpoints(tmp)
+    weights = tmp / "weights"
+    weights.mkdir()
+    shutil.copy(tmp / "model.pth", weights / "panoptic_model_best.pth.tar")
+    shutil.copy(tmp / "backbone.pth", weights / "pose_resnet50_panoptic.pth.tar")
+
+    def hook(name, cfg):  # no spawn workers; outputs in the temporary directory
+        cfg.WORKERS = 0
+        cfg.OUTPUT_DIR = str(tmp / "output")
+
+    res = _in_process("run_real_parity, Panoptic image fixture", run_real_parity.run_parity,
+                      str(tmp / "data"), str(weights), ("panoptic",), 4, "torch", True,
+                      str(tmp / "PARITY_fixture.md"), hook)
+    print(f"script tools: run_real_parity on the fixture: {[(r['status'], r.get('frames'), r.get('metric')) for r in res]} | {card}")
+    if [r["status"] for r in res] != ["ok"] or res[0]["frames"] != 4 \
+            or not math.isfinite(res[0]["metric"]):
+        raise AssertionError(f"script tools: run_real_parity on the fixture: {res}")
+
+
+def _tools_snapshots(tmp, card):
+    """export_best_npz (panoptic_synthetic's committed weights as the best
+    model, --snapshot-dir in the temporary directory, 64 held-out scenes),
+    diagnose_campus (campus_synthetic_ref's committed npz where
+    load_best_model reads it, 64 scenes) and bench_realistic
+    (panoptic_synthetic), on data written by tools/make_demo_data.py."""
+    import shutil
+
+    from faster_voxelpose_tpu_torch.tools import (bench_realistic, diagnose_campus,
+                                                  export_best_npz, make_demo_data)
+
+    demo = {"panoptic_synthetic": ("DemoPanoptic", ["--views", "5", "--skeleton", "panoptic15",
+                                                    "--center", "0", "-500", "--radius", "2800",
+                                                    "--image-size", "1920", "1080"], "5000"),
+            "campus_synthetic_ref": ("DemoCampus", ["--views", "3", "--skeleton", "coco17",
+                                                    "--center", "3000", "4500", "--radius",
+                                                    "10500", "--image-size", "360", "288"],
+                                     "10000")}
+    cfgs = {}
+    for stem, (datadir, args, n) in demo.items():
+        _in_process(f"make_demo_data {datadir}", make_demo_data.main,
+                    ["--out", str(tmp / "data" / datadir), "--poses", "2000", *args])
+        cfgs[stem] = _config_variant(tmp / "cfg", [
+            ("OUTPUT_DIR: 'output'", f"OUTPUT_DIR: '{tmp}/output'"),
+            ("LOG_DIR: 'log'", f"LOG_DIR: '{tmp}/log'"),
+            (f'DATADIR: "data/{datadir}"', f'DATADIR: "{tmp}/data/{datadir}"'),
+            (f"NUM_DATA: {n}", "NUM_DATA: 64")], src=ROOT / "configs" / "demo" / f"{stem}.yaml")
+        out = tmp / "output" / "synthetic" / stem
+        out.mkdir(parents=True)
+        shutil.copy(ROOT / "checkpoints" / stem / "model_best.npz", out / "model_best.npz")
+    (tmp / "output" / "synthetic" / "panoptic_synthetic" / "run_train.log").write_text(
+        "2026-01-01 00:00:00,000 epoch 7\n2026-01-01 00:00:01,000 => saved best model to x\n")
+
+    snap = tmp / "snap"
+    record = _in_process("export_best_npz", export_best_npz.main,
+                         ["--cfg", str(cfgs["panoptic_synthetic"]), "--snapshot-dir", str(snap)])
+    with np.load(snap / "model_best.npz") as a, \
+            np.load(ROOT / "checkpoints" / "panoptic_synthetic" / "model_best.npz") as b:
+        same = sorted(a.files) == sorted(b.files) and all(np.array_equal(a[k], b[k])
+                                                          for k in a.files)
+    print(f"script tools: export_best_npz: the npz equals the committed one {same}; record "
+          f"epoch {record['epoch']}, metric {record['metric']:.4f} on {record['eval_set']} | {card}")
+    if not (same and record["epoch"] == 7 and 0 < record["metric"] <= 1
+            and json.loads((snap / "eval_record.json").read_text()) == record):
+        raise AssertionError(f"script tools: export_best_npz: {record}")
+
+    res = _in_process("diagnose_campus", diagnose_campus.main,
+                      ["--cfg", str(cfgs["campus_synthetic_ref"])])
+    print(f"script tools: diagnose_campus on 64 scenes: |dx|, |dy|, |dz| {res['axis_mm']} mm over "
+          f"{res['matched']} matched poses, PCP3D {res['pcp']:.4f} | {card}")
+    if not (res["matched"] > 0 and all(math.isfinite(v) for v in res["axis_mm"])
+            and 0 < res["pcp"] <= 1):
+        raise AssertionError(f"script tools: diagnose_campus: {res}")
+
+    line = _in_process("bench_realistic", bench_realistic.main, [str(cfgs["panoptic_synthetic"])])
+    true, detected = line["true_people"], line["detected_people"]
+    steps = [int(n) for n in line["launches"]["fusion"]]
+    if not (abs(detected - true) <= BENCH_DETECTED_OF_TRUE * true
+            and line["device_ms_per_frame"] > 0 and line["batched_device_ms_per_frame"] > 0
+            and all(c == {"sample_whole_projected": s, "sample_crop_planes": s}
+                    for s, c in zip(steps, line["launches"]["fusion"].values()))):
+        raise AssertionError(f"script tools: bench_realistic: {line}")
+
+
+def _tools_sampling(card):
+    """check_sampling_parity at Panoptic and Campus (every float32 route
+    within ROUTE_TOL of 'quad', each launching its own crop kernel once),
+    smoke_kernels whole, and each sweep on three variants, the
+    production constants among them."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.tools import (check_sampling_parity, smoke_kernels,
+                                                  sweep_planes, sweep_whole)
+
+    for cfg in ("configs/panoptic/jln64.yaml", "configs/campus/jln64.yaml"):
+        out = _in_process(f"check_sampling_parity {cfg}", check_sampling_parity.check,
+                          ROOT / cfg, torch.device(CARD), timing=False)
+        crops = {r["route"]["crop"] for r in out.values()}
+        worst = max(r["gap_mm"] for n, r in out.items() if n != "quad" and r["dtype"] == "float32")
+        bad = [n for n, r in out.items()
+               if r["launches"] != {"sample_whole_projected": 1, r["route"]["crop"]: 1}
+               or (n != "quad" and r["dtype"] == "float32"
+                   and not (r["agreement"] == 1.0 and r["gap_mm"] <= ROUTE_TOL))]
+        print(f"script tools: check_sampling_parity {cfg}: {len(out)} variants, crop kernels "
+              f"{sorted(crops)}, float32 routes within {worst:.3g} mm of 'quad' | {card}")
+        if bad or len(crops) != 3:
+            raise AssertionError(f"script tools: check_sampling_parity {cfg}: {bad}, {crops}")
+    _in_process("smoke_kernels", smoke_kernels.main, [])
+    for tool, names in ((sweep_whole, "v128,v256,v512"),
+                        (sweep_planes, "t4432_n256,t8832_n256,t4432_n128")):
+        rows = _in_process(tool.__name__.rsplit(".", 1)[1], tool.main,
+                           ["--variants", names, "--lengths", "2,6"])
+        if [r["name"].split()[0] for r in rows] != names.split(",") \
+                or not any(r["name"] == tool.PRODUCTION for r in rows):
+            raise AssertionError(f"script tools: {tool.__name__}: {rows}")
+
+
+def script_tools_phase(card, bench_line):
+    """The counterparts of the JAX repo's last eleven scripts, each run on
+    the card at short settings in a temporary directory and checked:
+    capture_trace + analyze_trace, profile_backbone, run_real_parity,
+    export_best_npz, diagnose_campus, bench_realistic,
+    check_sampling_parity, smoke_kernels, sweep_whole and sweep_planes.
+    Nothing under checkpoints/ changes (`_tree_digest`).  `bench_line`
+    is the bench phase's, whose latency_device_ms the trace is held to.
+    Returns the kernel launches of the phase."""
+    import tempfile
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    t0 = time.perf_counter()
+    before = _tree_digest(ROOT / "checkpoints")
+    sk.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tmp = pathlib.Path(tmp)
+        _tools_trace(tmp, card, bench_line["latency_device_ms"])
+        _tools_backbone(card)
+        _tools_parity(tmp, card)
+        _tools_snapshots(tmp, card)
+        _tools_sampling(card)
+    launches = sk.launch_counts()
+    unchanged = _tree_digest(ROOT / "checkpoints") == before
+    print(f"script tools: phase {time.perf_counter() - t0:.1f} s; checkpoints/ unchanged "
+          f"{unchanged}; launches {launches} | {card}")
+    if not unchanged:
+        raise AssertionError("script tools: checkpoints/ changed")
+    missing = [k for k in ("sample_whole", "sample_whole_projected", "sample_crop_planes",
+                           "sample_crop_planes_coords", "sample_crop_cube") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"script tools: kernels never launched: {missing}")
     return launches
 
 
@@ -3927,7 +4194,9 @@ def main(argv=None) -> int:
     paths["eval"] = released(eval_phase(card), "eval")
     paths["profiles"] = released(profiles_phase(card), "profiles")
     paths["images"] = released(images_phase(card), "images")
-    paths.update(released(bench_phase(card), "bench"))
+    bench_launches, bench_line = released(bench_phase(card), "bench")
+    paths.update(bench_launches)
+    paths["script tools"] = released(script_tools_phase(card, bench_line), "script tools")
     released(failed_capture_phase(cfg, rig, card), "failed capture")
     paths["datasets"] = released(datasets_phase(card), "datasets")
     paths["scale-out"] = released(scale_out_phase(card), "scale-out")

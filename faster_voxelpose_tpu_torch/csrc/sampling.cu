@@ -44,15 +44,39 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// The block shapes below may be set by -D at build time (the block-shape
+// sweeps, tools/sweep_planes.py and tools/sweep_whole.py, build each
+// variant into a library of its own); the production build passes no
+// define and takes these values.
+#ifndef FVP_THREADS
+#define FVP_THREADS 256
+#endif
+#ifndef FVP_CROP_TX
+#define FVP_CROP_TX 4
+#endif
+#ifndef FVP_CROP_TY
+#define FVP_CROP_TY 4
+#endif
+#ifndef FVP_CROP_TZ
+#define FVP_CROP_TZ 32
+#endif
+#ifndef FVP_WHOLE_VOXELS
+#define FVP_WHOLE_VOXELS 256
+#endif
+
+constexpr int kThreads = FVP_THREADS;
 constexpr int kWarps = kThreads / 32;
+static_assert(kThreads % 32 == 0 && kThreads >= 32 && kThreads <= 1024,
+              "FVP_THREADS: a multiple of 32 up to 1024");
 // The crop sampler's block tile: kTX x kTY columns (x, y) of kTZ voxels
 // along z, one column chunk per warp at a time (kTZ = 32: one voxel per
 // lane when the taps are made).  Small tiles give many short blocks, which
 // balance across the SMs when the bbox masks cut tiles at their edges, and
 // keep shared memory small, which leaves L1 to the heatmap gathers; the
 // price is more global atomics per live voxel on the xz and yz planes.
-constexpr int kTX = 4, kTY = 4, kTZ = 32;
+constexpr int kTX = FVP_CROP_TX, kTY = FVP_CROP_TY, kTZ = FVP_CROP_TZ;
+static_assert(kTX > 0 && kTY > 0 && kTZ > 0 && kTZ <= 32,
+              "FVP_CROP_TZ: a column chunk is at most one voxel per lane");
 constexpr int kTS = kTX + kTY + kTZ;  // projection products per (view, row)
 // Views whose corner loads a joint lane issues before it sums any: all of
 // them for rigs of up to 8 cameras.  The gathers hit L2, so the time of a
@@ -250,12 +274,15 @@ sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
 // pixels per voxel as the four corners a voxel gathers, and staging adds
 // the copies' latency and halves the blocks per SM (97 KB of shared
 // memory a block against 32 KB).
-constexpr int kWholeVoxels = 256;  // voxels and threads per block of the whole-space sampler
+constexpr int kWholeVoxels = FVP_WHOLE_VOXELS;  // voxels and threads per block of the whole-space sampler
 constexpr int kMaxJoints = 32;
+static_assert(kWholeVoxels % 32 == 0 && kWholeVoxels >= kMaxJoints && kWholeVoxels <= 1024,
+              "FVP_WHOLE_VOXELS: a multiple of 32 from 32 to 1024");
+// 1024 threads per SM (at most 64 registers a thread): at 256 voxels, four
+// blocks, and a Panoptic sample's 500 blocks run in one wave on 132 SMs.
+constexpr int kWholeBlocksPerSM = 1024 / kWholeVoxels;
 
-// Four blocks per SM (at most 64 registers a thread): a Panoptic sample's
-// 500 blocks run in one wave on 132 SMs.
-__global__ void __launch_bounds__(kWholeVoxels, 4)
+__global__ void __launch_bounds__(kWholeVoxels, kWholeBlocksPerSM)
 whole_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
              const float* __restrict__ gx, const float* __restrict__ gy,
              const float* __restrict__ gz, CropConsts kc, float* __restrict__ out, int V,

@@ -1,5 +1,5 @@
 from .cameras import CAM_PARAM_DIM, pack_camera, pack_rig, project_points, project_points_np
-from .example_rigs import dome_camera, dome_rig
+from .example_rigs import dome_camera, dome_rig, perimeter_camera, perimeter_rig
 from .grids import (
     compute_center_grids_np,
     compute_grid_np,

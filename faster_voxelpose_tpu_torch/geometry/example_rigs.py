@@ -66,3 +66,57 @@ def dome_rig(
     cams = [dome_camera(i, n_views, **kwargs) for i in range(n_views)]
     rig = pack_rig(cams).astype(np.float32)
     return np.broadcast_to(rig, (B, n_views, 21)).copy()
+
+
+def perimeter_camera(
+    idx: int,
+    n_views: int,
+    space_center: Sequence[float] = (3000.0, 4500.0, 1000.0),
+    ori_image_size: Tuple[int, int] = (360, 288),
+    focal: float = 430.0,
+    radius_range: Tuple[float, float] = (8500.0, 12000.0),
+    height_range: Tuple[float, float] = (2000.0, 3600.0),
+    seed: int = 200,
+) -> dict:
+    """Campus-like wide-baseline outdoor camera: few views far outside a
+    large (12x12m) capture area, a low-resolution sensor, a long working
+    distance (the reference's Campus rig: 3 cameras, 360x288 images).  At
+    this distance a voxel tile's image footprint is small, and the 12 m
+    space projects people near the image border."""
+    rng = np.random.RandomState(seed + idx)
+    center = np.asarray(space_center, np.float64)
+    angle = 2 * np.pi * idx / n_views + rng.uniform(-0.3, 0.3)
+    radius = rng.uniform(*radius_range)
+    height = rng.uniform(*height_range)
+    pos = center + np.array(
+        [radius * np.cos(angle), radius * np.sin(angle), height - center[2]]
+    )
+
+    fwd = center - pos
+    fwd /= np.linalg.norm(fwd)
+    up = np.array([0.0, 0.0, -1.0])
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    R = np.stack([right, down, fwd], axis=0)
+
+    w, h = ori_image_size
+    return {
+        "R": R,
+        "T": pos.reshape(3, 1),
+        "fx": focal + rng.uniform(-25, 25),
+        "fy": focal + rng.uniform(-25, 25),
+        "cx": w / 2.0 + rng.uniform(-10, 10),
+        "cy": h / 2.0 + rng.uniform(-10, 10),
+        "k": np.array([[-0.3], [0.12], [0.0]]),
+        "p": np.array([[1e-3], [-1e-3]]),
+    }
+
+
+def perimeter_rig(B: int, n_views: int, **kwargs) -> np.ndarray:
+    """Packed (B, V, 21) f32 rig of Campus-like perimeter cameras."""
+    from .cameras import pack_rig
+
+    cams = [perimeter_camera(i, n_views, **kwargs) for i in range(n_views)]
+    rig = pack_rig(cams).astype(np.float32)
+    return np.broadcast_to(rig, (B, n_views, 21)).copy()

@@ -108,13 +108,20 @@ sample_crop_cube
 Every kernel here is forward only: no gradient reaches the samplers in
 training (the heatmaps are data, the proposals are detached), and each
 wrapper raises on an input that requires grad rather than detach it.
+
+The wrappers launch the production build of `csrc/sampling.cu`; inside
+`with kernel_variant(defines):` they launch a variant built with those
+`-D` defines (the block shapes of the source's `#ifndef` guards) from a
+library of its own, as the block-shape sweeps (`tools/sweep_planes.py`,
+`tools/sweep_whole.py`) do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -327,10 +334,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+# the -D defines of the variant the wrappers launch (`kernel_variant`)
+_VARIANT: Tuple[str, ...] = ()
+
+
+@contextlib.contextmanager
+def kernel_variant(defines: Sequence[str]) -> Iterator[None]:
+    """Within the block, the wrappers and the launch-geometry readers use
+    csrc/sampling.cu built with `defines` ("FVP_CROP_TX=8", ...; none is
+    the production build)."""
+    global _VARIANT
+    before, _VARIANT = _VARIANT, tuple(defines)
+    try:
+        yield
+    finally:
+        _VARIANT = before
+
+
 def _lib():
     from .cuda_build import load
 
-    lib = load("sampling")
+    lib = load("sampling", _VARIANT)
     if not getattr(lib, "_fvp_typed", False):
         lib.fvp_sample_whole.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.fvp_sample_whole.restype = _I

@@ -38,7 +38,31 @@ bench_width      the half-width fusion trunk against full width
 make_demo_data   the synthetic rig and pose bank that a synthetic
                  config's DATADIR holds (counterpart of
                  scripts/make_demo_data.py; needs no GPU)
+capture_trace    a torch.profiler trace of the worst case's frames in one
+                 CUDA graph (counterpart of scripts/capture_trace.py)
+analyze_trace    a trace's device ms by kernel name, busy share and idle
+                 gaps (counterpart of scripts/analyze_trace.py; needs no
+                 GPU)
+profile_backbone the ResNet-50 by stage against the card's bf16 peak, and
+                 the stem candidates (scripts/profile_backbone.py)
+run_real_parity  the real datasets and the model zoo's checkpoints to
+                 PARITY.md (scripts/run_real_parity.py and .sh)
+export_best_npz  a best model published as a snapshot, validated from the
+                 written file (scripts/export_best_npz.py)
+diagnose_campus  the Campus profile's per-axis error and PCP tables
+                 (scripts/diagnose_campus.py)
+bench_realistic  any config's trained detector on 24 of its test scenes
+                 (scripts/bench_realistic.py)
+check_sampling_parity
+                 every sampling route of the full model against the
+                 default, timed (scripts/check_pallas_parity.py)
+smoke_kernels    the sampling kernels against their plain versions on
+                 compact, wild, COCO-17 and near-camera cases, and their
+                 times (scripts/smoke_kernel_tpu.py)
+sweep_whole      the whole-space kernel's block size (scripts/sweep_whole.py)
+sweep_planes     the crop kernel's tile and threads under two validity
+                 modes (scripts/sweep_planes.py)
 
 They run on the card unless `--device cpu` is given, and raise when there
-is no CUDA device (make_demo_data and preprocess need none).
+is no CUDA device (make_demo_data, preprocess and analyze_trace need none).
 """

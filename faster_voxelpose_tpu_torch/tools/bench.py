@@ -252,14 +252,15 @@ def launches_of(s: Slope) -> Dict[int, Dict[str, int]]:
     return {len(s.short.outputs): s.short.launches, len(s.long.outputs): s.long.launches}
 
 
-def realistic_scenes(cfg: Config, frames: int = REALISTIC_FRAMES) -> dict:
+def realistic_scenes(cfg: Config, frames: int = REALISTIC_FRAMES, dataset=None) -> dict:
     """The first `frames` held-out scenes of the 64 that bench.py builds
-    (SYNTHETIC.NUM_DATA 64, heatmaps rendered on the host): heatmaps
+    (SYNTHETIC.NUM_DATA 64, heatmaps rendered on the host), or of
+    `dataset(cfg)`, a maker of the test set, where given: heatmaps
     (F, V, H, W, J), cameras (F, V, 21) and the people in each."""
     from .validate import held_out_dataset
 
     cfg.DATASET.DEVICE_RENDER = False
-    ds = held_out_dataset(cfg, 64)
+    ds = held_out_dataset(cfg, 64) if dataset is None else dataset(cfg)
     samples = [ds[i] for i in range(frames)]
     return {"heatmaps": np.stack([s["input_heatmaps"] for s in samples]),
             "cameras": np.stack([s["cameras"] for s in samples]),

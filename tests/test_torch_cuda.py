@@ -1245,3 +1245,45 @@ def test_make_mesh_under_gloo_is_on_the_card(dev, tmp_path):
         assert shard_batch({"x": np.zeros((2, 3), np.float32)}, mesh)["x"].device.type == "cuda"
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("defines", [
+    ("FVP_CROP_TX=8", "FVP_CROP_TY=8", "FVP_CROP_TZ=16", "FVP_THREADS=512"),
+    ("FVP_CROP_TX=2", "FVP_CROP_TY=4", "FVP_CROP_TZ=32", "FVP_THREADS=128"),
+    ("FVP_WHOLE_VOXELS=64",),
+    ("FVP_WHOLE_VOXELS=1024",),
+])
+def test_block_shape_variants_equal_the_production_build(dev, defines):
+    """A variant of csrc/sampling.cu built with other block shapes (the
+    sweeps' -D defines) gives the production build's planes, cube and
+    whole-space cube bit for bit: each value's sum over the views runs in
+    the same order whatever the block, and max is order-free; its launch
+    geometry reports its own tile and threads."""
+    from faster_voxelpose_tpu_torch.models.projection import whole_axes, whole_projection
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg = tiny_cfg()
+    geom, rig, hm, centers, bbox, valid = _case(cfg, 3)
+    hm_d, cams, tl, mx, my, mz, valid_d, crop = _kernel_args(geom, rig, hm, centers, bbox,
+                                                             valid, dev)
+    axes = tuple(torch.as_tensor(a, device=dev) for a in whole_axes(geom))
+    outs = {}
+    for variant in ((), defines):
+        with sk.kernel_variant(variant):
+            planes = sk.sample_crop_planes(hm_d, cams, tl, mx, my, mz, valid_d, crop)
+            cube = sk.sample_crop_cube(hm_d, mx, my, mz, valid_d, cams=cams, centers_tl=tl,
+                                       crop=crop)
+            whole = sk.sample_whole_projected(hm_d[None], cams[None], axes,
+                                              whole_projection(geom))
+            geo = sk.crop_launch_geometry(cfg.DATASET.CAMERA_NUM, cfg.DATASET.NUM_JOINTS,
+                                          len(valid), geom.ind_voxels_per_axis,
+                                          project=True, cube=False)
+        outs[variant] = (planes, cube, whole, geo)
+    (p0, c0, w0, g0), (p1, c1, w1, g1) = outs[()], outs[defines]
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert torch.equal(c0, c1) and torch.equal(w0, w1)
+    tile = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
+    want = tuple(tile.get(k, v) for k, v in (("FVP_CROP_TX", 4), ("FVP_CROP_TY", 4),
+                                               ("FVP_CROP_TZ", 32)))
+    assert g0["tile"] == (4, 4, 32) and g1["tile"] == want
+    assert g0["threads"] == 256 and g1["threads"] == tile.get("FVP_THREADS", 256)

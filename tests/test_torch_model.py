@@ -181,7 +181,19 @@ def test_port_imports_nothing_of_jax():
             "faster_voxelpose_tpu_torch/parallel/mesh.py",
             "faster_voxelpose_tpu_torch/tools/demo.py",
             "faster_voxelpose_tpu_torch/tools/preprocess.py",
-            "faster_voxelpose_tpu_torch/tools/serve_latency.py"} <= names
+            "faster_voxelpose_tpu_torch/tools/serve_latency.py",
+            # the counterparts of the JAX repo's last eleven scripts
+            "faster_voxelpose_tpu_torch/tools/analyze_trace.py",
+            "faster_voxelpose_tpu_torch/tools/capture_trace.py",
+            "faster_voxelpose_tpu_torch/tools/profile_backbone.py",
+            "faster_voxelpose_tpu_torch/tools/run_real_parity.py",
+            "faster_voxelpose_tpu_torch/tools/export_best_npz.py",
+            "faster_voxelpose_tpu_torch/tools/diagnose_campus.py",
+            "faster_voxelpose_tpu_torch/tools/bench_realistic.py",
+            "faster_voxelpose_tpu_torch/tools/check_sampling_parity.py",
+            "faster_voxelpose_tpu_torch/tools/smoke_kernels.py",
+            "faster_voxelpose_tpu_torch/tools/sweep_whole.py",
+            "faster_voxelpose_tpu_torch/tools/sweep_planes.py"} <= names
     assert not offenders, offenders
 
 
