@@ -158,7 +158,18 @@ another committed snapshot's profile (`config.profile`):
    configs/demo/synthetic.yaml with device rendering and with host
    rendering in the prefetch thread and in 8 workers, then tools/train.py
    on that config with WORKERS 0 and 8;
-15. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
+15. entry phase (`tools/dryrun_multichip.py`, the counterpart of the JAX
+   repo's `__graft_entry__.py`): `entry()`'s tiny-model forward on the
+   card (shape (1, 4, 15, 5), finite, rows 1 and 2 launched once each)
+   against the same function and weights on the CPU (the same valid
+   slots, proposals 1e-3, fused poses 0.5 mm); `dryrun_multichip(2)`,
+   two gloo ranks on the one card: DP train (params 1e-4 in float64
+   throughout; summed gradients and BatchNorm statistics in float64 conv
+   stacks over float32 parameters; the bf16 readings printed), the view
+   forward on a sub-group and DP eval (1e-2 mm, at MIN_SCORE 0.1 and
+   with every slot valid), PipelinedStream on two streams (1e-2 mm),
+   every line printed;
+16. scale-out phase (`parallel/mesh.py`), last: one rank over NCCL, the
    compiled DP train step (collectives in its CUDA graph) against the
    compiled Trainer on one batch of 4 at the Panoptic profile in float32,
    and the DP eval step against run_validation on 8 held-out scenes; two
@@ -3824,6 +3835,89 @@ def _gloo_rank(rank, world, port, job_path, out_path, device):
         pickle.dump(out, f)
 
 
+def entry_phase(card):
+    """`tools/dryrun_multichip.py` on the card.  `entry()`'s forward: shape
+    (1, 4, 15, 5), finite, rows 1 and 2 launched once each and no other
+    kernel; the same `fn` and weights on the CPU (`entry(device='cpu')`,
+    the card model's state dict loaded): the same valid slots, proposal
+    centres (a second forward on the card) within 1e-3 and fused poses
+    within 0.5 mm (the parity phase's bounds).  No slot is valid at the
+    entry's MIN_SCORE 0.1, so the poses compared are zeros and scores:
+    the parity phase holds row 2 on the card at these shapes with every
+    slot valid, and so do the dry run's view and eval checks at MIN_SCORE
+    -1e9.  Then `dryrun_multichip(2)`: two gloo ranks on the one card,
+    every check at the JAX file's bounds (it raises otherwise), each of
+    its lines printed.  Returns the kernel launches of both, the two card
+    forwards of `entry()` counted together."""
+    import contextlib
+    import io
+
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.tools.dryrun_multichip import dryrun_multichip, entry
+
+    t0 = time.perf_counter()
+    fn, (model, hm, cams) = entry()
+    if hm.device.type != "cuda" or next(model.parameters()).device.type != "cuda":
+        raise AssertionError(f"entry: entry() put its tensors on {hm.device}, not the card")
+    sk.reset_launch_counts()
+    out = fn(model, hm, cams)
+    torch.cuda.synchronize()
+    per_forward = sk.launch_counts()
+    with torch.no_grad():  # the proposal centres: a second forward on the card
+        pc = model(hm, cams).proposal_centers.cpu()
+    launches = sk.launch_counts()  # both card forwards
+    fn_cpu, (model_cpu, hm_cpu, cams_cpu) = entry(device="cpu")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    ref = fn_cpu(model_cpu, hm_cpu, cams_cpu)
+    with torch.no_grad():
+        pc_cpu = model_cpu(hm_cpu, cams_cpu).proposal_centers
+    got = out.cpu()
+    d_prop = float((pc - pc_cpu).abs().max())
+    d_pose = float((got - ref)[..., :3].abs().max())
+    valid = int((got[..., 0, 3] >= 0).sum())
+    expected = {k: int(k in ("sample_whole_projected", "sample_crop_planes")) for k in per_forward}
+    twice = {k: 2 * v for k, v in expected.items()}
+    print(f"entry: entry() on the card: fused poses {tuple(got.shape)}, finite "
+          f"{bool(torch.isfinite(got).all())}, {valid} of {got.shape[1]} slots valid; against "
+          f"entry(device='cpu') on the same weights: same valid slots "
+          f"{torch.equal(got[..., 3], ref[..., 3])}, proposals {d_prop:.3g}, fused poses "
+          f"{d_pose:.3g} mm (no slot valid at MIN_SCORE 0.1: the parity phase holds row 2 on "
+          f"the card at these shapes with every slot valid, and the dry run's view and eval "
+          f"checks do at MIN_SCORE -1e9); launches in one forward {per_forward} | {card}")
+    if not (tuple(got.shape) == (1, 4, 15, 5) and torch.isfinite(got).all()
+            and torch.equal(got[..., 3], ref[..., 3]) and d_prop <= 1e-3 and d_pose <= 0.5
+            and per_forward == expected and launches == twice):
+        raise AssertionError(f"entry: entry() off its CPU path or its launches: proposals "
+                             f"{d_prop}, poses {d_pose} mm, launches {per_forward}, "
+                             f"{launches} in two forwards")
+    t1 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        readings = dryrun_multichip(2)
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(f"entry: {line}")
+    heads = ("dryrun_multichip(2) ok:", "dryrun_multichip train readings",
+             "dryrun_multichip view-shard ok: 1-way", "dryrun_multichip dp-eval ok: 2-way",
+             "dryrun_multichip pipeline ok:")
+    if [h for h in heads if not any(line.startswith(h) for line in lines)] \
+            or readings["devices"] != ["cuda:0", "cuda:0"]:
+        raise AssertionError(f"entry: dryrun_multichip(2) printed {lines}, ranks on "
+                             f"{readings['devices']}")
+    for k, v in readings["launches"].items():
+        launches[k] += v
+    print(f"entry: dryrun_multichip(2), two gloo ranks on the one card: train params "
+          f"{readings['train_max_dev']:.3g} (< 1e-4), view {readings['view_max_dev']:.3g} "
+          f"(every slot valid {readings['view_all_valid_max_dev']:.3g}), eval "
+          f"{readings['eval_max_dev']:.3g} (every slot valid "
+          f"{readings['eval_all_valid_max_dev']:.3g}), pipeline {readings['pipeline_max_dev']:.3g} mm "
+          f"(< 1e-2); {time.perf_counter() - t1:.1f} s; the phase "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches} | {card}")
+    return launches
+
+
 def scale_out_phase(card, steps=5):
     """`parallel/mesh.py` on the one card.  (1) One rank over NCCL: the
     compiled DP train step (its collectives captured into the trainer's
@@ -4199,6 +4293,7 @@ def main(argv=None) -> int:
     paths["script tools"] = released(script_tools_phase(card, bench_line), "script tools")
     released(failed_capture_phase(cfg, rig, card), "failed capture")
     paths["datasets"] = released(datasets_phase(card), "datasets")
+    paths["entry"] = released(entry_phase(card), "entry")
     paths["scale-out"] = released(scale_out_phase(card), "scale-out")
 
     # launches: the run of the path that reaches each kernel (the row's

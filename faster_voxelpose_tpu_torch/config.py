@@ -3,9 +3,10 @@
 The same nested dataclasses and YAML schema as the JAX package's
 `faster_voxelpose_tpu/config.py`, so that the repo's experiment files
 load unchanged.  The port keeps its own copy (it imports nothing of the
-JAX package).  `yaml` is imported only inside `load_config`: the
-port's runtime never needs it, and `profile(name)` builds the profile of
-each committed snapshot's `configs/demo/<name>.yaml` without it.
+JAX package).  `yaml` is imported only inside `load_config` and
+`save_config`: the port's runtime never needs it, and `profile(name)`
+builds the profile of each committed snapshot's
+`configs/demo/<name>.yaml` without it.
 """
 
 from __future__ import annotations
@@ -247,6 +248,34 @@ def load_config(yaml_path: Optional[Union[str, pathlib.Path]] = None) -> Config:
         for section in (cfg.DATASET, cfg.CAPTURE_SPEC, cfg.INDIVIDUAL_SPEC, cfg.RESNET):
             section.__post_init__()
     return cfg
+
+
+def save_config(cfg: Config, yaml_path: Union[str, pathlib.Path]) -> None:
+    """Dump the full resolved config, which `load_config` reads back
+    (reference gen_config, config.py:191)."""
+    import numpy as np
+    import yaml
+
+    def to_plain(o):
+        if dataclasses.is_dataclass(o):
+            return {f.name: to_plain(getattr(o, f.name)) for f in dataclasses.fields(o)}
+        if isinstance(o, (tuple, list)):
+            return [to_plain(x) for x in o]
+        if isinstance(o, np.generic):
+            return o.item()
+        return o
+
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(to_plain(cfg), f, default_flow_style=False)
+
+
+def get_model_name(cfg: Config) -> Tuple[str, str]:
+    """(name, full_name) experiment identifiers
+    (reference get_model_name, lib/core/config.py:201-213)."""
+    name = f"{cfg.MODEL}_{cfg.RESNET.NUM_LAYERS}"
+    deconv_suffix = "".join(f"d{f}" for f in cfg.RESNET.NUM_DECONV_FILTERS)
+    full_name = f"{cfg.DATASET.IMAGE_SIZE[1]}x{cfg.DATASET.IMAGE_SIZE[0]}_{name}_{deconv_suffix}"
+    return name, full_name
 
 
 def panoptic_synthetic_profile() -> Config:

@@ -42,6 +42,21 @@ def pack_rig(cameras: Sequence[Dict]) -> np.ndarray:
     return np.stack([pack_camera(c) for c in cameras], axis=0)
 
 
+def unpack_camera(packed: np.ndarray) -> Dict:
+    """A packed (21,) camera as the dict `pack_camera` takes."""
+    p = np.asarray(packed)
+    return {
+        "R": p[0:9].reshape(3, 3),
+        "T": p[9:12].reshape(3, 1),
+        "fx": p[12],
+        "fy": p[13],
+        "cx": p[14],
+        "cy": p[15],
+        "k": p[16:19].reshape(3, 1),
+        "p": p[19:21].reshape(2, 1),
+    }
+
+
 def project_points(x: torch.Tensor, cams: torch.Tensor) -> torch.Tensor:
     """World points (..., N, 3) -> pixels (..., N, 2) for packed cameras
     (..., 21); leading dims broadcast, so (N, 3) with (V, 21) projects

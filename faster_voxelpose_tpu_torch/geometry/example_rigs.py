@@ -120,3 +120,45 @@ def perimeter_rig(B: int, n_views: int, **kwargs) -> np.ndarray:
     cams = [perimeter_camera(i, n_views, **kwargs) for i in range(n_views)]
     rig = pack_rig(cams).astype(np.float32)
     return np.broadcast_to(rig, (B, n_views, 21)).copy()
+
+
+def ring_rig(B: int, n_views: int) -> np.ndarray:
+    """Packed (B, V, 21) f32 rig of the tiny profile's toy ring: V cameras
+    evenly round the z axis, tilted 0.4 rad, 4000 mm from the origin,
+    f = 260 px and c = (160, 120) at 320x240, no distortion (the JAX
+    repo's `__graft_entry__._example_cameras`, bit for bit)."""
+    from .cameras import pack_rig
+
+    tilt = 0.4
+    Rx = np.array(
+        [
+            [1, 0, 0],
+            [0, np.cos(tilt), -np.sin(tilt)],
+            [0, np.sin(tilt), np.cos(tilt)],
+        ]
+    )
+    cams = []
+    for v in range(n_views):
+        angle = 2 * np.pi * v / n_views
+        Rz = np.array(
+            [
+                [np.cos(angle), -np.sin(angle), 0],
+                [np.sin(angle), np.cos(angle), 0],
+                [0, 0, 1],
+            ]
+        )
+        R = Rx @ Rz
+        cams.append(
+            {
+                "R": R,
+                "T": -R.T @ np.array([[0.0], [0.0], [4000.0]]),
+                "fx": 260.0,
+                "fy": 260.0,
+                "cx": 160.0,
+                "cy": 120.0,
+                "k": np.zeros((3, 1)),
+                "p": np.zeros((2, 1)),
+            }
+        )
+    rig = pack_rig(cams).astype(np.float32)
+    return np.broadcast_to(rig, (B, n_views, 21)).copy()

@@ -84,6 +84,12 @@ def get_resize_transform(ori_image_size, image_size) -> np.ndarray:
     return get_affine_transform(c, s, 0, image_size)
 
 
+def affine_transform(pt, t: np.ndarray) -> np.ndarray:
+    """Apply a 2x3 affine to one 2D point (reference transforms.py:53-56)."""
+    new_pt = np.array([pt[0], pt[1], 1.0], dtype=np.float64)
+    return (t @ new_pt)[:2]
+
+
 def affine_transform_points(pts: np.ndarray, t: np.ndarray) -> np.ndarray:
     """Apply a 2x3 affine to (N, 2) points."""
     return pts @ t[:, :2].T + t[:, 2]

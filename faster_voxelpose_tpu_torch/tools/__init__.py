@@ -62,6 +62,9 @@ smoke_kernels    the sampling kernels against their plain versions on
 sweep_whole      the whole-space kernel's block size (scripts/sweep_whole.py)
 sweep_planes     the crop kernel's tile and threads under two validity
                  modes (scripts/sweep_planes.py)
+dryrun_multichip entry(), the tiny model's forward, and every scale-out
+                 mode over n gloo ranks against one process (the JAX
+                 repo's __graft_entry__.py)
 
 They run on the card unless `--device cpu` is given, and raise when there
 is no CUDA device (make_demo_data, preprocess and analyze_trace need none).

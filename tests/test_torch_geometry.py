@@ -21,27 +21,29 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 def tiny_configs(**overrides):
     """(jax_cfg, port_cfg) with the tiny geometry of __graft_entry__ and
     float32 conv stacks; `overrides` sets CAPTURE_SPEC.MIN_SCORE etc. as
-    'SECTION__KEY=value'."""
+    'SECTION__KEY=value'.  The port's is its own `tiny_config()`, held
+    equal to the JAX one."""
     from __graft_entry__ import _tiny_config
-    from faster_voxelpose_tpu_torch.config import Config, _apply_overlay
+    from faster_voxelpose_tpu_torch.tools.dryrun_multichip import tiny_config
 
-    jcfg = _tiny_config()
-    jcfg.NETWORK.COMPUTE_DTYPE = "float32"
-    for key, value in overrides.items():
-        section, name = key.split("__")
-        setattr(getattr(jcfg, section), name, value)
-    pcfg = Config()
-    _apply_overlay(pcfg, dataclasses.asdict(jcfg))
+    jcfg, pcfg = _tiny_config(), tiny_config()
+    for cfg in (jcfg, pcfg):
+        cfg.NETWORK.COMPUTE_DTYPE = "float32"
+        for key, value in overrides.items():
+            section, name = key.split("__")
+            setattr(getattr(cfg, section), name, value)
     for section in (pcfg.DATASET, pcfg.CAPTURE_SPEC, pcfg.INDIVIDUAL_SPEC, pcfg.RESNET):
         section.__post_init__()
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
     return jcfg, pcfg
 
 
 def tiny_rig(V):
-    """The (V, 21) float32 rig __graft_entry__ uses for the tiny profile."""
-    from __graft_entry__ import _example_cameras
+    """The (V, 21) float32 rig __graft_entry__ uses for the tiny profile
+    (the port's `ring_rig`, bit for bit `_example_cameras`)."""
+    from faster_voxelpose_tpu_torch.geometry import ring_rig
 
-    return _example_cameras(1, V)[0]
+    return ring_rig(1, V)[0]
 
 
 def test_panoptic_profile_equals_yaml():
