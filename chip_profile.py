@@ -5,6 +5,7 @@ one NVIDIA GPU.
     python3 chip_profile.py [--requests N]
     python3 chip_profile.py --images [--requests N]
     python3 chip_profile.py --train [--steps N]
+    python3 chip_profile.py [--images] --chrome-trace build/trace/serve
 
 Serving: frames rendered as in chip_smoke.py's serving phase
 (Panoptic profile, committed panoptic_synthetic weights), answered in
@@ -25,13 +26,20 @@ and its share of the untraced wall time, the device events, the launches
 of kernel row 1 (the whole-space sampler, either mode) by the launch
 counters, the kernels of rows 1 and 2 by name in the trace
 (`whole_kernel`, `crop_kernel`) per request or step, then the kernels
-with the most device time.  Needs a CUDA device; fails without one.
+with the most device time.  With --chrome-trace PREFIX each served
+trace is also written as PREFIX.<service>.json, and the longest device
+idle gaps inside the traced requests are printed with the service span
+(`service.input`, `.upload`, `.launch`, `.wait`, `.decode`, from the
+port's span log) that covers each.  Needs a CUDA device; fails without
+one.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import sys
 import time
 
@@ -72,6 +80,36 @@ def report(prof, n, wall_ms, traced_ms, card, unit, top, launches, extra=""):
                       "traced_ms": traced_ms, "device_ms": device_ms, "device_events": events,
                       "row1_launches": row1, "row1_ms": row1_ms, "by_name": by_name,
                       "top": [dict(name=n_[:90], ms=m, launches=c) for n_, m, c in rows[:top]]}))
+
+
+def spans_over_gaps(events, top: int = 5):
+    """The `top` longest gaps between the device's busy intervals inside
+    a `service.request` span of a Chrome trace's events, longest first:
+    (gap us, start us, the service span over most of the gap, its share
+    of the gap)."""
+    done = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    busy = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in done
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in done
+             if e.get("cat") == "user_annotation" and e["name"].startswith("service.")]
+    requests = [(a, b) for n, a, b in spans if n == "service.request"]
+    merged = []
+    for lo, hi in busy:
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    gaps = [(b[0] - a[1], a[1], b[0]) for a, b in zip(merged, merged[1:])
+            if any(r0 <= a[1] and b[0] <= r1 for r0, r1 in requests)]
+    out = []
+    for g, lo, hi in sorted(gaps, reverse=True)[:top]:
+        cover = collections.Counter()
+        for n, a, b in spans:
+            if n != "service.request":
+                cover[n] += max(0.0, min(b, hi) - max(a, lo))
+        name = max(cover, key=cover.get) if cover else "(none)"
+        out.append((g, lo, name, cover.get(name, 0.0) / g if g > 0 else 0.0))
+    return out
 
 
 def serve_profile(args, card) -> None:
@@ -122,6 +160,15 @@ def serve_profile(args, card) -> None:
         report(prof, args.requests, wall_ms, traced_ms, card, "request", args.top,
                sk.launch_counts(), f"{what}, {name} service (compiled graphs "
                f"{svc.stats()['compiled']}), mean detected {np.mean(detected):.3f}")
+        if args.chrome_trace:
+            path = f"{args.chrome_trace}.{name}.json"
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            for gap, ts, span, share in spans_over_gaps(events):
+                print(f"  idle gap {gap:8.1f} us at {ts:.1f} us under {span} ({share:.0%} "
+                      f"of the gap) [{name}, {path}]")
 
 
 def train_profile(args, card) -> None:
@@ -169,6 +216,9 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile train steps, not requests")
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--chrome-trace", default=None, metavar="PREFIX",
+                    help="write each served trace to PREFIX.<service>.json and name the "
+                         "span over each of its longest idle gaps")
     args = ap.parse_args()
 
     import torch

@@ -16,8 +16,20 @@ camera rig and latency accounting.
 - **Camera-rig hot-swap.** Every graph reads one static rig tensor;
   `set_rig` copies the new calibration into it, so a swap costs one
   host->device copy and no recapture.
-- **Latency accounting.** Per-request wall time, and count / mean / p50
-  / p95 over the last 10,000 requests (`stats`).
+- **Spans.** Each request writes six host stamps into the process's
+  span log (`utils/profiling.SPANS`): `service.request` and its five
+  contiguous children `service.input` (conversion and checks),
+  `service.upload` (the copy into the graph's input), `service.launch`
+  (the replay, or the eager forward), `service.wait` (the poses to the
+  host) and `service.decode`, and its counters (`jln.slots`,
+  `jln.people`).  One request in `GraphMarks.EVERY` answered by a
+  captured graph adds its device intervals from CUDA events
+  (`device.upload`, `device.launch_gap`, and from marks captured into
+  the graph `device.backbone`, `device.hdn`, `device.jln`).
+  Construction and each graph's capture are set-up spans
+  (`setup.build`, `setup.capture`).  `stats` gives count / mean / p50
+  / p95 of the request spans, `trace_summary` every span, interval,
+  counter and set-up span.
 - **Raw outputs.** Each graph returns the fused poses and the proposal
   centres.  A request copies the poses alone to the host;
   `infer_images_raw` replays a graph for both (`tools/demo.py` draws its
@@ -28,8 +40,6 @@ camera rig and latency accounting.
 
 from __future__ import annotations
 
-import collections
-import time
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,6 +53,7 @@ from ..geometry.example_rigs import dome_rig
 from ..geometry.transforms import get_resize_transform
 from ..models.faster_voxelpose import ModelOutputs, build_model
 from ..models.resnet import build_backbone, images_to_heatmaps
+from ..utils import profiling
 from ..weights import from_jax_variables
 from . import graphs
 
@@ -51,11 +62,13 @@ GRAPHS = ("heatmaps", "images", "images_u8")
 
 class CompiledGraph(NamedTuple):
     """One forward captured at batch 1 (its graph, fused poses and
-    proposal centres, and the kernel launches that one replay makes) and
-    its static input."""
+    proposal centres, and the kernel launches that one replay makes), its
+    static input, and its CUDA events (None where it was captured with
+    the span log off)."""
 
     captured: graphs.Captured
     input: torch.Tensor
+    marks: Optional[profiling.GraphMarks] = None
 
     @property
     def launches(self) -> Dict[str, int]:
@@ -101,24 +114,27 @@ class PoseService:
         self._W, self._H = cfg.DATASET.HEATMAP_SIZE
         self._J = cfg.DATASET.NUM_JOINTS
         self._iw, self._ih = cfg.DATASET.IMAGE_SIZE
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            self.model = build_model(cfg)
-            self.backbone = build_backbone(cfg)
-        self.random_init = variables is None
-        self.backbone_random_init = backbone_variables is None
-        if variables is not None:
-            self.model.load_state_dict(from_jax_variables(variables, self.model))
-        if backbone_variables is not None:
-            self.backbone.load_state_dict(from_jax_variables(backbone_variables, self.backbone))
-        self.model.to(self.device)
-        self.backbone.to(self.device)
+        # the service's id in the span log, for its requests and set-up
+        self._owner = profiling.SPANS.new_owner()
+        with profiling.SPANS.span("setup.build", owner=self._owner):
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                self.model = build_model(cfg)
+                self.backbone = build_backbone(cfg)
+            self.random_init = variables is None
+            self.backbone_random_init = backbone_variables is None
+            if variables is not None:
+                self.model.load_state_dict(from_jax_variables(variables, self.model))
+            if backbone_variables is not None:
+                self.backbone.load_state_dict(
+                    from_jax_variables(backbone_variables, self.backbone))
+            self.model.to(self.device)
+            self.backbone.to(self.device)
         # the one rig every graph reads: set_rig copies into it
         self._rig = torch.zeros((1, self._V, 21), device=self.device)
         self._rig_set = False
         if rig is not None:
             self.set_rig(rig)
-        self._latencies_ms = collections.deque(maxlen=10000)
         self._total_requests = 0
         # graph name -> its CompiledGraph, or None where nothing can be
         # captured (the CPU) and requests run eagerly
@@ -158,12 +174,13 @@ class PoseService:
             x = torch.zeros(self._input_shape(name), device=self.device,
                             dtype=torch.uint8 if name == "images_u8" else torch.float32)
             forward = self._forward(name)
-            if self.device.type == "cuda":
-                self._compiled[name] = self._capture(forward, x)
-            else:
-                with torch.inference_mode():
-                    forward(x)
-                self._compiled[name] = None
+            with profiling.SPANS.span("setup.capture", owner=self._owner, label=name):
+                if self.device.type == "cuda":
+                    self._compiled[name] = self._capture(forward, x)
+                else:
+                    with torch.inference_mode():
+                        forward(x)
+                    self._compiled[name] = None
         return sorted(self._compiled)
 
     def _capture(self, forward: Callable[[torch.Tensor], ModelOutputs],
@@ -172,15 +189,25 @@ class PoseService:
         recipe: CAPTURE_WARMUP eager forwards on a side stream, then the
         capture on that stream under inference mode (`graphs.capture`:
         the graph's own memory pool, its launches kept as what one replay
-        launches).  Raises what the capture raises, e.g. for a host
-        synchronisation or a copy from pageable host memory inside the
-        forward."""
+        launches).  With the span log on, the graph records its marks
+        (`profiling.GraphMarks`): at its start, after the backbone (image
+        graphs), after the HDN and at its end.  Raises what the capture
+        raises, e.g. for a host synchronisation or a copy from pageable
+        host memory inside the forward."""
         stream = torch.cuda.Stream(self.device)
         for _ in range(graphs.CAPTURE_WARMUP):
             graphs.run_on(stream, lambda: forward(static_input), inference=True)
-        c = graphs.capture(lambda: _poses_and_centers(forward(static_input)), stream,
-                           inference=True)
-        return CompiledGraph(c, static_input)
+        marks = profiling.GraphMarks() if profiling.SPANS.enabled else None
+
+        def marked():
+            profiling.mark("start")
+            out = _poses_and_centers(forward(static_input))
+            profiling.mark("end")
+            return out
+
+        with profiling.marking(marks):
+            c = graphs.capture(marked, stream, inference=True)
+        return CompiledGraph(c, static_input, marks)
 
     def _input_shape(self, name: str) -> tuple:
         if name == "heatmaps":
@@ -198,6 +225,7 @@ class PoseService:
 
     def _images_forward(self, images: torch.Tensor, cams: torch.Tensor) -> ModelOutputs:
         hm = images_to_heatmaps(self.backbone, images, self.cfg.DATASET.COLOR_RGB)
+        profiling.mark("backbone")
         return self.model(hm, cams)
 
     def _placeholder_rig(self) -> np.ndarray:
@@ -239,16 +267,27 @@ class PoseService:
 
     # -- inference --------------------------------------------------------
 
-    def _run(self, name: str, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The fused poses and proposal centres of x: by the compiled
+    def _run(self, name: str, x: torch.Tensor, req):
+        """The fused poses and proposal centres of x, by the compiled
         graph `name` where there is one for x's shape, else by the eager
-        forward."""
+        forward; and the graph's marks where `req` is timed and reads them
+        (`GraphMarks.sampled`).  Ends `req`'s input span, stamps the
+        upload's end, and leaves the launch open."""
+        req.next()
         g = self._compiled.get(name)
         if g is not None and x.shape == g.input.shape:
+            marks = g.marks if req.timed and g.marks is not None and g.marks.sampled() else None
+            if marks is not None:
+                marks.upload[0].record()
             g.input.copy_(x)
-            return graphs.replay(g.captured)
+            if marks is not None:
+                marks.upload[1].record()
+            req.next()
+            return graphs.replay(g.captured), marks
+        x = x.to(self.device)
+        req.next()
         with torch.inference_mode():
-            return _poses_and_centers(self._forward(name)(x.to(self.device)))
+            return _poses_and_centers(self._forward(name)(x)), None
 
     @staticmethod
     def _decode(fused: np.ndarray) -> dict:
@@ -260,28 +299,34 @@ class PoseService:
             "n_people": int(valid.sum()),
         }
 
-    def _answer(self, t0: float, outputs: Tuple[torch.Tensor, torch.Tensor]) -> dict:
-        """The decoded poses of a request begun at `t0`, its latency
-        recorded; the poses are copied to the host, so that the next
-        replay does not overwrite them."""
-        fused = outputs[0].cpu().numpy()
-        ms = (time.perf_counter() - t0) * 1e3
-        self._latencies_ms.append(ms)
-        self._total_requests += 1
+    def _answer(self, req, name: str, x: torch.Tensor) -> dict:
+        """The decoded poses of the request `req` on input x, its spans
+        closed; the poses are copied to the host, so that the next replay
+        does not overwrite them.  The graph's events are read after the
+        last stamp, once the copy has waited for them."""
+        (fused, _), marks = self._run(name, x, req)
+        req.next()
+        fused = fused.cpu().numpy()
+        req.next()
         res = self._decode(fused)
-        res["latency_ms"] = round(ms, 3)
+        self._total_requests += 1
+        req.close(self._owner, (fused.shape[1], res["n_people"]))
+        if marks is not None:
+            req.device(marks.read())
+        res["latency_ms"] = round(req.ms(), 3)
         return res
 
     def infer_heatmaps(self, heatmaps) -> dict:
         """(V, H, W, J) or (1, V, H, W, J) float32 heatmaps, numpy or a
-        tensor -> poses.  The latency runs from the call to the poses on
-        the host, the host->device copy included."""
+        tensor -> poses.  The latency (`latency_ms`, the request span)
+        runs from the call to the poses decoded on the host, the
+        host->device copy included."""
         self._require_rig()
-        t0 = time.perf_counter()
-        hm = torch.as_tensor(heatmaps, dtype=torch.float32)
-        if hm.ndim == 4:
-            hm = hm[None]
-        return self._answer(t0, self._run("heatmaps", hm))
+        with profiling.SPANS.request() as req:
+            hm = torch.as_tensor(heatmaps, dtype=torch.float32)
+            if hm.ndim == 4:
+                hm = hm[None]
+            return self._answer(req, "heatmaps", hm)
 
     def infer_images(self, images) -> dict:
         """(V, ih, iw, 3) or (1, V, ih, iw, 3) frames at IMAGE_SIZE, numpy
@@ -291,15 +336,15 @@ class PoseService:
         already (RGB when COLOR_RGB; the 'images' graph).  The latency is
         counted as for `infer_heatmaps`."""
         self._require_rig()
-        t0 = time.perf_counter()
-        return self._answer(t0, self._run(*self._images_input(images)))
+        with profiling.SPANS.request() as req:
+            return self._answer(req, *self._images_input(images))
 
     def infer_images_raw(self, images) -> Tuple[np.ndarray, np.ndarray]:
         """The frames of `infer_images` -> the fused poses (1, K, J, 5) and
         proposal centres (1, K, 7) on the host, from the same graph; not a
         request (no latency recorded)."""
         self._require_rig()
-        fused, centers = self._run(*self._images_input(images))
+        (fused, centers), _ = self._run(*self._images_input(images), profiling.Untimed())
         return fused.cpu().numpy(), centers.cpu().numpy()
 
     def _images_input(self, images) -> Tuple[str, torch.Tensor]:
@@ -328,9 +373,12 @@ class PoseService:
     # -- observability ----------------------------------------------------
 
     def stats(self) -> dict:
-        lat = np.asarray(self._latencies_ms, np.float64)
+        """Requests answered, and count / mean / p50 / p95 (ms) of the
+        request spans the log keeps (none with the log off)."""
+        stamps = profiling.SPANS.requests(self._owner)["stamps_ns"]
+        lat = profiling.durations_ms(stamps)[profiling.REQUEST_SPANS[0]]
         if lat.size == 0:
-            return {"requests": 0, "random_init": self.random_init,
+            return {"requests": self._total_requests, "random_init": self.random_init,
                     "backbone_random_init": self.backbone_random_init}
         return {
             "requests": self._total_requests,
@@ -342,3 +390,9 @@ class PoseService:
             "random_init": self.random_init,
             "backbone_random_init": self.backbone_random_init,
         }
+
+    def trace_summary(self) -> dict:
+        """This service's spans in the log: count, p50 and p95 (ms) of each
+        request span and device interval, the counters' totals and the
+        set-up spans (s; `profiling.summary`)."""
+        return profiling.summary(profiling.SPANS, self._owner)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..utils import profiling
 from .blocks import BatchNorm
 from .hdn import HDNOutputs, HumanDetectionNet
 from .jln import JLNOutputs, JointLocalizationNet
@@ -102,6 +103,7 @@ class FasterVoxelPoseNet(nn.Module):
         gt = meta if (train and meta) else {}
         hdn = self.hdn(heatmaps, cams, train, gt.get("roots_3d"), gt.get("bbox"),
                        gt.get("num_person"))
+        profiling.mark("hdn")  # a no-op except in a service's graph capture
         mask = hdn.proposal_centers[:, :, 3] >= 0
         jln = self.jln(heatmaps, cams, hdn.proposal_centers, train)
 

@@ -102,9 +102,13 @@ def build_all(targets: Iterable[Target]) -> Dict[Target, pathlib.Path]:
 @functools.lru_cache(maxsize=None)
 def load(name: str, defines: Defines = ()) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu, with `defines` for a
-    variant; one handle per process and variant."""
+    variant; one handle per process and variant.  The first load is the
+    set-up span `setup.kernels`, a child of the span open around it."""
+    from ..utils.profiling import SPANS
+
     target = (name, tuple(defines)) if defines else name
-    return ctypes.CDLL(str(build_all([target])[target]))
+    with SPANS.span("setup.kernels", label=name):
+        return ctypes.CDLL(str(build_all([target])[target]))
 
 
 def build_variants(name: str, variants: Iterable[Defines]) -> Dict[Defines, Optional[str]]:

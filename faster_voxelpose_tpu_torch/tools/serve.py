@@ -14,6 +14,8 @@ Protocol (one JSON object per line, one answer per line on stdout):
     {"cmd": "infer", "heatmaps": "frame.npy"}      -> poses + latency
     {"cmd": "rig", "calibration": "other.json"}    -> hot-swap cameras
     {"cmd": "stats"}                               -> latency summary
+    {"cmd": "trace"}                               -> spans, device intervals,
+                                                      counters, set-up
     {"cmd": "quit"}                                -> exits
 
 `heatmaps` .npy files are (V, H, W, J) float32; `images` is one path per
@@ -115,6 +117,8 @@ def handle(svc: PoseService, req: dict) -> dict:
         return {"ok": True}
     if cmd == "stats":
         return svc.stats()
+    if cmd == "trace":
+        return svc.trace_summary()
     if cmd == "rig":
         svc.set_rig_from_calibration(req["calibration"])
         return {"ok": True}
