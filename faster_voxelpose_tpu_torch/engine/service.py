@@ -13,6 +13,13 @@ camera rig and latency accounting.
   graph launch in place of the forward's several hundred kernels.  An
   input of another shape, or a graph not captured, runs the same forward
   eagerly, on the same kernels.
+- **Folded backbone.**  The image graphs run the backbone with its
+  BatchNorms folded into its convolutions (`PoseResNet.fold`), folded
+  before the backbone first runs (an image graph's warm-up, or the first
+  eager image request).  Before each image request the host compares the
+  version counters of the tensors the fold read with those at the last
+  fold and, where one moved, refolds into the same buffers, which the
+  captured graph reads.
 - **Camera-rig hot-swap.** Every graph reads one static rig tensor;
   `set_rig` copies the new calibration into it, so a swap costs one
   host->device copy and no recapture.
@@ -26,10 +33,10 @@ camera rig and latency accounting.
   captured graph adds its device intervals from CUDA events
   (`device.upload`, `device.launch_gap`, and from marks captured into
   the graph `device.backbone`, `device.hdn`, `device.jln`).
-  Construction and each graph's capture are set-up spans
-  (`setup.build`, `setup.capture`).  `stats` gives count / mean / p50
-  / p95 of the request spans, `trace_summary` every span, interval,
-  counter and set-up span.
+  Construction, each graph's capture and each fold of the backbone are
+  set-up spans (`setup.build`, `setup.capture`, `setup.fold`).  `stats`
+  gives count / mean / p50 / p95 of the request spans, `trace_summary`
+  every span, interval, counter and set-up span.
 - **Raw outputs.** Each graph returns the fused poses and the proposal
   centres.  A request copies the poses alone to the host;
   `infer_images_raw` replays a graph for both (`tools/demo.py` draws its
@@ -157,10 +164,13 @@ class PoseService:
         which `set_rig` overwrites.  Returns the graphs compiled so far
         (`stats()["compiled"]`).
 
-        A graph reads the model's and the backbone's parameters where
-        they lie: weights loaded in place afterwards (`load_state_dict`)
-        are seen by the next replay; modules or parameters replaced by
-        new objects are not."""
+        An image graph runs the folded backbone (`PoseResNet.fold`,
+        folded here before its first forward).  A graph reads the model's
+        parameters and the backbone's folded weights where they lie:
+        weights loaded in place afterwards (`load_state_dict`) are seen by
+        the next replay, the backbone's through a refold into the same
+        buffers before the request (`PoseResNet.sync_fold`, a `setup.fold`
+        span); modules replaced by new objects are not."""
         if graphs is None:
             graphs = ("heatmaps",) if self.backbone_random_init else ("heatmaps", "images_u8")
         unknown = set(graphs) - set(GRAPHS)
@@ -174,6 +184,8 @@ class PoseService:
             x = torch.zeros(self._input_shape(name), device=self.device,
                             dtype=torch.uint8 if name == "images_u8" else torch.float32)
             forward = self._forward(name)
+            if name != "heatmaps":
+                self._fresh_backbone()
             with profiling.SPANS.span("setup.capture", owner=self._owner, label=name):
                 if self.device.type == "cuda":
                     self._compiled[name] = self._capture(forward, x)
@@ -208,6 +220,15 @@ class PoseService:
         with profiling.marking(marks):
             c = graphs.capture(marked, stream, inference=True)
         return CompiledGraph(c, static_input, marks)
+
+    def _fresh_backbone(self) -> None:
+        """Fold the backbone at its first use; after that, refold where a
+        tensor the fold read has changed (a host-only check when none
+        has)."""
+        if self.backbone.folded:
+            self.backbone.sync_fold()
+        else:
+            self.backbone.fold(self._owner)
 
     def _input_shape(self, name: str) -> tuple:
         if name == "heatmaps":
@@ -273,6 +294,8 @@ class PoseService:
         forward; and the graph's marks where `req` is timed and reads them
         (`GraphMarks.sampled`).  Ends `req`'s input span, stamps the
         upload's end, and leaves the launch open."""
+        if name != "heatmaps":
+            self._fresh_backbone()
         req.next()
         g = self._compiled.get(name)
         if g is not None and x.shape == g.input.shape:
@@ -374,12 +397,14 @@ class PoseService:
 
     def stats(self) -> dict:
         """Requests answered, and count / mean / p50 / p95 (ms) of the
-        request spans the log keeps (none with the log off)."""
+        request spans the log keeps (none with the log off); whether the
+        backbone runs folded."""
         stamps = profiling.SPANS.requests(self._owner)["stamps_ns"]
         lat = profiling.durations_ms(stamps)[profiling.REQUEST_SPANS[0]]
         if lat.size == 0:
             return {"requests": self._total_requests, "random_init": self.random_init,
-                    "backbone_random_init": self.backbone_random_init}
+                    "backbone_random_init": self.backbone_random_init,
+                    "backbone_folded": self.backbone.folded}
         return {
             "requests": self._total_requests,
             "mean_ms": round(float(lat.mean()), 3),
@@ -389,6 +414,7 @@ class PoseService:
             "device": str(self.device),
             "random_init": self.random_init,
             "backbone_random_init": self.backbone_random_init,
+            "backbone_folded": self.backbone.folded,
         }
 
     def trace_summary(self) -> dict:

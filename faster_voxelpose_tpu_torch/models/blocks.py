@@ -74,11 +74,18 @@ class Conv(nn.Module):
         self.weight = _normal(cout, cin, *(kernel,) * rank)
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
+    def pad_same(self, x):
+        """x padded as flax's "SAME" where this conv pads per input size
+        (a stride above 1); x itself otherwise."""
+        if not self.same:
+            return x
+        # F.pad takes the last axis first
+        return F.pad(x, [p for n in reversed(x.shape[2:])
+                         for p in same_pads(n, self.kernel, self.stride)])
+
     def forward(self, x):
         dt, out = self.dtype, self.out_dtype
-        if self.same:  # F.pad takes the last axis first
-            x = F.pad(x, [p for n in reversed(x.shape[2:])
-                          for p in same_pads(n, self.kernel, self.stride)])
+        x = self.pad_same(x)
         b = None if self.bias is None else self.bias.to(dt).to(out)
         return _CONV[self.rank](
             x.to(dt).to(out), self.weight.to(dt).to(out), b, stride=self.stride, padding=self.pad,
@@ -149,6 +156,20 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + 1e-5) * self.weight  # op order of flax's _normalize
         y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype)
+
+
+def fold_batchnorm(weight: torch.Tensor, bn: "BatchNorm", bias: Optional[torch.Tensor] = None,
+                   out_dim: int = 0):
+    """The (weight, bias) of a convolution followed by the inference
+    BatchNorm `bn`, as one convolution, in float32: with s = gamma *
+    rsqrt(running_var + 1e-5) per output channel, weight * s along
+    `out_dim` (0 for a conv's (O, I, *k), 1 for a transposed conv's
+    (I, O, *k)) and beta + (bias - running_mean) * s (bias 0 where None)."""
+    s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + 1e-5)
+    shape = [1] * weight.ndim
+    shape[out_dim] = -1
+    shift = -bn.running_mean.float() if bias is None else bias.float() - bn.running_mean.float()
+    return weight.float() * s.reshape(shape), bn.bias.float() + shift * s
 
 
 class Deconv(nn.Module):

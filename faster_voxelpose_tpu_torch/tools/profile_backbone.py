@@ -1,7 +1,7 @@
 """The ResNet-50 backbone stage by stage on the card (counterpart of
 scripts/profile_backbone.py):
 
-    python3 -m faster_voxelpose_tpu_torch.tools.profile_backbone [TAGS] [--images V,H,W] [--device cpu]
+    python3 -m faster_voxelpose_tpu_torch.tools.profile_backbone [TAGS] [--images V,H,W] [--folded] [--device cpu]
 
 TAGS is a comma-separated subset of stem, l1, l2, l3, l4, deconv, final,
 full, s2d, s2dslice, padc8, k8, fusedpool (default all).  The stages are
@@ -12,7 +12,9 @@ bf16 seeded with 0, each timed alone at the Panoptic bench shapes (V = 5
 views of 512 x 960) on inputs of its own shape drawn from RandomState(0),
 by `tools.timing.scan_slope` between 2 and 10 steps (the script's
 slope(n1=2, n2=10); the scan body adds 1e-30 of the carry to the input
-and sums the output's [:, 0, 0, 0], as the script's).
+and sums the output's [:, 0, 0, 0], as the script's).  With --folded the
+backbone's BatchNorms are folded into its convolutions first
+(`PoseResNet.fold`), as `PoseService` serves it.
 
 The candidates are the script's stem rewrites (:186-292), each computing
 what the JAX candidate computes, with weights of its own: s2d (2 x 2
@@ -144,17 +146,9 @@ def stage_fns(backbone: PoseResNet) -> Dict[str, Callable[[torch.Tensor], torch.
             return x
         return run
 
-    def stem(x):
-        x = F.relu(backbone.bn1(backbone.conv1(x)))
-        return F.max_pool2d(x, 3, 2, padding=1)
-
-    def deconv(x):
-        for i in range(1, backbone.num_deconv + 1):
-            x = F.relu(getattr(backbone, f"deconv_bn{i}")(getattr(backbone, f"deconv{i}")(x)))
-        return x
-
-    return {"stem": stem, "l1": layer(1), "l2": layer(2), "l3": layer(3), "l4": layer(4),
-            "deconv": deconv, "final": backbone.final, "full": backbone}
+    return {"stem": backbone.stem, "l1": layer(1), "l2": layer(2), "l3": layer(3),
+            "l4": layer(4), "deconv": backbone.upsample, "final": backbone.final,
+            "full": backbone}
 
 
 def input_shapes(V: int, ih: int, iw: int) -> Dict[str, Tuple[int, ...]]:
@@ -168,13 +162,16 @@ def input_shapes(V: int, ih: int, iw: int) -> Dict[str, Tuple[int, ...]]:
 
 
 def profile(tags: Sequence[str], device: torch.device, images=IMAGES, lengths=LENGTHS,
-            dtype: torch.dtype = torch.bfloat16) -> Dict[str, dict]:
+            dtype: torch.dtype = torch.bfloat16, folded: bool = False) -> Dict[str, dict]:
     """{tag: readings} of each tag: ms (device clock on the card, host
-    clock on the CPU), host_ms, FLOPs, TFLOP/s and share of BF16_FLOPS."""
+    clock on the CPU), host_ms, FLOPs, TFLOP/s and share of BF16_FLOPS;
+    the backbone folded first where `folded`."""
     V, ih, iw = images
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         backbone = PoseResNet(50, 15, dtype=dtype).eval().to(device)
+        if folded:
+            backbone.fold()
         candidates = {c: StemCandidate(c, dtype).eval().to(device)
                       for c in CANDIDATES if c in tags}
     fns = stage_fns(backbone)
@@ -207,6 +204,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--images", default=",".join(map(str, IMAGES)), help="V,H,W (default 5,512,960)")
     p.add_argument("--device", default=None, help="default: the CUDA device (cpu: tests only)")
     p.add_argument("--lengths", default=None, help="F1,F2 in place of 2,10 (tests)")
+    p.add_argument("--folded", action="store_true",
+                   help="fold the BatchNorms into the convolutions first, as served")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     pin_float32()
@@ -216,9 +215,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise SystemExit(f"unknown tags {sorted(unknown)}; known: {', '.join(TAGS)}")
     images = tuple(int(n) for n in args.images.split(","))
     lengths = tuple(int(n) for n in args.lengths.split(",")) if args.lengths else LENGTHS
-    res = profile(tags, device, images, lengths)
+    res = profile(tags, device, images, lengths, folded=args.folded)
     print(f"{device_line(device)}; peak {BF16_FLOPS / 1e12:.0f} TFLOP/s (H100 SXM bf16 dense "
-          f"tensor cores); bfloat16, V={images[0]} images of {images[1]}x{images[2]}")
+          f"tensor cores); bfloat16, V={images[0]} images of {images[1]}x{images[2]}"
+          + ("; BatchNorm folded" if args.folded else ""))
     for tag, r in res.items():
         rate = ("host clock: no device rate" if r["tflops"] is None else
                 f"{r['tflops']:7.2f} TFLOP/s, {r['share_of_peak'] * 100:5.1f}% of bf16 peak")

@@ -10,6 +10,7 @@ and normalised images equal (1e-6); the image path's proposals identical
 and fused poses within 0.5 mm (the JAX package's golden bound).
 """
 
+import functools
 import re
 
 import numpy as np
@@ -57,6 +58,16 @@ def _carried(num_layers, x, seed=0):
     return flat, np.asarray(fm.apply(nest(flat), x))
 
 
+@functools.lru_cache(maxsize=None)
+def _carried_case(num_layers, side):
+    """A batch of 2 at 64x96 (even sides) or 65x97 (odd) and `_carried`'s
+    weights and flax output on it; made once per case for this file's
+    tests."""
+    H, W = (64, 96) if side == "even" else (65, 97)
+    x = np.random.RandomState(3).randn(2, H, W, 3).astype(np.float32)
+    return (x, *_carried(num_layers, x))
+
+
 def _port_backbone(num_layers, flat, dtype=torch.float32):
     from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
     from faster_voxelpose_tpu_torch.weights import from_jax_variables
@@ -74,9 +85,8 @@ def test_backbone_matches_flax(num_layers, side):
     every 3x3 stride-2 conv pads (0, 1), as flax's "SAME" does; a port
     that padded (1, 1) there, as torch's padding=1 does, fails the even
     cases by far more than the tolerance, and only those."""
-    H, W = (64, 96) if side == "even" else (65, 97)
-    x = np.random.RandomState(3).randn(2, H, W, 3).astype(np.float32)
-    flat, ref = _carried(num_layers, x)
+    x, flat, ref = _carried_case(num_layers, side)
+    H, W = x.shape[1:3]
     with torch.no_grad():
         out = _port_backbone(num_layers, flat)(torch.as_tensor(x))
     assert out.dtype == torch.float32 and out.shape == ref.shape
@@ -96,6 +106,126 @@ def test_backbone_bf16_matches_flax():
     assert out.dtype == torch.float32
     rel = np.linalg.norm(out.numpy() - ref) / np.linalg.norm(ref)
     assert rel <= 2e-2, rel
+
+
+@pytest.mark.parametrize("num_layers,side", [(18, "even"), (18, "odd"), (50, "even"),
+                                             (50, "odd")])
+def test_folded_backbone_matches_unfolded(num_layers, side):
+    """BatchNorm folded into the convolutions (`PoseResNet.fold`), random
+    BatchNorm statistics from `_carried`, a batch of 2 at 64x96 or 65x97:
+    the folded eval forward within 1e-4 of the unfolded one in float32
+    (outputs of order 1; the fold reassociates one affine map per conv),
+    and the folded bf16 forward within the 2e-2 relative L2 of flax's
+    bf16 output that the unfolded one is held to."""
+    x, flat, _ = _carried_case(num_layers, side)
+    with torch.no_grad():
+        want = _port_backbone(num_layers, flat)(torch.as_tensor(x))
+        folded = _port_backbone(num_layers, flat).fold()
+        got = folded(torch.as_tensor(x))
+    assert folded.folded and 0.5 <= float(want.abs().max()) <= 1.001
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+    ref = np.asarray(_flax_backbone(num_layers, jnp.bfloat16).apply(nest(flat), x))
+    with torch.no_grad():
+        half = _port_backbone(num_layers, flat, torch.bfloat16).fold()(torch.as_tensor(x))
+    assert half.dtype == torch.float32
+    rel = np.linalg.norm(half.numpy() - ref) / np.linalg.norm(ref)
+    assert rel <= 2e-2, rel
+
+
+def _random_backbone(num_layers, dtype, seed=0):
+    """A seeded PoseResNet (deconvs of 32 filters) with random BatchNorm
+    affine terms and statistics, in eval mode."""
+    from faster_voxelpose_tpu_torch.models.blocks import BatchNorm
+    from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
+
+    torch.manual_seed(seed)
+    model = PoseResNet(num_layers, 5, (32, 32, 32), dtype=dtype).eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    return model
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records each aten op's name and its tensor outputs' dtypes while
+    `on`."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.on = [], True
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if self.on:
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            self.ops.append((func.overloadpacket.__name__,
+                             [o.dtype for o in outs if isinstance(o, torch.Tensor)]))
+        return out
+
+
+@pytest.mark.parametrize("num_layers", [18, 50])
+def test_folded_forward_ops(num_layers):
+    """The folded bf16 forward's aten ops before `final`: convolutions,
+    ReLUs, pads, the max pool and the residual adds, all in bf16, with no
+    batch-norm op and one dtype cast (the images'); unfolded, the same
+    forward runs a batch norm and float32 activations.  `fold()` keeps the
+    state dict's keys; the folded module's weights are channels-last."""
+    model = _random_backbone(num_layers, torch.bfloat16)
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(1))
+
+    def ops_before_final():
+        rec = _Ops()
+        hook = model.final.register_forward_pre_hook(lambda *_: setattr(rec, "on", False))
+        try:
+            with torch.no_grad(), rec:
+                model(x)
+        finally:
+            hook.remove()
+        return rec.ops
+
+    keys = list(model.state_dict())
+    unfolded = ops_before_final()
+    assert any("batch_norm" in name for name, _ in unfolded)
+    assert any(torch.float32 in dtypes for _, dtypes in unfolded)
+    model.fold()
+    assert list(model.state_dict()) == keys
+    assert model.layer1_0.conv2.folded_weight.is_contiguous(memory_format=torch.channels_last)
+    ops = ops_before_final()
+    names = [name for name, _ in ops]
+    assert not any("batch_norm" in name or "native_batch_norm" in name for name in names)
+    # the images' permuted view and their one cast, then bf16 throughout
+    assert ops[:2] == [("permute", [torch.float32]), ("_to_copy", [torch.bfloat16])], ops[:2]
+    assert {d for _, dtypes in ops[1:] for d in dtypes if d.is_floating_point} == {torch.bfloat16}
+    assert names.count("_to_copy") == 1
+    assert names.count("convolution") == len(model.fold_pairs())
+    assert set(names) <= {"permute", "_to_copy", "convolution", "relu_", "add_",
+                          "constant_pad_nd", "max_pool2d_with_indices"}, set(names)
+
+
+def test_folded_backbone_trains_unfolded():
+    """In train mode a folded module runs the unfolded forward: its output
+    and its state are bit for bit an unfolded twin's; back in eval mode it
+    refolds from what training changed."""
+    model = _random_backbone(18, torch.float32).fold()
+    twin = _random_backbone(18, torch.float32)
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(2))
+    model.train()
+    twin.train()
+    assert torch.equal(model(x), twin(x))
+    assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                  twin.state_dict().values()))
+    with torch.no_grad():
+        twin.layer2_0.bn1.running_var.mul_(2.0)
+        model.layer2_0.bn1.running_var.mul_(2.0)
+    model.eval()
+    twin.eval()
+    with torch.no_grad():
+        np.testing.assert_allclose(model(x).numpy(), twin(x).numpy(), rtol=0, atol=1e-5)
+    assert not model.sync_fold()  # the forward refolded
 
 
 def _upstream_backbone(num_layers, rng, joints=5, filters=32):
@@ -413,3 +543,36 @@ def test_eval_step_images_matches_jax(image_pair):
     by_heatmaps = make_eval_step(pcfg, model)({"input_heatmaps": hm,
                                                "cameras": torch.as_tensor(cams)})
     assert torch.equal(by_heatmaps, torch.as_tensor(got))
+
+
+def _folds(svc):
+    return sum(s["name"] == "setup.fold" and s["label"] == "backbone"
+               for s in svc.trace_summary()["setup"])
+
+
+def test_service_refolds_a_reloaded_backbone(image_pair):
+    """A service whose backbone weights are loaded in place after the fold
+    answers as a service built with those weights, bit for bit (and as
+    the JAX service within its bounds): the request's check finds the
+    moved version counters and refolds.  One `setup.fold` after set-up,
+    none for a request that changes nothing, two after the reload."""
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.weights import from_jax_variables
+
+    jcfg, pcfg, flat, bflat, rig, u8, f32, ref_u8, ref_f32 = image_pair
+    svc = PoseService(pcfg, variables=flat, rig=rig, device="cpu")  # a random backbone
+    assert not svc.stats()["backbone_folded"] and _folds(svc) == 0
+    svc.warmup(("images_u8",))
+    assert svc.stats()["backbone_folded"] and _folds(svc) == 1
+    before = svc.infer_images(u8[0])
+    assert _folds(svc) == 1
+    svc.backbone.load_state_dict(from_jax_variables(bflat, svc.backbone))
+    got = [svc.infer_images(u8[b]) for b in range(2)]
+    assert _folds(svc) == 2
+    fresh = PoseService(pcfg, variables=flat, backbone_variables=bflat, rig=rig, device="cpu")
+    for b in range(2):
+        want = fresh.infer_images(u8[b])
+        assert got[b]["poses_mm"] == want["poses_mm"] and got[b]["scores"] == want["scores"]
+        _same_answer(got[b], ref_u8[b])
+    assert before["poses_mm"] != got[0]["poses_mm"]
+    assert _folds(fresh) == 1 and fresh.stats()["backbone_folded"]

@@ -753,6 +753,61 @@ def test_infer_images_cuda_matches_cpu(dev):
         assert float(d.max()) <= 0.5
 
 
+@pytest.mark.parametrize("num_layers", [18, 50])
+def test_folded_backbone_cuda_matches_unfolded(dev, num_layers):
+    """The folded backbone on the card (cuDNN's fused conv + bias + ReLU
+    and conv + bias + shortcut + ReLU), random BatchNorm statistics, two
+    64x96 frames: in float32 with TF32 off within 1e-4 relative L2 of the
+    unfolded CPU forward; in bf16 within 2e-2 of it, about as far as the
+    unfolded bf16 forward on the card; and a CUDA graph of the folded
+    forward replays what the eager forward gives."""
+    from faster_voxelpose_tpu_torch.models.blocks import BatchNorm
+    from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
+
+    torch.manual_seed(num_layers)
+    cpu = PoseResNet(num_layers, 5, (32, 32, 32)).eval()
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(0))
+    xd = x.to(dev)
+
+    def on_card(dtype, fold):
+        m = PoseResNet(num_layers, 5, (32, 32, 32), dtype=dtype).eval()
+        m.load_state_dict(cpu.state_dict())
+        m = m.to(dev)
+        return m.fold() if fold else m
+
+    with torch.inference_mode():
+        ref = cpu(x).double()
+        folded = on_card(torch.float32, True)
+        out = folded(xd).cpu().double()
+        half = on_card(torch.bfloat16, True)
+        h = half(xd)
+        unfolded_h = on_card(torch.bfloat16, False)(xd).cpu().double()
+    rel = float((out - ref).norm() / ref.norm())
+    rel_h = float((h.cpu().double() - ref).norm() / ref.norm())
+    rel_uh = float((unfolded_h - ref).norm() / ref.norm())
+    assert bool(ref.abs().max() > 0) and rel <= 1e-4, rel
+    assert rel_h <= 2e-2 and rel_h <= 2 * rel_uh + 1e-3, (rel_h, rel_uh)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream), torch.inference_mode():
+        for _ in range(3):
+            half(xd)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph):
+        static = half(xd)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert float((static - h).abs().max()) <= 1e-3 * float(h.abs().max())
+
+
 def _tiny_service(dev, aot=True, rig=None):
     """PoseService on the tiny geometry (float32, every slot valid) with
     seeded fan-in scaled weights, bbox sizes near 0.6; the same weights
@@ -893,6 +948,47 @@ def test_non_batch_1_input_runs_eager(dev):
     assert batch["poses_mm"] == want["poses_mm"] and batch["n_people"] == 4
     u8 = np.random.RandomState(3).randint(0, 256, (3, 128, 160, 3)).astype(np.uint8)
     assert "images_u8" not in svc._compiled and svc.infer_images(u8)["n_people"] == 4
+
+
+def test_service_refolds_a_reloaded_backbone_in_graph(dev):
+    """Backbone weights loaded in place after the captured 'images_u8'
+    graph's fold: the next request refolds into the buffers the graph
+    reads (no recapture) and answers as a service captured with those
+    weights, within the image path's 0.5 mm (a graph of a random backbone
+    replays one input 0.07 mm apart, cuDNN's sums in float32); one
+    `setup.fold` after set-up, two after the reload."""
+    from faster_voxelpose_tpu_torch.models.resnet import images_to_heatmaps
+
+    frames = np.random.RandomState(4).randint(0, 256, (3, 3, 128, 160, 3)).astype(np.uint8)
+
+    def service(seed):
+        """Seeded fan-in scaled backbone weights, heatmaps in about [-1, 1]."""
+        svc = _tiny_service(dev, aot=False)
+        with torch.random.fork_rng(devices=[]), torch.no_grad():
+            torch.manual_seed(seed)
+            for p in svc.backbone.parameters():
+                if p.ndim > 1:
+                    p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5)
+            scale = images_to_heatmaps(svc.backbone, torch.as_tensor(frames, device=dev),
+                                       False).abs().max()
+            svc.backbone.final.weight.div_(scale)
+            svc.backbone.final.bias.div_(scale)
+        svc.warmup(("images_u8",))
+        return svc
+
+    def folds(svc):
+        return sum(s["name"] == "setup.fold" for s in svc.trace_summary()["setup"])
+
+    svc, fresh = service(0), service(1)
+    graph = svc._compiled["images_u8"]
+    assert svc.stats()["backbone_folded"] and folds(svc) == 1
+    before = [svc.infer_images(f) for f in frames]
+    assert folds(svc) == 1
+    svc.backbone.load_state_dict(fresh.backbone.state_dict())
+    after = [svc.infer_images(f) for f in frames]
+    assert folds(svc) == 2 and svc._compiled["images_u8"] is graph
+    _same_answers(after, [fresh.infer_images(f) for f in frames], tol=0.5)
+    assert not np.allclose(before[0]["poses_mm"], after[0]["poses_mm"], rtol=0, atol=1.0)
 
 
 def _train_setup(dev, n_batches, B=2, seed=0):

@@ -12,8 +12,8 @@ read.  The graphs themselves run only on the card
 Tolerances: fused poses within 0.5 mm of the JAX package's (its golden
 bound: float32 convolutions summed in another order); proposal scores
 to 1e-3; everything else in the protocol's answers exactly, latencies
-and the port's own `stats` keys (`device`, `backbone_random_init`)
-apart.  Image decoding and weight loading are exact.
+and the port's own `stats` keys (`device`, `backbone_random_init`,
+`backbone_folded`) apart.  Image decoding and weight loading are exact.
 """
 
 import contextlib
@@ -34,7 +34,7 @@ from tests.test_torch_modules import nest, randomize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LATENCY_KEYS = {"latency_ms", "mean_ms", "p50_ms", "p95_ms"}
-PORT_ONLY_STATS = {"device", "backbone_random_init"}
+PORT_ONLY_STATS = {"device", "backbone_random_init", "backbone_folded"}
 
 
 def _calibration(path, radius=3000.0, seed=0):
@@ -381,7 +381,8 @@ def test_cpu_service_captures_nothing(tiny, tmp_path, monkeypatch):
                         lambda self, *a, **k: calls.append(1) or forward(self, *a, **k))
     svc = PoseService(pcfg, variables=flat, device="cpu", aot=True)
     assert calls == [] and svc.stats() == {"requests": 0, "random_init": False,
-                                           "backbone_random_init": True}
+                                           "backbone_random_init": True,
+                                           "backbone_folded": False}
     assert svc.warmup() == ["heatmaps"] and len(calls) == 1
     assert svc.warmup() == ["heatmaps"] and len(calls) == 1  # once per graph
     with pytest.raises(RuntimeError, match="no camera rig"):

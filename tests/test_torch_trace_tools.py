@@ -231,3 +231,25 @@ def test_profile_backbone_cli_at_tiny(capsys):
     assert line["full"]["shape"] == [1, 64, 96, 3] and line["l1"]["shape"] == [1, 64, 16, 24]
     with pytest.raises(SystemExit, match="unknown tags"):
         pb.main(["l5", "--device", "cpu"])
+
+
+def test_profile_backbone_folded_stages(capsys):
+    """--folded times the backbone as served: its stages are the folded
+    module's and compute what the unfolded stages compute, within float32
+    rounding at the tool's seed."""
+    from faster_voxelpose_tpu_torch.models.resnet import PoseResNet
+    from faster_voxelpose_tpu_torch.tools import profile_backbone as pb
+
+    line = pb.main(["stem,deconv,full", "--device", "cpu", "--images", "1,64,96",
+                    "--lengths", "1,2", "--folded"])
+    assert set(line) == {"stem", "deconv", "full"} and all(r["ms"] > 0 for r in line.values())
+    assert "BatchNorm folded" in capsys.readouterr().out
+    torch.manual_seed(0)
+    plain = PoseResNet(50, 15).eval()
+    folded = PoseResNet(50, 15).eval()
+    folded.load_state_dict(plain.state_dict())
+    fns, want = pb.stage_fns(folded.fold()), pb.stage_fns(plain)
+    x = torch.randn(1, 3, 64, 96, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        np.testing.assert_allclose(fns["stem"](x).numpy(), want["stem"](x).numpy(),
+                                   rtol=0, atol=1e-5)

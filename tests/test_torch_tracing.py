@@ -179,7 +179,8 @@ def test_switch_off_records_nothing(log):
     answers = _requests(svc, "heatmaps", 2)
     assert log.written == 0 and log.setup_written == 0 and log.spans() == []
     assert all(a["latency_ms"] > 0 for a in answers)
-    assert svc.stats() == {"requests": 2, "random_init": True, "backbone_random_init": True}
+    assert svc.stats() == {"requests": 2, "random_init": True, "backbone_random_init": True,
+                           "backbone_folded": False}
 
 
 def test_switch_reads_the_environment(monkeypatch):
@@ -257,7 +258,8 @@ def test_trace_summary_and_the_serve_command(log):
 
 def test_stats_with_no_requests(log):
     svc = _cpu_service()
-    assert svc.stats() == {"requests": 0, "random_init": True, "backbone_random_init": True}
+    assert svc.stats() == {"requests": 0, "random_init": True, "backbone_random_init": True,
+                           "backbone_folded": False}
 
 
 class _FakeEvent:
