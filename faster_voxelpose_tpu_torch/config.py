@@ -109,6 +109,24 @@ class ResnetConfig:
 
 
 @dataclass
+class VitConfig:
+    """The widths of the ViTPose backbone (`BACKBONE: 'vitpose'`,
+    models/vitpose.py); the defaults are ViTPose-H's: 16x16 patches, 32
+    blocks of width 1280 with 16 heads and an MLP of 4x, the simple head's
+    transposed convs of 256 (the rest is fixed there)."""
+
+    PATCH_SIZE: int = 16
+    EMBED_DIM: int = 1280
+    DEPTH: int = 32
+    NUM_HEADS: int = 16
+    MLP_RATIO: int = 4
+    NUM_DECONV_FILTERS: Tuple[int, ...] = (256, 256)
+
+    def __post_init__(self):
+        self.NUM_DECONV_FILTERS = tuple(int(x) for x in self.NUM_DECONV_FILTERS)
+
+
+@dataclass
 class TrainConfig:
     BATCH_SIZE: int = 8
     SHUFFLE: bool = True
@@ -175,7 +193,7 @@ class ParallelConfig:
 
 @dataclass
 class Config:
-    BACKBONE: str = "resnet"
+    BACKBONE: str = "resnet"  # or "vitpose" (the VIT section)
     DEVICE: str = "tpu"  # the JAX package's default; the port ignores it
     WORKERS: int = 8
     PRINT_FREQ: int = 100
@@ -187,6 +205,7 @@ class Config:
     SYNTHETIC: SyntheticConfig = field(default_factory=SyntheticConfig)
     NETWORK: NetworkConfig = field(default_factory=NetworkConfig)
     RESNET: ResnetConfig = field(default_factory=ResnetConfig)
+    VIT: VitConfig = field(default_factory=VitConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     TEST: TestConfig = field(default_factory=TestConfig)
     CAPTURE_SPEC: CaptureSpec = field(default_factory=CaptureSpec)
@@ -245,14 +264,16 @@ def load_config(yaml_path: Optional[Union[str, pathlib.Path]] = None) -> Config:
         if overlay:
             _apply_overlay(cfg, overlay)
         # re-normalize tuple-typed fields after overlay
-        for section in (cfg.DATASET, cfg.CAPTURE_SPEC, cfg.INDIVIDUAL_SPEC, cfg.RESNET):
+        for section in (cfg.DATASET, cfg.CAPTURE_SPEC, cfg.INDIVIDUAL_SPEC, cfg.RESNET, cfg.VIT):
             section.__post_init__()
     return cfg
 
 
 def save_config(cfg: Config, yaml_path: Union[str, pathlib.Path]) -> None:
     """Dump the full resolved config, which `load_config` reads back
-    (reference gen_config, config.py:191)."""
+    (reference gen_config, config.py:191).  The VIT section is written
+    only where BACKBONE is 'vitpose', so that the file of any other
+    backbone is in the JAX package's schema, which has no such section."""
     import numpy as np
     import yaml
 
@@ -265,8 +286,11 @@ def save_config(cfg: Config, yaml_path: Union[str, pathlib.Path]) -> None:
             return o.item()
         return o
 
+    plain = to_plain(cfg)
+    if cfg.BACKBONE != "vitpose":
+        del plain["VIT"]
     with open(yaml_path, "w") as f:
-        yaml.safe_dump(to_plain(cfg), f, default_flow_style=False)
+        yaml.safe_dump(plain, f, default_flow_style=False)
 
 
 def get_model_name(cfg: Config) -> Tuple[str, str]:

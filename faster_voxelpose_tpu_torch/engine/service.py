@@ -1,8 +1,11 @@
 """Persistent inference service of the port (counterpart of
-`faster_voxelpose_tpu/engine/service.py`): a long-lived model and
-Pose-ResNet backbone on one device that compile once and then answer
-heatmaps -> poses and images -> poses requests, with a hot-swappable
-camera rig and latency accounting.
+`faster_voxelpose_tpu/engine/service.py`): a long-lived model and 2D
+backbone on one device that compile once and then answer heatmaps ->
+poses and images -> poses requests, with a hot-swappable camera rig and
+latency accounting.  The backbone is the one `cfg.BACKBONE` names
+(`models.resnet.build_backbone`): a Pose-ResNet, or a ViTPose
+(`models/vitpose.py`), whose parameters are drawn on the service's
+device.
 
 - **Compiled graphs.** The JAX service lowers and compiles its batch-1
   graphs before the first request and runs one executable per request.
@@ -14,8 +17,10 @@ camera rig and latency accounting.
   input of another shape, or a graph not captured, runs the same forward
   eagerly, on the same kernels.
 - **Folded backbone.**  The image graphs run the backbone with its
-  BatchNorms folded into its convolutions (`PoseResNet.fold`), folded
-  before the backbone first runs (an image graph's warm-up, or the first
+  served weights prepared once (`fold`: a Pose-ResNet's BatchNorms
+  folded into its convolutions; a ViTPose's weights cast to the compute
+  dtype and its head's BatchNorms folded), folded before the backbone
+  first runs (an image graph's warm-up, or the first
   eager image request).  Before each image request the host compares the
   version counters of the tensors the fold read with those at the last
   fold and, where one moved, refolds into the same buffers, which the
@@ -32,7 +37,8 @@ camera rig and latency accounting.
   `jln.people`).  One request in `GraphMarks.EVERY` answered by a
   captured graph adds its device intervals from CUDA events
   (`device.upload`, `device.launch_gap`, and from marks captured into
-  the graph `device.backbone`, `device.hdn`, `device.jln`).
+  the graph `device.backbone`, `device.hdn`, `device.jln`, and with a
+  ViTPose `device.vit_blocks` and `device.vit_head`).
   Construction, each graph's capture and each fold of the backbone are
   set-up spans (`setup.build`, `setup.capture`, `setup.fold`).  `stats`
   gives count / mean / p50 / p95 of the request spans, `trace_summary`
@@ -98,8 +104,10 @@ class PoseService:
         `stats()["random_init"]`)
     backbone_variables : flax variables of the JAX package's `PoseResNet`,
         flat or nested; None -> a random backbone from `seed`
-        (`stats()["backbone_random_init"]`).  An upstream Pose-ResNet
-        state dict enters as `weights.to_jax_variables(
+        (`stats()["backbone_random_init"]`).  A ViTPose has no flax
+        counterpart: its weights are loaded into `self.backbone` as a
+        state dict, and flax variables with it raise ValueError.  An
+        upstream Pose-ResNet state dict enters as `weights.to_jax_variables(
         weights.convert_backbone(sd, num_layers))`; weights loaded into
         `self.backbone` afterwards are not seen by `stats()` or by the
         default `warmup`.  The heatmaps path never runs the backbone.
@@ -123,11 +131,15 @@ class PoseService:
         self._iw, self._ih = cfg.DATASET.IMAGE_SIZE
         # the service's id in the span log, for its requests and set-up
         self._owner = profiling.SPANS.new_owner()
+        if backbone_variables is not None and cfg.BACKBONE != "resnet":
+            raise ValueError(f"backbone_variables hold a flax Pose-ResNet; a {cfg.BACKBONE} "
+                             "backbone takes a state dict (self.backbone.load_state_dict)")
         with profiling.SPANS.span("setup.build", owner=self._owner):
-            with torch.random.fork_rng(devices=[]):
+            on_card = [self.device] if self.device.type == "cuda" else []
+            with torch.random.fork_rng(devices=on_card):
                 torch.manual_seed(seed)
                 self.model = build_model(cfg)
-                self.backbone = build_backbone(cfg)
+                self.backbone = build_backbone(cfg, self.device)
             self.random_init = variables is None
             self.backbone_random_init = backbone_variables is None
             if variables is not None:
@@ -164,13 +176,13 @@ class PoseService:
         which `set_rig` overwrites.  Returns the graphs compiled so far
         (`stats()["compiled"]`).
 
-        An image graph runs the folded backbone (`PoseResNet.fold`,
-        folded here before its first forward).  A graph reads the model's
+        An image graph runs the folded backbone (`fold`, folded here
+        before its first forward).  A graph reads the model's
         parameters and the backbone's folded weights where they lie:
         weights loaded in place afterwards (`load_state_dict`) are seen by
         the next replay, the backbone's through a refold into the same
-        buffers before the request (`PoseResNet.sync_fold`, a `setup.fold`
-        span); modules replaced by new objects are not."""
+        buffers before the request (`sync_fold`, a `setup.fold` span);
+        modules replaced by new objects are not."""
         if graphs is None:
             graphs = ("heatmaps",) if self.backbone_random_init else ("heatmaps", "images_u8")
         unknown = set(graphs) - set(GRAPHS)
@@ -203,7 +215,8 @@ class PoseService:
         the graph's own memory pool, its launches kept as what one replay
         launches).  With the span log on, the graph records its marks
         (`profiling.GraphMarks`): at its start, after the backbone (image
-        graphs), after the HDN and at its end.  Raises what the capture
+        graphs; a ViTPose's also after its patch embedding and after its
+        last block), after the HDN and at its end.  Raises what the capture
         raises, e.g. for a host synchronisation or a copy from pageable
         host memory inside the forward."""
         stream = torch.cuda.Stream(self.device)

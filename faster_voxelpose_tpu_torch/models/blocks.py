@@ -13,7 +13,7 @@ that `weights.from_jax_variables` maps the flax paths mechanically.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -170,6 +170,63 @@ def fold_batchnorm(weight: torch.Tensor, bn: "BatchNorm", bias: Optional[torch.T
     shape[out_dim] = -1
     shift = -bn.running_mean.float() if bias is None else bias.float() - bn.running_mean.float()
     return weight.float() * s.reshape(shape), bn.bias.float() + shift * s
+
+
+def _unstamp(module: "FoldedBackbone", *_) -> None:
+    """Make the next `sync_fold` refold."""
+    module._fold_stamp = None
+
+
+class FoldedBackbone(nn.Module):
+    """A backbone that serves weights prepared once in its compute dtype
+    (`fold`, the subclass's: BatchNorms folded into the convolutions
+    before them, weights cast), in non-persistent buffers, so that
+    `state_dict()` keeps its keys.  A folded module in eval mode checks
+    before each forward whether a tensor the fold read has changed since
+    (`sync_fold`) and then refolds into the same buffers; inside a CUDA
+    graph capture it does not check, so the capture launches nothing of
+    the fold's, and the graph's owner checks before each replay."""
+
+    folded = False
+
+    def __init__(self):
+        super().__init__()
+        self._fold_owner: Optional[int] = None  # the span log's service of `setup.fold`
+        self._fold_tensors: List[torch.Tensor] = []  # the tensors the fold read
+        self._fold_stamp: Optional[List[int]] = None  # their version counters then
+        self.register_load_state_dict_post_hook(_unstamp)
+
+    def fold(self, owner: Optional[int] = None) -> "FoldedBackbone":
+        raise NotImplementedError
+
+    def _stamp(self, tensors: Iterable[Optional[torch.Tensor]]) -> None:
+        """Keep the tensors the fold read and their version counters.
+        Inference tensors (made under torch.inference_mode) keep no
+        version counter: only a reload refolds from those."""
+        self._fold_tensors = [t for t in tensors if t is not None and not t.is_inference()]
+        self._fold_stamp = [t._version for t in self._fold_tensors]
+
+    def sync_fold(self) -> bool:
+        """Refold where a tensor the fold read has changed since: an
+        in-place write moves its version counter (`load_state_dict`, an
+        optimiser step, a running-statistics update; not a write through
+        `.data`), and after `load_state_dict`, which may put new tensors in
+        place (`assign=True`), it always refolds.  Returns whether it
+        refolded (never on a module not folded)."""
+        if not self.folded or self._fold_stamp == [t._version for t in self._fold_tensors]:
+            return False
+        self.fold()
+        return True
+
+    def serving(self, x: torch.Tensor) -> bool:
+        """Whether a forward on x runs the folded weights (a folded module
+        in eval mode), refolded first where a tensor moved, except inside
+        a CUDA graph capture."""
+        if not self.folded or self.training:
+            return False
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            self.sync_fold()
+        return True
 
 
 class Deconv(nn.Module):

@@ -36,7 +36,7 @@ from torch import nn
 from ..config import Config
 from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD, normalize_images_device
 from ..utils import profiling
-from .blocks import BatchNorm, Conv, Deconv, fold_batchnorm
+from .blocks import BatchNorm, Conv, Deconv, FoldedBackbone, fold_batchnorm
 from .faster_voxelpose import DTYPES
 
 
@@ -63,11 +63,6 @@ def _conv_add_relu(conv: Conv, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor
             conv.pad_same(x), conv.folded_weight, z, 1.0, conv.folded_bias,
             (conv.stride,) * 2, (conv.pad,) * 2, (1, 1), 1)
     return _conv(conv, x).add_(z).relu_()
-
-
-def _unstamp(backbone: "PoseResNet", *_) -> None:
-    """Make the next `sync_fold` refold."""
-    backbone._fold_stamp = None
 
 
 class BasicBlock(nn.Module):
@@ -148,7 +143,7 @@ RESNET_SPEC = {
 }
 
 
-class PoseResNet(nn.Module):
+class PoseResNet(FoldedBackbone):
     """ResNet trunk + deconv upsampling + per-joint heatmap head, in
     inference: images (B, H, W, 3), normalised, any float dtype ->
     heatmaps (B, H/4, W/4, J) float32.
@@ -161,13 +156,7 @@ class PoseResNet(nn.Module):
     `fold()` readies it for serving (the module docstring): the folded
     weights and biases are non-persistent buffers of the convs
     (`folded_weight`, `folded_bias`, channels-last, the compute dtype),
-    so `state_dict()` keeps its keys.  A folded module in eval mode checks
-    before each forward whether a tensor the fold read has changed since
-    (`sync_fold`) and then refolds into the same buffers; inside a CUDA
-    graph capture it does not check, so the capture launches nothing of
-    the fold's, and the graph's owner checks before each replay."""
-
-    folded = False
+    refolded as `blocks.FoldedBackbone` says."""
 
     def __init__(self, num_layers: int = 50, num_joints: int = 15,
                  deconv_filters: Sequence[int] = (256, 256, 256),
@@ -207,10 +196,6 @@ class PoseResNet(nn.Module):
         # module's device, so that it copies nothing from the host
         self.register_buffer("image_mean", torch.as_tensor(IMAGENET_MEAN), persistent=False)
         self.register_buffer("image_std", torch.as_tensor(IMAGENET_STD), persistent=False)
-        self._fold_owner: Optional[int] = None  # the span log's service of `setup.fold`
-        self._fold_tensors: List[torch.Tensor] = []  # the tensors the fold read
-        self._fold_stamp: Optional[List[int]] = None  # their version counters then
-        self.register_load_state_dict_post_hook(_unstamp)
 
     def fold_pairs(self) -> List[Tuple[nn.Module, BatchNorm]]:
         """(conv or transposed conv, the BatchNorm after it) of every pair
@@ -249,31 +234,13 @@ class PoseResNet(nn.Module):
                     conv.register_buffer("folded_bias", b, persistent=False)
         for m in (self, *(getattr(self, name) for name in self.stages)):
             m.folded = True
-        # inference tensors (made under torch.inference_mode) keep no
-        # version counter: only a reload refolds from those
-        self._fold_tensors = [t for conv, bn in pairs
-                              for d in (conv._parameters, bn._parameters, bn._buffers)
-                              for t in d.values() if t is not None and not t.is_inference()]
-        self._fold_stamp = [t._version for t in self._fold_tensors]
+        self._stamp(t for conv, bn in pairs
+                    for d in (conv._parameters, bn._parameters, bn._buffers) for t in d.values())
         return self
-
-    def sync_fold(self) -> bool:
-        """Refold where a tensor the fold read has changed since: an
-        in-place write moves its version counter (`load_state_dict`, an
-        optimiser step, a running-statistics update; not a write through
-        `.data`), and after `load_state_dict`, which may put new tensors in
-        place (`assign=True`), it always refolds.  Returns whether it
-        refolded (never on a module not folded)."""
-        if not self.folded or self._fold_stamp == [t._version for t in self._fold_tensors]:
-            return False
-        self.fold()
-        return True
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)
-        if (self.folded and not self.training
-                and not (x.is_cuda and torch.cuda.is_current_stream_capturing())):
-            self.sync_fold()
+        self.serving(x)  # refolds first where a tensor moved
         x = self.stem(x)
         for name in self.stages:
             x = getattr(self, name)(x)
@@ -301,8 +268,19 @@ class PoseResNet(nn.Module):
         return x
 
 
-def build_backbone(cfg: Config) -> PoseResNet:
-    """The backbone of `cfg` (RESNET, NUM_JOINTS, COMPUTE_DTYPE) in eval mode."""
+def build_backbone(cfg: Config, device=None) -> FoldedBackbone:
+    """The backbone that `cfg.BACKBONE` names, in eval mode: 'resnet', a
+    `PoseResNet` (RESNET, NUM_JOINTS, COMPUTE_DTYPE), drawn on the host;
+    'vitpose', a `vitpose.ViTPose` (VIT, IMAGE_SIZE, NUM_JOINTS,
+    COMPUTE_DTYPE), drawn on `device` (None: the host), so that a
+    ViTPose-H's 639 M parameters are not drawn on the host to be copied
+    or overwritten."""
+    if cfg.BACKBONE == "vitpose":
+        from .vitpose import build_vitpose  # it imports this module
+
+        return build_vitpose(cfg, device)
+    if cfg.BACKBONE != "resnet":
+        raise ValueError(f"unknown BACKBONE {cfg.BACKBONE!r}; known: 'resnet', 'vitpose'")
     r = cfg.RESNET
     return PoseResNet(
         num_layers=r.NUM_LAYERS, num_joints=cfg.DATASET.NUM_JOINTS,
@@ -312,12 +290,13 @@ def build_backbone(cfg: Config) -> PoseResNet:
     ).eval()
 
 
-def images_to_heatmaps(backbone: PoseResNet, images: torch.Tensor,
+def images_to_heatmaps(backbone: FoldedBackbone, images: torch.Tensor,
                        color_rgb: bool) -> torch.Tensor:
     """Frames (B, V, ih, iw, 3) -> heatmaps (B, V, ih/4, iw/4, J) float32:
     uint8 frames are decoded BGR, normalised on their device (RGB when
-    `color_rgb`); float frames are taken as normalised.  The backbone runs
-    over the B * V frames at once."""
+    `color_rgb`); float frames are taken as normalised.  The backbone (a
+    `PoseResNet` or a `vitpose.ViTPose`) runs over the B * V frames at
+    once."""
     if images.dtype == torch.uint8:
         images = normalize_images_device(images, color_rgb, backbone.image_mean,
                                          backbone.image_std)

@@ -112,9 +112,11 @@ class StepTimer:
 REQUEST_SPANS = ("service.request", "service.input", "service.upload", "service.launch",
                  "service.wait", "service.decode")
 # device intervals of a request served by a captured graph, ms (CUDA
-# events); NaN where not measured
+# events); NaN where not measured.  The ViT's two (a ViTPose backbone's
+# blocks, and its last norm and head) come after the first five, whose
+# columns keep their places
 DEVICE_INTERVALS = ("device.upload", "device.launch_gap", "device.backbone", "device.hdn",
-                    "device.jln")
+                    "device.jln", "device.vit_blocks", "device.vit_head")
 COUNTERS = ("jln.slots", "jln.people")
 CAPACITY = 65536  # requests kept (the ring's bound)
 SETUP_CAPACITY = 4096  # set-up spans kept
@@ -262,10 +264,10 @@ class SpanLog:
         return i, rid
 
     def write_device_ms(self, row: int, rid: int, values: Sequence[float]) -> None:
-        """The device intervals of request `rid`, unless the ring has
-        overwritten its row since."""
+        """The first len(values) device intervals of request `rid` (the
+        rest stay NaN), unless the ring has overwritten its row since."""
         if self.rows[row, 0] == rid:
-            self.device_ms[row] = values
+            self.device_ms[row, :len(values)] = values
 
     def _name(self, name: Optional[str]) -> int:
         if name is None:
@@ -317,7 +319,7 @@ class SpanLog:
     def requests(self, owner: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Copies of the kept requests, oldest first (of one service where
         `owner` is given): "id", "owner", "stamps_ns" (n, 6), "device_ms"
-        (n, 5), "counters" (n, 2)."""
+        (n, 7), "counters" (n, 2)."""
         order = self._order(self.written, self.capacity)
         if owner is not None:
             order = order[self.rows[order, 1] == owner]
@@ -405,6 +407,7 @@ class GraphMarks:
 
     EVERY = 16
     STAGES = ("start", "backbone", "hdn", "end")
+    VIT_STAGES = ("vit_patch", "vit_blocks", "backbone")  # a ViTPose backbone's marks
 
     def __init__(self):
         self.upload = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -425,7 +428,9 @@ class GraphMarks:
     def read(self) -> List[float]:
         """ms of DEVICE_INTERVALS: the upload, the upload's end to the
         graph's start, then start -> backbone -> hdn -> end (NaN where the
-        graph has no such mark: the backbone of a heatmaps graph)."""
+        graph has no such mark: the backbone of a heatmaps graph); where
+        the graph holds a ViT's marks, vit_patch -> vit_blocks -> backbone
+        after them, which a graph without them does not read."""
         ev, (a, b) = self.events, self.upload
         start, nan = ev.get("start"), float("nan")
         out = [a.elapsed_time(b), b.elapsed_time(start) if start is not None else nan]
@@ -434,6 +439,9 @@ class GraphMarks:
             e = ev.get(name)
             out.append(prev.elapsed_time(e) if e is not None and prev is not None else nan)
             prev = e if e is not None else prev
+        if self.VIT_STAGES[0] in ev:
+            patch, blocks, end = (ev[n] for n in self.VIT_STAGES)
+            out += [patch.elapsed_time(blocks), blocks.elapsed_time(end)]
         return out
 
 
