@@ -16,15 +16,18 @@ device.
   graph launch in place of the forward's several hundred kernels.  An
   input of another shape, or a graph not captured, runs the same forward
   eagerly, on the same kernels.
-- **Folded backbone.**  The image graphs run the backbone with its
-  served weights prepared once (`fold`: a Pose-ResNet's BatchNorms
-  folded into its convolutions; a ViTPose's weights cast to the compute
-  dtype and its head's BatchNorms folded), folded before the backbone
-  first runs (an image graph's warm-up, or the first
-  eager image request).  Before each image request the host compares the
-  version counters of the tensors the fold read with those at the last
-  fold and, where one moved, refolds into the same buffers, which the
-  captured graph reads.
+- **Folded weights.**  Every graph runs the fusion model with its
+  served weights prepared once (`FasterVoxelPoseNet.fold`: the fusion
+  nets' BatchNorms folded into their convolutions, every weight cast to
+  the compute dtype), and the image graphs run the backbone so too (a
+  Pose-ResNet's BatchNorms folded into its convolutions; a ViTPose's
+  weights cast and its head's BatchNorms folded), each folded before it
+  first runs (a graph's warm-up, or the first eager request).  On each
+  request the host compares the version counters of the tensors each
+  fold read with those at its last fold and, where one moved, refolds
+  into the same buffers, which the captured graph reads
+  (`blocks.FoldedModule`): in an eager forward, and while the card runs
+  a replay, which is then replayed again after a refold (`_run`).
 - **Camera-rig hot-swap.** Every graph reads one static rig tensor;
   `set_rig` copies the new calibration into it, so a swap costs one
   host->device copy and no recapture.
@@ -39,8 +42,9 @@ device.
   (`device.upload`, `device.launch_gap`, and from marks captured into
   the graph `device.backbone`, `device.hdn`, `device.jln`, and with a
   ViTPose `device.vit_blocks` and `device.vit_head`).
-  Construction, each graph's capture and each fold of the backbone are
-  set-up spans (`setup.build`, `setup.capture`, `setup.fold`).  `stats`
+  Construction, each graph's capture and each fold of the model or the
+  backbone are set-up spans (`setup.build`, `setup.capture`, `setup.fold`
+  labelled "fusion", or the backbone's "backbone" or "vitpose").  `stats`
   gives count / mean / p50 / p95 of the request spans, `trace_summary`
   every span, interval, counter and set-up span.
 - **Raw outputs.** Each graph returns the fused poses and the proposal
@@ -176,13 +180,12 @@ class PoseService:
         which `set_rig` overwrites.  Returns the graphs compiled so far
         (`stats()["compiled"]`).
 
-        An image graph runs the folded backbone (`fold`, folded here
-        before its first forward).  A graph reads the model's
-        parameters and the backbone's folded weights where they lie:
-        weights loaded in place afterwards (`load_state_dict`) are seen by
-        the next replay, the backbone's through a refold into the same
-        buffers before the request (`sync_fold`, a `setup.fold` span);
-        modules replaced by new objects are not."""
+        Every graph runs the folded model, and an image graph the folded
+        backbone (`fold`, folded here before its first forward).  A graph
+        reads the folded weights where they lie: weights loaded in place
+        afterwards (`load_state_dict`) are seen by the next request through
+        a refold into the same buffers (`sync_fold`, a `setup.fold` span;
+        `_run`); modules replaced by new objects are not."""
         if graphs is None:
             graphs = ("heatmaps",) if self.backbone_random_init else ("heatmaps", "images_u8")
         unknown = set(graphs) - set(GRAPHS)
@@ -196,8 +199,8 @@ class PoseService:
             x = torch.zeros(self._input_shape(name), device=self.device,
                             dtype=torch.uint8 if name == "images_u8" else torch.float32)
             forward = self._forward(name)
-            if name != "heatmaps":
-                self._fresh_backbone()
+            for m in self._folded(name):
+                self._fold_once(m)
             with profiling.SPANS.span("setup.capture", owner=self._owner, label=name):
                 if self.device.type == "cuda":
                     self._compiled[name] = self._capture(forward, x)
@@ -234,14 +237,16 @@ class PoseService:
             c = graphs.capture(marked, stream, inference=True)
         return CompiledGraph(c, static_input, marks)
 
-    def _fresh_backbone(self) -> None:
-        """Fold the backbone at its first use; after that, refold where a
-        tensor the fold read has changed (a host-only check when none
-        has)."""
-        if self.backbone.folded:
-            self.backbone.sync_fold()
-        else:
-            self.backbone.fold(self._owner)
+    def _folded(self, name: str) -> tuple:
+        """The folded modules the graph `name` runs."""
+        return (self.model,) if name == "heatmaps" else (self.model, self.backbone)
+
+    def _fold_once(self, module) -> None:
+        """Fold the model or the backbone at its first use; a folded
+        module's eager forward checks its fold itself (`serving`), a
+        graph's replay is checked by `_run`."""
+        if not module.folded:
+            module.fold(self._owner)
 
     def _input_shape(self, name: str) -> tuple:
         if name == "heatmaps":
@@ -306,12 +311,21 @@ class PoseService:
         graph `name` where there is one for x's shape, else by the eager
         forward; and the graph's marks where `req` is timed and reads them
         (`GraphMarks.sampled`).  Ends `req`'s input span, stamps the
-        upload's end, and leaves the launch open."""
-        if name != "heatmaps":
-            self._fresh_backbone()
-        req.next()
+        upload's end, and leaves the launch open.
+
+        The folded weights' version check (`sync_fold` of the model, and
+        of the backbone for frames) runs in an eager forward, and after a
+        graph's replay is launched, while the card runs it: the check
+        reads a counter of each of several hundred tensors, which costs
+        the host a tenth of a millisecond or more between requests.  Where
+        a tensor moved, the refold is queued behind that replay and the
+        graph replays again, so the answer is the refolded weights'."""
+        folded = self._folded(name)
+        for m in folded:
+            self._fold_once(m)
         g = self._compiled.get(name)
         if g is not None and x.shape == g.input.shape:
+            req.next()
             marks = g.marks if req.timed and g.marks is not None and g.marks.sampled() else None
             if marks is not None:
                 marks.upload[0].record()
@@ -319,7 +333,11 @@ class PoseService:
             if marks is not None:
                 marks.upload[1].record()
             req.next()
-            return graphs.replay(g.captured), marks
+            out = graphs.replay(g.captured)
+            if any([m.sync_fold() for m in folded]):
+                out = graphs.replay(g.captured)
+            return out, marks
+        req.next()
         x = x.to(self.device)
         req.next()
         with torch.inference_mode():
@@ -411,13 +429,14 @@ class PoseService:
     def stats(self) -> dict:
         """Requests answered, and count / mean / p50 / p95 (ms) of the
         request spans the log keeps (none with the log off); whether the
-        backbone runs folded."""
+        backbone and the fusion model run folded."""
         stamps = profiling.SPANS.requests(self._owner)["stamps_ns"]
         lat = profiling.durations_ms(stamps)[profiling.REQUEST_SPANS[0]]
         if lat.size == 0:
             return {"requests": self._total_requests, "random_init": self.random_init,
                     "backbone_random_init": self.backbone_random_init,
-                    "backbone_folded": self.backbone.folded}
+                    "backbone_folded": self.backbone.folded,
+                    "fusion_folded": self.model.folded}
         return {
             "requests": self._total_requests,
             "mean_ms": round(float(lat.mean()), 3),
@@ -428,6 +447,7 @@ class PoseService:
             "random_init": self.random_init,
             "backbone_random_init": self.backbone_random_init,
             "backbone_folded": self.backbone.folded,
+            "fusion_folded": self.model.folded,
         }
 
     def trace_summary(self) -> dict:

@@ -5,10 +5,19 @@ lib/models/cnns_2d.py:12-112 and cnns_1d.py:10-109).
 Parameters are float32; each conv casts its input, kernel and bias to the
 module's compute dtype, as flax's `dtype=` does, and BatchNorm (eps 1e-5)
 runs in float32 and returns the compute dtype.  As in the flax modules,
-train mode is an argument, `train`, passed down to every BatchNorm:
+train mode is an argument, `train`, passed down to every layer:
 running statistics when false, batch statistics (and a running-statistics
 update) when true.  Module and parameter names follow the flax modules, so
 that `weights.from_jax_variables` maps the flax paths mechanically.
+
+For serving, a `FoldedModule` prepares its layers' weights once
+(`fold_layers`): each BatchNorm folded into the conv before it
+(`fold_batchnorm`), every weight cast to the compute dtype.  A folded
+layer outside train mode (`runs_folded`) runs on those: each conv with its
+bias, and its ReLU (`conv_relu`) or its block's shortcut and ReLU
+(`conv_add_relu`), as one cuDNN call on the card and as the conv, then
+in-place `add_` and `relu_`, elsewhere; no BatchNorm, no float32
+activation and no per-forward weight cast before a `float32_out` layer.
 """
 
 from __future__ import annotations
@@ -63,6 +72,8 @@ class Conv(nn.Module):
     proposals, and with float32 sums they land on the record (see
     `CenterNet`)."""
 
+    folded = False  # set by `fold_layers`: the forward then runs the folded weights
+
     def __init__(self, cin: int, cout: int, kernel: int, rank: int = 2,
                  dtype: torch.dtype = torch.float32, float32_out: bool = False,
                  stride: int = 1, padding: Optional[int] = None, use_bias: bool = True):
@@ -83,8 +94,10 @@ class Conv(nn.Module):
         return F.pad(x, [p for n in reversed(x.shape[2:])
                          for p in same_pads(n, self.kernel, self.stride)])
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt, out = self.dtype, self.out_dtype
+        if runs_folded(self, train):
+            return conv_folded(self, x.to(dt).to(out))
         x = self.pad_same(x)
         b = None if self.bias is None else self.bias.to(dt).to(out)
         return _CONV[self.rank](
@@ -96,6 +109,8 @@ class Dense(nn.Module):
     """Linear layer in the compute dtype, weight (O, I); `float32_out` as
     for `Conv`."""
 
+    folded = False  # as Conv's
+
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
                  float32_out: bool = False):
         super().__init__()
@@ -104,8 +119,10 @@ class Dense(nn.Module):
         self.weight = _normal(cout, cin)
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt, out = self.dtype, self.out_dtype
+        if runs_folded(self, train):
+            return F.linear(x.to(dt).to(out), self.folded_weight, self.folded_bias)
         return F.linear(x.to(dt).to(out), self.weight.to(dt).to(out), self.bias.to(dt).to(out))
 
 
@@ -172,13 +189,107 @@ def fold_batchnorm(weight: torch.Tensor, bn: "BatchNorm", bias: Optional[torch.T
     return weight.float() * s.reshape(shape), bn.bias.float() + shift * s
 
 
-def _unstamp(module: "FoldedBackbone", *_) -> None:
+def runs_folded(layer: nn.Module, train: bool) -> bool:
+    """Whether `layer`'s forward runs its folded weights: a layer folded
+    by `FoldedModule.fold`, outside train mode (`train` and the module's
+    own `training` both false)."""
+    return layer.folded and not (train or layer.training)
+
+
+def conv_folded(conv: "Conv", x: torch.Tensor) -> torch.Tensor:
+    """conv's folded convolution of x, its bias added."""
+    return _CONV[conv.rank](conv.pad_same(x), conv.folded_weight, conv.folded_bias, conv.stride,
+                            conv.pad)
+
+
+def _cudnn_operands(conv: "Conv", x: torch.Tensor):
+    """(x, weight, stride, padding) of conv's folded convolution as
+    cuDNN's fused ops take them, in 2D: a rank-1 conv as one of unit
+    height (views, no copy)."""
+    x, w = conv.pad_same(x), conv.folded_weight
+    if conv.rank == 1:
+        return x.unsqueeze(2), w.unsqueeze(2), (1, conv.stride), (0, conv.pad)
+    return x, w, (conv.stride,) * 2, (conv.pad,) * 2
+
+
+def conv_relu(conv: "Conv", x: torch.Tensor) -> torch.Tensor:
+    """relu(conv's folded convolution of x): one cuDNN call on the card."""
+    if x.is_cuda:
+        x2, w, stride, pad = _cudnn_operands(conv, x)
+        y = torch.cudnn_convolution_relu(x2, w, conv.folded_bias, stride, pad, (1, 1), 1)
+        return y.squeeze(2) if conv.rank == 1 else y
+    return conv_folded(conv, x).relu_()
+
+
+def conv_add_relu(conv: "Conv", x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """relu(conv's folded convolution of x + z), z the block's shortcut:
+    one cuDNN call on the card."""
+    if x.is_cuda:
+        x2, w, stride, pad = _cudnn_operands(conv, x)
+        z2 = z.unsqueeze(2) if conv.rank == 1 else z
+        y = torch.cudnn_convolution_add_relu(x2, w, z2, 1.0, conv.folded_bias, stride, pad,
+                                             (1, 1), 1)
+        return y.squeeze(2) if conv.rank == 1 else y
+    return conv_folded(conv, x).add_(z).relu_()
+
+
+def store_folded(layer: nn.Module, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+    """Keep a layer's served weight and bias as its non-persistent buffers
+    `folded_weight` and `folded_bias` (so that `state_dict()` keeps its
+    keys); a refold copies into the buffers of the first fold, so that a
+    CUDA graph that reads them sees it."""
+    if "folded_weight" in layer._buffers:
+        layer.folded_weight.copy_(weight)
+        if bias is not None:
+            layer.folded_bias.copy_(bias)
+    else:
+        layer.register_buffer("folded_weight", weight, persistent=False)
+        layer.register_buffer("folded_bias", bias, persistent=False)
+
+
+def fold_layers(module: nn.Module) -> List[torch.Tensor]:
+    """Prepare the served weights of every conv, transposed conv and
+    linear layer under `module` from its live parameters: its weight and
+    bias with the BatchNorm after it folded in (`fold_batchnorm`, in
+    float32; each block names its pairs in `FOLD_PAIRS`, (layer,
+    BatchNorm) attribute names), rounded to the layer's compute dtype and
+    kept in its output dtype (float32 for a `float32_out` layer), 2D
+    kernels channels-last, as `store_folded` keeps them; then the layer's
+    forward runs on them outside train mode (`runs_folded`).  Returns the
+    tensors the fold read.  Run it under `torch.no_grad()`, and outside
+    inference mode, so that a refold outside it can write into the
+    buffers."""
+    bn_after = {}
+    for m in module.modules():
+        for layer, bn in getattr(m, "FOLD_PAIRS", ()):
+            if hasattr(m, layer):
+                bn_after[getattr(m, layer)] = getattr(m, bn)
+    read = []
+    for layer in module.modules():
+        if not isinstance(layer, (Conv, Deconv, Dense)):
+            continue
+        w, b, bn = layer.weight, layer.bias, bn_after.get(layer)
+        if bn is not None:
+            w, b = fold_batchnorm(w, bn, b, out_dim=1 if isinstance(layer, Deconv) else 0)
+        out = getattr(layer, "out_dtype", layer.dtype)
+        w = w.to(layer.dtype, copy=True).to(out)
+        if w.ndim == 4:
+            w = w.contiguous(memory_format=torch.channels_last)
+        store_folded(layer, w, None if b is None else b.to(layer.dtype, copy=True).to(out))
+        layer.folded = True
+        read += layer._parameters.values()
+        if bn is not None:
+            read += [*bn._parameters.values(), *bn._buffers.values()]
+    return read
+
+
+def _unstamp(module: "FoldedModule", *_) -> None:
     """Make the next `sync_fold` refold."""
     module._fold_stamp = None
 
 
-class FoldedBackbone(nn.Module):
-    """A backbone that serves weights prepared once in its compute dtype
+class FoldedModule(nn.Module):
+    """A module that serves weights prepared once in its compute dtype
     (`fold`, the subclass's: BatchNorms folded into the convolutions
     before them, weights cast), in non-persistent buffers, so that
     `state_dict()` keeps its keys.  A folded module in eval mode checks
@@ -196,7 +307,7 @@ class FoldedBackbone(nn.Module):
         self._fold_stamp: Optional[List[int]] = None  # their version counters then
         self.register_load_state_dict_post_hook(_unstamp)
 
-    def fold(self, owner: Optional[int] = None) -> "FoldedBackbone":
+    def fold(self, owner: Optional[int] = None) -> "FoldedModule":
         raise NotImplementedError
 
     def _stamp(self, tensors: Iterable[Optional[torch.Tensor]]) -> None:
@@ -237,6 +348,8 @@ class Deconv(nn.Module):
     y[2u + a] = x[u] @ W[:, :, a], which is what conv_transpose computes
     here (`weights.from_jax_variables` undoes the flip)."""
 
+    folded = False  # as Conv's
+
     def __init__(self, cin: int, cout: int, kernel: int, stride: int, pad: int,
                  rank: int = 2, use_bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -256,18 +369,31 @@ class Deconv(nn.Module):
 class ConvBNRelu(nn.Module):
     """conv(k) + BN + ReLU (reference Basic2DBlock / Basic1DBlock)."""
 
+    FOLD_PAIRS = (("conv", "bn"),)
+
     def __init__(self, cin, cout, kernel, rank=2, dtype=torch.float32):
         super().__init__()
         self.conv = Conv(cin, cout, kernel, rank, dtype)
         self.bn = BatchNorm(cout, dtype)
 
     def forward(self, x, train: bool = False):
-        return F.relu(self.bn(self.conv(x), train))
+        if runs_folded(self.conv, train):
+            x = x.to(self.conv.dtype)
+            # cuDNN's fused conv + bias + ReLU runs channels-last rows of a
+            # multiple of 8 channels on the tensor cores; at the nets'
+            # fronts' 15 or 17 joints it falls back to an engine up to 9x
+            # slower than the plain conv on an H100 (7x7, bf16)
+            if x.shape[1] % 8:
+                return conv_folded(self.conv, x).relu_()
+            return conv_relu(self.conv, x)
+        return F.relu(self.bn(self.conv(x, train), train))
 
 
 class ResBlock(nn.Module):
     """3-3 residual block with BN, 1x1-projected skip on channel change
     (reference Res2DBlock / Res1DBlock)."""
+
+    FOLD_PAIRS = (("conv1", "bn1"), ("conv2", "bn2"), ("skip_conv", "skip_bn"))
 
     def __init__(self, cin, cout, rank=2, dtype=torch.float32):
         super().__init__()
@@ -282,14 +408,20 @@ class ResBlock(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, train: bool = False):
-        res = F.relu(self.bn1(self.conv1(x), train))
-        res = self.bn2(self.conv2(res), train)
-        skip = self.skip_bn(self.skip_conv(x), train) if self.project else x.to(self.dtype)
+        if runs_folded(self.conv1, train):
+            x = x.to(self.dtype)
+            skip = conv_folded(self.skip_conv, x) if self.project else x
+            return conv_add_relu(self.conv2, conv_relu(self.conv1, x), skip)
+        res = F.relu(self.bn1(self.conv1(x, train), train))
+        res = self.bn2(self.conv2(res, train), train)
+        skip = self.skip_bn(self.skip_conv(x, train), train) if self.project else x.to(self.dtype)
         return F.relu(res + skip)
 
 
 class UpsampleBlock(nn.Module):
     """2x transposed-conv upsample + BN + ReLU (kernel = stride = 2)."""
+
+    FOLD_PAIRS = (("deconv", "bn"),)
 
     def __init__(self, cin, cout, rank=2, dtype=torch.float32):
         super().__init__()
@@ -297,7 +429,11 @@ class UpsampleBlock(nn.Module):
         self.bn = BatchNorm(cout, dtype)
 
     def forward(self, x, train: bool = False):
-        return F.relu(self.bn(self.deconv(x), train))
+        d = self.deconv
+        if runs_folded(d, train):
+            return _DECONV[d.rank](x.to(d.dtype), d.folded_weight, d.folded_bias, stride=d.stride,
+                                   padding=d.pad).relu_()
+        return F.relu(self.bn(d(x), train))
 
 
 class EncoderDecoder(nn.Module):

@@ -2,10 +2,11 @@
 (1D height), WeightNet (plane-fusion weights) — counterparts of
 `faster_voxelpose_tpu/models/cnns.py` (reference cnns_2d.py:115-187,
 cnns_1d.py:112-143, weight_net.py:48-89), channels-first inside.  Each
-takes `train` and passes it to its BatchNorms.  Each head's last layer,
+takes `train` and passes it to its layers.  Each head's last layer,
 whose result the JAX package casts to float32 at once, returns its
 float32 sums of the rounded operands (`blocks.Conv`, `float32_out`): one
-rule for all five.
+rule for all five, folded or not (`blocks.FoldedModule`; the model folds
+them, `FasterVoxelPoseNet.fold`).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .blocks import BatchNorm, Conv, Dense, EncoderDecoder, UNetFront, scaled
+from .blocks import (BatchNorm, Conv, Dense, EncoderDecoder, UNetFront, conv_relu, runs_folded,
+                     scaled)
 
 
 class P2PNet(nn.Module):
@@ -28,7 +30,7 @@ class P2PNet(nn.Module):
         self.output = Conv(scaled(32, width), cout, 1, 2, dtype, float32_out=True)
 
     def forward(self, x, train: bool = False):
-        return self.output(self.encdec(self.front(x, train), train)).float()
+        return self.output(self.encdec(self.front(x, train), train), train).float()
 
 
 class CenterNet(nn.Module):
@@ -57,9 +59,15 @@ class CenterNet(nn.Module):
     def forward(self, cube, train: bool = False):
         x = cube.amax(dim=3).permute(0, 3, 1, 2).to(self.dtype)
         x = self.encdec(self.front(x, train), train)
-        hm = self.hm_out(F.relu(self.hm_conv(x)))
-        size = self.size_out(F.relu(self.size_conv(x)))
-        return hm.float(), size.float()
+        return self._head(self.hm_conv, self.hm_out, x, train), \
+            self._head(self.size_conv, self.size_out, x, train)
+
+    @staticmethod
+    def _head(conv: Conv, out: Conv, x, train: bool):
+        """out(relu(conv(x))) in float32, conv and its ReLU one cuDNN call
+        where folded."""
+        h = conv_relu(conv, x) if runs_folded(conv, train) else F.relu(conv(x, train))
+        return out(h, train).float()
 
 
 class C2CNet(nn.Module):
@@ -72,13 +80,17 @@ class C2CNet(nn.Module):
         self.output = Conv(scaled(32, width), 1, 1, 1, dtype, float32_out=True)
 
     def forward(self, x, train: bool = False):
-        return self.output(self.encdec(self.front(x, train), train))[:, 0].float()
+        return self.output(self.encdec(self.front(x, train), train), train)[:, 0].float()
 
 
 class WeightNet(nn.Module):
     """Per joint-plane fusion weight in (0, 1): (M, J, H, W) plane
     features -> conv + BN + maxpool + ReLU (the reference's order) ->
-    global average pool -> 2-layer MLP -> sigmoid, (M, J, 1)."""
+    global average pool -> 2-layer MLP -> sigmoid, (M, J, 1).  Folded, the
+    conv, its bias and the ReLU are one cuDNN call before the max pool:
+    the same values, since ReLU is monotone and so commutes with max."""
+
+    FOLD_PAIRS = (("feat_conv", "feat_bn"),)
 
     def __init__(self, feat_channels=32, hidden_channels=64, dtype=torch.float32):
         super().__init__()
@@ -89,8 +101,11 @@ class WeightNet(nn.Module):
 
     def forward(self, x, train: bool = False):
         M, J, H, W = x.shape
-        x = self.feat_bn(self.feat_conv(x.reshape(M * J, 1, H, W)), train)
-        x = F.relu(F.max_pool2d(x, 2))
+        x, conv = x.reshape(M * J, 1, H, W), self.feat_conv
+        if runs_folded(conv, train):
+            x = F.max_pool2d(conv_relu(conv, x.to(conv.dtype)), 2)
+        else:
+            x = F.relu(F.max_pool2d(self.feat_bn(conv(x, train), train), 2))
         x = x.mean(dim=(2, 3))
-        x = self.fc2(F.relu(self.fc1(x)))
+        x = self.fc2(F.relu(self.fc1(x, train)), train)
         return torch.sigmoid(x.float()).reshape(M, J, 1)

@@ -2,7 +2,9 @@
 `faster_voxelpose_tpu/models/faster_voxelpose.py`, reference
 faster_voxelpose.py:18-105): HDN then JLN on heatmaps and a packed rig,
 with the same `ModelOutputs` layout, and in train mode the four-term
-training loss.
+training loss.  For serving, `FasterVoxelPoseNet.fold()` prepares the
+fusion nets' weights once (`blocks.FoldedModule`): BatchNorms folded into
+their convolutions, every weight in the compute dtype.
 """
 
 from __future__ import annotations
@@ -10,11 +12,10 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
-from torch import nn
 
 from ..config import Config
 from ..utils import profiling
-from .blocks import BatchNorm
+from .blocks import BatchNorm, FoldedModule, fold_layers
 from .hdn import HDNOutputs, HumanDetectionNet
 from .jln import JLNOutputs, JointLocalizationNet
 from .projection import make_projection_geometry, resolve_crop_route
@@ -57,7 +58,7 @@ def full_mean(values: torch.Tensor, global_sum: Optional[GlobalSum] = None) -> t
     return torch.sum(values) / count
 
 
-class FasterVoxelPoseNet(nn.Module):
+class FasterVoxelPoseNet(FoldedModule):
     # set only inside a data-parallel train step (`set_global_sum`)
     global_sum: Optional[GlobalSum] = None
 
@@ -77,6 +78,24 @@ class FasterVoxelPoseNet(nn.Module):
             cfg.NETWORK.NUM_CHANNEL_JOINT_HIDDEN,
             dtype=dtype, width=width, crop_route=resolve_crop_route(cfg),
         )
+
+    def fold(self, owner: Optional[int] = None) -> "FasterVoxelPoseNet":
+        """Prepare the served weights of CenterNet, C2CNet, P2PNet and
+        WeightNet from the live parameters and running statistics
+        (`blocks.fold_layers`: BatchNorms folded into their convolutions,
+        every weight in the compute dtype); outside train mode the folded
+        layers then run on them, train mode runs the unfolded forward.
+        Each fold is a set-up span `setup.fold` (label "fusion") of the
+        span log's service `owner` (kept for later refolds).  Returns the
+        module."""
+        if owner is not None:
+            self._fold_owner = owner
+        with profiling.SPANS.span("setup.fold", owner=self._fold_owner, label="fusion"), \
+                torch.inference_mode(False), torch.no_grad():
+            read = fold_layers(self)
+        self.folded = True
+        self._stamp(read)
+        return self
 
     def set_global_sum(self, fn: Optional[GlobalSum]) -> None:
         """Make the train-mode losses and every BatchNorm's statistics
@@ -99,6 +118,8 @@ class FasterVoxelPoseNet(nn.Module):
         with targets ('2d_heatmaps', '1d_heatmaps', 'index', 'bbox',
         'mask'), the losses are returned in `losses`."""
         J = self.cfg.DATASET.NUM_JOINTS
+        if not train:
+            self.serving(heatmaps)  # refolds first where a tensor moved
         heatmaps, cams = heatmaps.float(), cams.float()
         gt = meta if (train and meta) else {}
         hdn = self.hdn(heatmaps, cams, train, gt.get("roots_3d"), gt.get("bbox"),

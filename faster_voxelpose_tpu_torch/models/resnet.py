@@ -21,7 +21,8 @@ dtype, then ReLU (and the residual add), with no BatchNorm, no float32
 activation and no per-forward weight cast before the output conv.  On
 the card the conv + bias + ReLU and conv + bias + shortcut + ReLU run as
 cuDNN's fused `cudnn_convolution_relu` / `cudnn_convolution_add_relu`;
-elsewhere as the conv, then in-place `add_` and `relu_`.  Training, and
+elsewhere as the conv, then in-place `add_` and `relu_` (`blocks.conv_relu`,
+`blocks.conv_add_relu`, shared with the fusion nets' fold).  Training, and
 every module never folded, run the unfolded forward.
 """
 
@@ -36,33 +37,9 @@ from torch import nn
 from ..config import Config
 from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD, normalize_images_device
 from ..utils import profiling
-from .blocks import BatchNorm, Conv, Deconv, FoldedBackbone, fold_batchnorm
+from .blocks import (BatchNorm, Conv, Deconv, FoldedModule, conv_add_relu, conv_folded,
+                     conv_relu, fold_batchnorm, store_folded)
 from .faster_voxelpose import DTYPES
-
-
-def _conv(conv: Conv, x: torch.Tensor) -> torch.Tensor:
-    """conv's folded convolution of x, its bias added."""
-    return F.conv2d(conv.pad_same(x), conv.folded_weight, conv.folded_bias, conv.stride,
-                    conv.pad)
-
-
-def _conv_relu(conv: Conv, x: torch.Tensor) -> torch.Tensor:
-    """relu(conv's folded convolution of x): one cuDNN call on the card."""
-    if x.is_cuda:
-        return torch.cudnn_convolution_relu(
-            conv.pad_same(x), conv.folded_weight, conv.folded_bias, (conv.stride,) * 2,
-            (conv.pad,) * 2, (1, 1), 1)
-    return _conv(conv, x).relu_()
-
-
-def _conv_add_relu(conv: Conv, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """relu(conv's folded convolution of x + z), z the block's shortcut:
-    one cuDNN call on the card."""
-    if x.is_cuda:
-        return torch.cudnn_convolution_add_relu(
-            conv.pad_same(x), conv.folded_weight, z, 1.0, conv.folded_bias,
-            (conv.stride,) * 2, (conv.pad,) * 2, (1, 1), 1)
-    return _conv(conv, x).add_(z).relu_()
 
 
 class BasicBlock(nn.Module):
@@ -90,8 +67,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         if self.folded and not self.training:
-            identity = _conv(self.down_conv, x) if self.downsample else x
-            return _conv_add_relu(self.conv2, _conv_relu(self.conv1, x), identity)
+            identity = conv_folded(self.down_conv, x) if self.downsample else x
+            return conv_add_relu(self.conv2, conv_relu(self.conv1, x), identity)
         out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
         identity = self.down_bn(self.down_conv(x)) if self.downsample else x
         return F.relu(out + identity)
@@ -124,9 +101,9 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         if self.folded and not self.training:
-            out = _conv_relu(self.conv2, _conv_relu(self.conv1, x))
-            identity = _conv(self.down_conv, x) if self.downsample else x
-            return _conv_add_relu(self.conv3, out, identity)
+            out = conv_relu(self.conv2, conv_relu(self.conv1, x))
+            identity = conv_folded(self.down_conv, x) if self.downsample else x
+            return conv_add_relu(self.conv3, out, identity)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
@@ -143,7 +120,7 @@ RESNET_SPEC = {
 }
 
 
-class PoseResNet(FoldedBackbone):
+class PoseResNet(FoldedModule):
     """ResNet trunk + deconv upsampling + per-joint heatmap head, in
     inference: images (B, H, W, 3), normalised, any float dtype ->
     heatmaps (B, H/4, W/4, J) float32.
@@ -156,7 +133,7 @@ class PoseResNet(FoldedBackbone):
     `fold()` readies it for serving (the module docstring): the folded
     weights and biases are non-persistent buffers of the convs
     (`folded_weight`, `folded_bias`, channels-last, the compute dtype),
-    refolded as `blocks.FoldedBackbone` says."""
+    refolded as `blocks.FoldedModule` says."""
 
     def __init__(self, num_layers: int = 50, num_joints: int = 15,
                  deconv_filters: Sequence[int] = (256, 256, 256),
@@ -224,14 +201,8 @@ class PoseResNet(FoldedBackbone):
                 with torch.inference_mode(False), torch.no_grad():
                     w, b = fold_batchnorm(conv.weight, bn, conv.bias,
                                           out_dim=1 if isinstance(conv, Deconv) else 0)
-                    w = w.to(self.dtype).contiguous(memory_format=torch.channels_last)
-                    b = b.to(self.dtype)
-                if self.folded:
-                    conv.folded_weight.copy_(w)
-                    conv.folded_bias.copy_(b)
-                else:
-                    conv.register_buffer("folded_weight", w, persistent=False)
-                    conv.register_buffer("folded_bias", b, persistent=False)
+                    store_folded(conv, w.to(self.dtype).contiguous(
+                        memory_format=torch.channels_last), b.to(self.dtype))
         for m in (self, *(getattr(self, name) for name in self.stages)):
             m.folded = True
         self._stamp(t for conv, bn in pairs
@@ -251,7 +222,7 @@ class PoseResNet(FoldedBackbone):
         ReLU, then the max pool."""
         x = x.to(self.dtype)
         if self.folded and not self.training:
-            x = _conv_relu(self.conv1, x)
+            x = conv_relu(self.conv1, x)
         else:
             x = F.relu(self.bn1(self.conv1(x)))
         return F.max_pool2d(x, 3, 2, padding=1)
@@ -268,7 +239,7 @@ class PoseResNet(FoldedBackbone):
         return x
 
 
-def build_backbone(cfg: Config, device=None) -> FoldedBackbone:
+def build_backbone(cfg: Config, device=None) -> FoldedModule:
     """The backbone that `cfg.BACKBONE` names, in eval mode: 'resnet', a
     `PoseResNet` (RESNET, NUM_JOINTS, COMPUTE_DTYPE), drawn on the host;
     'vitpose', a `vitpose.ViTPose` (VIT, IMAGE_SIZE, NUM_JOINTS,
@@ -290,7 +261,7 @@ def build_backbone(cfg: Config, device=None) -> FoldedBackbone:
     ).eval()
 
 
-def images_to_heatmaps(backbone: FoldedBackbone, images: torch.Tensor,
+def images_to_heatmaps(backbone: FoldedModule, images: torch.Tensor,
                        color_rgb: bool) -> torch.Tensor:
     """Frames (B, V, ih, iw, 3) -> heatmaps (B, V, ih/4, iw/4, J) float32:
     uint8 frames are decoded BGR, normalised on their device (RGB when

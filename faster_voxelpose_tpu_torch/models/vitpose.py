@@ -32,7 +32,7 @@ inside torch's bf16 kernels, the residual stream in bf16.  For serving,
 `fold()` prepares every weight once in that dtype (the head's BatchNorms
 folded into its transposed convs by `blocks.fold_batchnorm`, the two
 position terms summed) into non-persistent buffers, so that no forward
-casts the parameters; refolds follow `blocks.FoldedBackbone`.  Training,
+casts the parameters; refolds follow `blocks.FoldedModule`.  Training,
 and a module never folded, cast the float32 parameters in each forward.
 """
 
@@ -48,7 +48,7 @@ from torch import nn
 from ..config import Config
 from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD
 from ..utils import profiling
-from .blocks import BatchNorm, Conv, Deconv, FoldedBackbone, fold_batchnorm
+from .blocks import BatchNorm, Conv, Deconv, FoldedModule, fold_batchnorm, store_folded
 from .faster_voxelpose import DTYPES
 from .resnet import PoseResNet
 
@@ -103,7 +103,7 @@ class Block(nn.Module):
         return x + F.linear(F.gelu(F.linear(h, *w(self.mlp.fc1))), *w(self.mlp.fc2))
 
 
-class ViTPose(FoldedBackbone):
+class ViTPose(FoldedModule):
     """ViTPose in inference: images (B, H, W, 3), normalised, any float
     dtype -> heatmaps (B, H/4, W/4, J) float32, at the frame size
     `image_size` (W, H) that the position embedding is drawn for.
@@ -189,16 +189,11 @@ class ViTPose(FoldedBackbone):
                 served.append((conv, w.to(dt).contiguous(memory_format=torch.channels_last),
                                b.to(dt)))
             pos = (self.pos_embed[:, 1:] + self.pos_embed[:, :1]).to(dt)
+            for m, w, b in served:
+                store_folded(m, w, b)
             if self.folded:
-                for m, w, b in served:
-                    m.folded_weight.copy_(w)
-                    if b is not None:
-                        m.folded_bias.copy_(b)
                 self.folded_pos.copy_(pos)
             else:
-                for m, w, b in served:
-                    m.register_buffer("folded_weight", w, persistent=False)
-                    m.register_buffer("folded_bias", b, persistent=False)
                 self.register_buffer("folded_pos", pos, persistent=False)
         self.folded = True
         self._stamp([self.pos_embed] + [t for m in self.cast_modules() for t in (m.weight, m.bias)]

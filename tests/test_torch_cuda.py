@@ -977,7 +977,8 @@ def test_service_refolds_a_reloaded_backbone_in_graph(dev):
         return svc
 
     def folds(svc):
-        return sum(s["name"] == "setup.fold" for s in svc.trace_summary()["setup"])
+        return sum(s["name"] == "setup.fold" and s["label"] == "backbone"
+                   for s in svc.trace_summary()["setup"])
 
     svc, fresh = service(0), service(1)
     graph = svc._compiled["images_u8"]
@@ -989,6 +990,178 @@ def test_service_refolds_a_reloaded_backbone_in_graph(dev):
     assert folds(svc) == 2 and svc._compiled["images_u8"] is graph
     _same_answers(after, [fresh.infer_images(f) for f in frames], tol=0.5)
     assert not np.allclose(before[0]["poses_mm"], after[0]["poses_mm"], rtol=0, atol=1.0)
+
+
+def _random_fusion(cfg, seed=0):
+    """The fusion model of cfg with seeded fan-in scaled weights and
+    random BatchNorm affine terms and statistics, in eval mode, on the
+    host; the same at every call."""
+    from faster_voxelpose_tpu_torch.models import build_model
+    from faster_voxelpose_tpu_torch.models.blocks import BatchNorm
+
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+        for p in model.parameters():
+            if p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / p[0].numel()) ** 0.5)
+    return model
+
+
+def _fusion_nets(model):
+    """Each fusion net of the model with a random input of the tiny
+    geometry's shapes (K = 4 proposals, 3 planes each)."""
+    gen = torch.Generator().manual_seed(5)
+    return {"center_net": (model.hdn.center_net, torch.rand(1, 16, 16, 8, 15, generator=gen)),
+            "c2c_net": (model.hdn.c2c_net, torch.rand(4, 15, 8, generator=gen)),
+            "p2p_net": (model.jln.p2p_net, torch.rand(12, 15, 16, 16, generator=gen)),
+            "weight_net": (model.jln.weight_net, torch.rand(12, 15, 16, 16, generator=gen))}
+
+
+def test_folded_fusion_cuda_matches_unfolded(dev):
+    """The fusion nets folded on the card (cuDNN's fused conv + bias +
+    ReLU and conv + bias + shortcut + ReLU, C2CNet's as 2D convs of unit
+    height), random BatchNorm statistics: each net in float32 with TF32
+    off within 1e-4 relative L2 of its unfolded CPU forward, and in bf16
+    within 2e-2 of it and about as far as the unfolded bf16 nets on the
+    card; the whole folded model replayed in a CUDA graph answers as its
+    eager forward (0.01 mm) and, in float32, as the unfolded forward on
+    the card (0.1 mm, the fold's reassociation through the soft-argmax)."""
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+
+    cfg = tiny_cfg()
+    cfg.CAPTURE_SPEC.MIN_SCORE = -1e9
+    cfg.INDIVIDUAL_SPEC.SPACE_SIZE = (2100.0,) * 3  # no crop-origin ties
+    cpu = _random_fusion(cfg)
+
+    def on_card(dtype, fold):
+        c = tiny_cfg()
+        c.CAPTURE_SPEC.MIN_SCORE, c.INDIVIDUAL_SPEC.SPACE_SIZE = -1e9, (2100.0,) * 3
+        c.NETWORK.COMPUTE_DTYPE = dtype
+        m = _random_fusion(c).to(dev)
+        return m.fold() if fold else m
+
+    models = {(dt, fold): on_card(dt, fold) for dt in ("float32", "bfloat16")
+              for fold in (False, True)}
+    with torch.inference_mode():
+        for name, (net, x) in _fusion_nets(cpu).items():
+            ref = net(x)
+            got = {k: _fusion_nets(m)[name][0](x.to(dev)) for k, m in models.items()}
+            for i, r in enumerate(ref if isinstance(ref, tuple) else (ref,)):
+                r = r.double()
+
+                def rel(k):
+                    out = got[k][i] if isinstance(ref, tuple) else got[k]
+                    assert out.dtype == torch.float32
+                    return float((out.cpu().double() - r).norm() / r.norm())
+
+                assert rel(("float32", True)) <= 1e-4, (name, i, rel(("float32", True)))
+                rel_h, rel_uh = rel(("bfloat16", True)), rel(("bfloat16", False))
+                assert rel_h <= 2e-2 and rel_h <= 2 * rel_uh + 1e-3, (name, i, rel_h, rel_uh)
+    frames = torch.as_tensor(_tiny_frames(1), device=dev)
+    rig = torch.as_tensor(dome_rig(1, 3, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
+                                   ori_image_size=(320, 240), focal=240.0), device=dev)
+    for dt in ("float32", "bfloat16"):
+        folded, out = models[(dt, True)], {}
+        replay = _captured(lambda: out.update(static=folded(frames, rig).fused_poses))
+        with torch.inference_mode():
+            eager = folded(frames, rig).fused_poses
+        replay()
+        torch.cuda.synchronize(dev)
+        static = out["static"]
+        assert bool((static[..., 3] >= 0).all())
+        assert float((static - eager).abs().max()) <= 0.01
+        if dt == "float32":
+            with torch.inference_mode():
+                want = models[(dt, False)](frames, rig).fused_poses
+            assert float((static - want).abs().max()) <= 0.1
+
+
+def test_service_refolds_reloaded_fusion_weights_in_graph(dev):
+    """Fusion weights loaded in place after the captured heatmaps graph's
+    fold: the next request's check, made while the card replays, finds
+    the moved version counters, refolds into the buffers the graph reads
+    and replays again (no recapture); the answers are a service's captured
+    with those weights (0.01 mm, float32); one `setup.fold` labelled
+    "fusion" after set-up, none for a request that changes nothing, two
+    after the reload."""
+    def folds(svc):
+        return sum(s["name"] == "setup.fold" and s["label"] == "fusion"
+                   for s in svc.trace_summary()["setup"])
+
+    svc, fresh = _tiny_service(dev), _tiny_service(dev, aot=False)
+    other = _random_fusion(fresh.cfg, seed=1)
+    fresh.model.load_state_dict(other.state_dict())
+    fresh.warmup()
+    graph = svc._compiled["heatmaps"]
+    assert svc.stats()["fusion_folded"] and folds(svc) == 1
+    frames = _tiny_frames(3, seed=5)
+    before = [svc.infer_heatmaps(f) for f in frames]
+    assert folds(svc) == 1
+    svc.model.load_state_dict(other.state_dict())
+    after = [svc.infer_heatmaps(f) for f in frames]
+    assert folds(svc) == 2 and svc._compiled["heatmaps"] is graph
+    _same_answers(after, [fresh.infer_heatmaps(f) for f in frames])
+    assert not np.allclose(before[0]["poses_mm"], after[0]["poses_mm"], rtol=0, atol=1.0)
+
+
+def _captured(fn):
+    """fn captured in a CUDA graph after 3 eager calls on a side stream;
+    the graph's replay."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode():
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.inference_mode(), torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def _kernel_names(replay, n=3):
+    """The names of the kernels that n calls of replay launch
+    (torch.profiler, device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_heatmaps_graph_launches_no_batch_norm(dev):
+    """The service's captured heatmaps graph, which runs the folded
+    fusion, launches no BatchNorm kernel (cuDNN's `bn_fw_inf`, or
+    PyTorch's own); the same model unfolded, captured alike, does, which
+    shows that the profiler sees a graph's kernels."""
+    from faster_voxelpose_tpu_torch.engine import graphs
+    from faster_voxelpose_tpu_torch.models import build_model
+
+    svc = _tiny_service(dev)
+    g = svc._compiled["heatmaps"]
+    assert svc.stats()["fusion_folded"] and g is not None
+    g.input.copy_(torch.as_tensor(_tiny_frames(1), device=dev))
+
+    def is_bn(name):
+        return "bn_fw" in name or "batch_norm" in name.lower() or "batchnorm" in name.lower()
+
+    served = _kernel_names(lambda: graphs.replay(g.captured))
+    assert any("crop_kernel" in n for n in served) and any("whole_kernel" in n for n in served)
+    assert not [n for n in served if is_bn(n)]
+    unfolded = build_model(svc.cfg)
+    unfolded.load_state_dict(svc.model.state_dict())
+    unfolded = unfolded.to(dev)
+    assert [n for n in _kernel_names(_captured(lambda: unfolded(g.input, svc._rig))) if is_bn(n)]
 
 
 def _train_setup(dev, n_batches, B=2, seed=0):

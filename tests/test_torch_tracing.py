@@ -105,7 +105,7 @@ def test_ids_unique_and_parents(log):
             pass
     spans = log.spans()
     ids = [s[0] for s in spans]
-    assert len(ids) == len(set(ids)) == 2 * 6 + 4
+    assert len(ids) == len(set(ids)) == 2 * 6 + 5  # the set-up spans with the fusion's fold
     by_id = {s[0]: s for s in spans}
     for s in spans:
         if s[2].startswith("service.") and s[2] != "service.request":
@@ -181,7 +181,7 @@ def test_switch_off_records_nothing(log):
     assert log.written == 0 and log.setup_written == 0 and log.spans() == []
     assert all(a["latency_ms"] > 0 for a in answers)
     assert svc.stats() == {"requests": 2, "random_init": True, "backbone_random_init": True,
-                           "backbone_folded": False}
+                           "backbone_folded": False, "fusion_folded": True}
 
 
 def test_switch_reads_the_environment(monkeypatch):
@@ -248,7 +248,7 @@ def test_trace_summary_and_the_serve_command(log):
     assert list(s["device"]) == list(profiling.DEVICE_INTERVALS)
     assert all(v == {"count": 0} for v in s["device"].values())
     assert s["counters"] == {"jln.slots": 12, "jln.people": sum(a["n_people"] for a in answers)}
-    assert [x["name"] for x in s["setup"]] == ["setup.build", "setup.capture"]
+    assert [x["name"] for x in s["setup"]] == ["setup.build", "setup.fold", "setup.capture"]
     assert s["spans"]["service.request"]["p50_ms"] == pytest.approx(svc.stats()["p50_ms"],
                                                                     abs=1e-3)
     assert serve.handle(svc, {"cmd": "trace"}) == s
@@ -260,7 +260,7 @@ def test_trace_summary_and_the_serve_command(log):
 def test_stats_with_no_requests(log):
     svc = _cpu_service()
     assert svc.stats() == {"requests": 0, "random_init": True, "backbone_random_init": True,
-                           "backbone_folded": False}
+                           "backbone_folded": False, "fusion_folded": False}
 
 
 class _FakeEvent:

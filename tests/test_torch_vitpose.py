@@ -204,7 +204,7 @@ def test_service_serves_the_vitpose(tiny):
         np.testing.assert_allclose(got["scores"], fused[valid][:, 0, 4], atol=1e-4)
         np.testing.assert_allclose(got["poses_mm"], fused[valid][:, :, :3], atol=0.1)
     folds = [s for s in svc.trace_summary()["setup"] if s["name"] == "setup.fold"]
-    assert [s["label"] for s in folds] == ["vitpose"]
+    assert [s["label"] for s in folds] == ["fusion", "vitpose"]  # the model's, the backbone's
 
 
 def test_flax_backbone_variables_with_a_vitpose_raise():
