@@ -17,17 +17,16 @@ device.
   input of another shape, or a graph not captured, runs the same forward
   eagerly, on the same kernels.
 - **Folded weights.**  Every graph runs the fusion model with its
-  served weights prepared once (`FasterVoxelPoseNet.fold`: the fusion
-  nets' BatchNorms folded into their convolutions, every weight cast to
-  the compute dtype), and the image graphs run the backbone so too (a
-  Pose-ResNet's BatchNorms folded into its convolutions; a ViTPose's
-  weights cast and its head's BatchNorms folded), each folded before it
-  first runs (a graph's warm-up, or the first eager request).  On each
-  request the host compares the version counters of the tensors each
-  fold read with those at its last fold and, where one moved, refolds
-  into the same buffers, which the captured graph reads
-  (`blocks.FoldedModule`): in an eager forward, and while the card runs
-  a replay, which is then replayed again after a refold (`_run`).
+  served weights prepared once, and the image graphs run the backbone so
+  too, both by the one `blocks.FoldedModule.fold`: every BatchNorm
+  folded into the convolution before it, every weight cast to the
+  compute dtype.  Each is folded before it first runs (a graph's
+  warm-up, or the first eager request).  On each request the host
+  compares the version counters of the tensors each fold read with
+  those at its last fold and, where one moved, refolds into the same
+  buffers, which the captured graph reads (`blocks.FoldedModule`): in an
+  eager forward, and once a graph's replay is launched, while the card
+  runs it, which is then replayed again after a refold (`_run`).
 - **Camera-rig hot-swap.** Every graph reads one static rig tensor;
   `set_rig` copies the new calibration into it, so a swap costs one
   host->device copy and no recapture.
@@ -120,6 +119,10 @@ class PoseService:
     aot : on a CUDA device, capture the default graphs at construction
         (`warmup()`), as the JAX service compiles them; on the CPU
         construction runs no forward
+
+    The model and the backbone are served folded, each by
+    `blocks.FoldedModule.fold` at its first use (`setup.fold` spans
+    labelled "fusion", and "backbone" or "vitpose").
     """
 
     def __init__(self, cfg, variables: Optional[Mapping] = None,

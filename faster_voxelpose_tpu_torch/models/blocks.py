@@ -10,23 +10,29 @@ running statistics when false, batch statistics (and a running-statistics
 update) when true.  Module and parameter names follow the flax modules, so
 that `weights.from_jax_variables` maps the flax paths mechanically.
 
-For serving, a `FoldedModule` prepares its layers' weights once
-(`fold_layers`): each BatchNorm folded into the conv before it
-(`fold_batchnorm`), every weight cast to the compute dtype.  A folded
-layer outside train mode (`runs_folded`) runs on those: each conv with its
+For serving, every served module (the fusion model, the Pose-ResNet and
+the ViTPose) is a `FoldedModule`, and its one `FoldedModule.fold`
+prepares its layers' weights once (`fold_layers`): each BatchNorm folded
+into the conv before it (`fold_batchnorm`; the pairs each block declares
+in `FOLD_PAIRS`), every weight cast to the compute dtype.  A folded layer
+outside train mode (`runs_folded`) runs on those: each conv with its
 bias, and its ReLU (`conv_relu`) or its block's shortcut and ReLU
 (`conv_add_relu`), as one cuDNN call on the card and as the conv, then
 in-place `add_` and `relu_`, elsewhere; no BatchNorm, no float32
-activation and no per-forward weight cast before a `float32_out` layer.
+activation and no per-forward weight cast.  `HeatmapBackbone` is the
+deconv heatmap head that both 2D backbones end in.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD
+from ..utils import profiling
 
 _CONV = {1: F.conv1d, 2: F.conv2d}
 _DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
@@ -202,6 +208,12 @@ def conv_folded(conv: "Conv", x: torch.Tensor) -> torch.Tensor:
                             conv.pad)
 
 
+def deconv_folded(deconv: "Deconv", x: torch.Tensor) -> torch.Tensor:
+    """deconv's folded transposed convolution of x, its bias added."""
+    return _DECONV[deconv.rank](x, deconv.folded_weight, deconv.folded_bias, deconv.stride,
+                                deconv.pad)
+
+
 def _cudnn_operands(conv: "Conv", x: torch.Tensor):
     """(x, weight, stride, padding) of conv's folded convolution as
     cuDNN's fused ops take them, in 2D: a rank-1 conv as one of unit
@@ -248,17 +260,19 @@ def store_folded(layer: nn.Module, weight: torch.Tensor, bias: Optional[torch.Te
 
 
 def fold_layers(module: nn.Module) -> List[torch.Tensor]:
-    """Prepare the served weights of every conv, transposed conv and
-    linear layer under `module` from its live parameters: its weight and
-    bias with the BatchNorm after it folded in (`fold_batchnorm`, in
-    float32; each block names its pairs in `FOLD_PAIRS`, (layer,
-    BatchNorm) attribute names), rounded to the layer's compute dtype and
-    kept in its output dtype (float32 for a `float32_out` layer), 2D
-    kernels channels-last, as `store_folded` keeps them; then the layer's
-    forward runs on them outside train mode (`runs_folded`).  Returns the
-    tensors the fold read.  Run it under `torch.no_grad()`, and outside
-    inference mode, so that a refold outside it can write into the
-    buffers."""
+    """Prepare the served weights of every layer under `module` from its
+    live parameters: each conv, transposed conv and linear layer, its
+    weight and bias with the BatchNorm after it folded in (`fold_batchnorm`,
+    in float32; each block names its pairs in `FOLD_PAIRS`, (layer,
+    BatchNorm) attribute names, and a name the block lacks is skipped),
+    rounded to the layer's compute dtype and kept in its output dtype
+    (float32 for a `float32_out` layer); torch's own `nn.Conv2d`,
+    `nn.Linear` and `nn.LayerNorm` (a transformer's trunk) rounded to
+    `module.dtype`.  4D kernels are channels-last, kept as `store_folded`
+    keeps them; then the layer's forward runs on them outside train mode
+    (`runs_folded`).  Returns the tensors the fold read.  Run it under
+    `torch.no_grad()`, and outside inference mode, so that a refold
+    outside it can write into the buffers."""
     bn_after = {}
     for m in module.modules():
         for layer, bn in getattr(m, "FOLD_PAIRS", ()):
@@ -266,16 +280,20 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
                 bn_after[getattr(m, layer)] = getattr(m, bn)
     read = []
     for layer in module.modules():
-        if not isinstance(layer, (Conv, Deconv, Dense)):
+        if isinstance(layer, (Conv, Deconv, Dense)):
+            dt = layer.dtype
+        elif isinstance(layer, (nn.Conv2d, nn.Linear, nn.LayerNorm)):
+            dt = module.dtype
+        else:
             continue
         w, b, bn = layer.weight, layer.bias, bn_after.get(layer)
         if bn is not None:
             w, b = fold_batchnorm(w, bn, b, out_dim=1 if isinstance(layer, Deconv) else 0)
-        out = getattr(layer, "out_dtype", layer.dtype)
-        w = w.to(layer.dtype, copy=True).to(out)
+        out = getattr(layer, "out_dtype", dt)
+        w = w.to(dt, copy=True).to(out)
         if w.ndim == 4:
             w = w.contiguous(memory_format=torch.channels_last)
-        store_folded(layer, w, None if b is None else b.to(layer.dtype, copy=True).to(out))
+        store_folded(layer, w, None if b is None else b.to(dt, copy=True).to(out))
         layer.folded = True
         read += layer._parameters.values()
         if bn is not None:
@@ -290,15 +308,16 @@ def _unstamp(module: "FoldedModule", *_) -> None:
 
 class FoldedModule(nn.Module):
     """A module that serves weights prepared once in its compute dtype
-    (`fold`, the subclass's: BatchNorms folded into the convolutions
-    before them, weights cast), in non-persistent buffers, so that
-    `state_dict()` keeps its keys.  A folded module in eval mode checks
-    before each forward whether a tensor the fold read has changed since
-    (`sync_fold`) and then refolds into the same buffers; inside a CUDA
-    graph capture it does not check, so the capture launches nothing of
-    the fold's, and the graph's owner checks before each replay."""
+    (`fold`: BatchNorms folded into the convolutions before them, weights
+    cast), in non-persistent buffers, so that `state_dict()` keeps its
+    keys.  A folded module in eval mode checks before each forward whether
+    a tensor the fold read has changed since (`sync_fold`) and then
+    refolds into the same buffers; inside a CUDA graph capture it does not
+    check, so the capture launches nothing of the fold's, and the graph's
+    owner checks before each replay."""
 
     folded = False
+    FOLD_LABEL = ""  # the label of its `setup.fold` spans
 
     def __init__(self):
         super().__init__()
@@ -308,14 +327,32 @@ class FoldedModule(nn.Module):
         self.register_load_state_dict_post_hook(_unstamp)
 
     def fold(self, owner: Optional[int] = None) -> "FoldedModule":
-        raise NotImplementedError
-
-    def _stamp(self, tensors: Iterable[Optional[torch.Tensor]]) -> None:
-        """Keep the tensors the fold read and their version counters.
-        Inference tensors (made under torch.inference_mode) keep no
-        version counter: only a reload refolds from those."""
-        self._fold_tensors = [t for t in tensors if t is not None and not t.is_inference()]
+        """Prepare the served weights from the live parameters and running
+        statistics (`fold_layers`, then `fold_extra`); outside train mode
+        the folded layers then run on them, train mode runs the unfolded
+        forward.  A refold copies into the buffers of the first fold, so a
+        CUDA graph that reads them sees it.  Each fold is a set-up span
+        `setup.fold` (label `FOLD_LABEL`) of the span log's service `owner`
+        (kept for later refolds).  Keeps the tensors the fold read and
+        their version counters; inference tensors (made under
+        torch.inference_mode) keep no version counter: only a reload
+        refolds from those.  Returns the module."""
+        if owner is not None:
+            self._fold_owner = owner
+        # ordinary tensors even under inference mode, so that a refold
+        # outside it can write into them
+        with profiling.SPANS.span("setup.fold", owner=self._fold_owner, label=self.FOLD_LABEL), \
+                torch.inference_mode(False), torch.no_grad():
+            read = fold_layers(self) + self.fold_extra()
+        self.folded = True
+        self._fold_tensors = [t for t in read if t is not None and not t.is_inference()]
         self._fold_stamp = [t._version for t in self._fold_tensors]
+        return self
+
+    def fold_extra(self) -> List[torch.Tensor]:
+        """What the fold prepares besides its layers' weights, inside the
+        fold's span and modes; returns the tensors it read."""
+        return []
 
     def sync_fold(self) -> bool:
         """Refold where a tensor the fold read has changed since: an
@@ -431,8 +468,7 @@ class UpsampleBlock(nn.Module):
     def forward(self, x, train: bool = False):
         d = self.deconv
         if runs_folded(d, train):
-            return _DECONV[d.rank](x.to(d.dtype), d.folded_weight, d.folded_bias, stride=d.stride,
-                                   padding=d.pad).relu_()
+            return deconv_folded(d, x.to(d.dtype)).relu_()
         return F.relu(self.bn(d(x), train))
 
 
@@ -479,3 +515,49 @@ class UNetFront(nn.Module):
     def forward(self, x, train: bool = False):
         return self.front_res(self.front_basic(x, train), train)
 
+
+
+class HeatmapBackbone(FoldedModule):
+    """A 2D backbone: images (B, H, W, 3), normalised, any float dtype ->
+    heatmaps (B, H/4, W/4, J) float32, through the subclass's trunk and
+    the Simple-Baselines head that the Pose-ResNet and the ViTPose end in
+    (`build_head`): 4x4 stride-2 transposed convs `deconv{i}`, each with
+    its BatchNorm `deconv_bn{i}` and ReLU, then the output conv `final`,
+    whose sums are float32 (`Conv`, `float32_out`), folded as every other
+    layer.  The head's layers are the backbone's own attributes, so that
+    their state-dict keys are the flax and upstream names.  It also holds
+    the normalisation of uint8 frames (`image_mean`, `image_std`) on its
+    device, so that `resnet.images_to_heatmaps` copies nothing from the
+    host."""
+
+    FOLD_PAIRS = ()  # the trunk's; `build_head` adds the head's
+
+    def build_head(self, cin: int, filters: Sequence[int], with_bias: bool, num_joints: int,
+                   final_kernel: int, dtype: torch.dtype) -> None:
+        """The head on cin channels (the deconvs, then `final`, drawn in
+        that order) and the normalisation buffers."""
+        self.num_deconv = len(filters)
+        for i, f in enumerate(filters, 1):
+            setattr(self, f"deconv{i}", Deconv(cin, f, 4, 2, 1, 2, with_bias, dtype))
+            setattr(self, f"deconv_bn{i}", BatchNorm(f, dtype))
+            cin = f
+        self.FOLD_PAIRS = self.FOLD_PAIRS + tuple(
+            (f"deconv{i}", f"deconv_bn{i}") for i in range(1, self.num_deconv + 1))
+        self.final = Conv(cin, num_joints, final_kernel, dtype=dtype, float32_out=True,
+                          padding=(final_kernel - 1) // 2)
+        self.register_buffer("image_mean", torch.as_tensor(IMAGENET_MEAN), persistent=False)
+        self.register_buffer("image_std", torch.as_tensor(IMAGENET_STD), persistent=False)
+
+    def upsample(self, x: torch.Tensor) -> torch.Tensor:
+        """The transposed convs, each with its BatchNorm and ReLU."""
+        for i in range(1, self.num_deconv + 1):
+            deconv = getattr(self, f"deconv{i}")
+            if runs_folded(deconv, False):
+                x = deconv_folded(deconv, x).relu_()
+            else:
+                x = F.relu(getattr(self, f"deconv_bn{i}")(deconv(x)))
+        return x
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Heatmaps (B, H, W, J) float32 of the trunk's features x (NCHW)."""
+        return self.final(self.upsample(x)).float().permute(0, 2, 3, 1)

@@ -6,7 +6,7 @@ takes `train` and passes it to its layers.  Each head's last layer,
 whose result the JAX package casts to float32 at once, returns its
 float32 sums of the rounded operands (`blocks.Conv`, `float32_out`): one
 rule for all five, folded or not (`blocks.FoldedModule`; the model folds
-them, `FasterVoxelPoseNet.fold`).
+them, `FoldedModule.fold`).
 """
 
 from __future__ import annotations

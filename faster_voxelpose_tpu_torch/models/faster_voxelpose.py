@@ -2,9 +2,11 @@
 `faster_voxelpose_tpu/models/faster_voxelpose.py`, reference
 faster_voxelpose.py:18-105): HDN then JLN on heatmaps and a packed rig,
 with the same `ModelOutputs` layout, and in train mode the four-term
-training loss.  For serving, `FasterVoxelPoseNet.fold()` prepares the
-fusion nets' weights once (`blocks.FoldedModule`): BatchNorms folded into
-their convolutions, every weight in the compute dtype.
+training loss.  For serving, `FoldedModule.fold()` (label "fusion", as
+every served module's: `blocks.fold_layers`) prepares the weights of
+CenterNet, C2CNet, P2PNet and WeightNet once: BatchNorms folded into
+their convolutions, every weight in the compute dtype; outside train
+mode the folded layers then run on them.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from ..config import Config
 from ..utils import profiling
-from .blocks import BatchNorm, FoldedModule, fold_layers
+from .blocks import BatchNorm, FoldedModule
 from .hdn import HDNOutputs, HumanDetectionNet
 from .jln import JLNOutputs, JointLocalizationNet
 from .projection import make_projection_geometry, resolve_crop_route
@@ -59,6 +61,7 @@ def full_mean(values: torch.Tensor, global_sum: Optional[GlobalSum] = None) -> t
 
 
 class FasterVoxelPoseNet(FoldedModule):
+    FOLD_LABEL = "fusion"
     # set only inside a data-parallel train step (`set_global_sum`)
     global_sum: Optional[GlobalSum] = None
 
@@ -78,24 +81,6 @@ class FasterVoxelPoseNet(FoldedModule):
             cfg.NETWORK.NUM_CHANNEL_JOINT_HIDDEN,
             dtype=dtype, width=width, crop_route=resolve_crop_route(cfg),
         )
-
-    def fold(self, owner: Optional[int] = None) -> "FasterVoxelPoseNet":
-        """Prepare the served weights of CenterNet, C2CNet, P2PNet and
-        WeightNet from the live parameters and running statistics
-        (`blocks.fold_layers`: BatchNorms folded into their convolutions,
-        every weight in the compute dtype); outside train mode the folded
-        layers then run on them, train mode runs the unfolded forward.
-        Each fold is a set-up span `setup.fold` (label "fusion") of the
-        span log's service `owner` (kept for later refolds).  Returns the
-        module."""
-        if owner is not None:
-            self._fold_owner = owner
-        with profiling.SPANS.span("setup.fold", owner=self._fold_owner, label="fusion"), \
-                torch.inference_mode(False), torch.no_grad():
-            read = fold_layers(self)
-        self.folded = True
-        self._stamp(read)
-        return self
 
     def set_global_sum(self, fn: Optional[GlobalSum]) -> None:
         """Make the train-mode losses and every BatchNorm's statistics

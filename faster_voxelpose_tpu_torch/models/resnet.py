@@ -14,38 +14,47 @@ state dict.  The 3x3 convs pad as flax's padding="SAME" does: at stride
 (1, 1), so on even sides the JAX package's backbone, and this one with
 it, is not the upstream network (`blocks.same_pads`).
 
-For serving, `PoseResNet.fold()` folds every BatchNorm into the
-convolution before it (`blocks.fold_batchnorm`): in eval mode a folded
+For serving, `FoldedModule.fold()` (label "backbone", as every served
+module's: `blocks.fold_layers`) folds every BatchNorm into the
+convolution before it (`blocks.fold_batchnorm`; the pairs each block
+declares in `FOLD_PAIRS`) and casts `final` once: in eval mode a folded
 module runs each conv with its folded weight and bias in the compute
 dtype, then ReLU (and the residual add), with no BatchNorm, no float32
-activation and no per-forward weight cast before the output conv.  On
-the card the conv + bias + ReLU and conv + bias + shortcut + ReLU run as
-cuDNN's fused `cudnn_convolution_relu` / `cudnn_convolution_add_relu`;
-elsewhere as the conv, then in-place `add_` and `relu_` (`blocks.conv_relu`,
-`blocks.conv_add_relu`, shared with the fusion nets' fold).  Training, and
-every module never folded, run the unfolded forward.
+activation and no per-forward weight cast.  On the card the conv + bias +
+ReLU and conv + bias + shortcut + ReLU run as cuDNN's fused
+`cudnn_convolution_relu` / `cudnn_convolution_add_relu`; elsewhere as the
+conv, then in-place `add_` and `relu_` (`blocks.conv_relu`,
+`blocks.conv_add_relu`, shared with the fusion nets).  The deconv head
+and the output conv are `blocks.HeatmapBackbone`'s, shared with the
+ViTPose.  Training, and every module never folded, run the unfolded
+forward.
+
+`build_backbone` builds the backbone that a config names, this one or
+the ViTPose (`vitpose.py`), and `images_to_heatmaps` runs either on
+frames.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
-from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD, normalize_images_device
-from ..utils import profiling
-from .blocks import (BatchNorm, Conv, Deconv, FoldedModule, conv_add_relu, conv_folded,
-                     conv_relu, fold_batchnorm, store_folded)
+from ..datasets.images import normalize_images_device
+from .blocks import (BatchNorm, Conv, HeatmapBackbone, conv_add_relu, conv_folded, conv_relu,
+                     runs_folded)
 from .faster_voxelpose import DTYPES
+from .vitpose import build_vitpose
 
 
 class BasicBlock(nn.Module):
     """2-conv residual block (ResNet-18/34)."""
 
     expansion = 1
+    FOLD_PAIRS = (("conv1", "bn1"), ("conv2", "bn2"), ("down_conv", "down_bn"))
 
     def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -59,14 +68,8 @@ class BasicBlock(nn.Module):
             self.down_conv = Conv(cin, planes, 1, dtype=dtype, stride=stride, use_bias=False)
             self.down_bn = BatchNorm(planes, dtype)
 
-    folded = False  # set by PoseResNet.fold
-
-    def fold_pairs(self) -> List[Tuple[Conv, BatchNorm]]:
-        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2)]
-        return pairs + [(self.down_conv, self.down_bn)] if self.downsample else pairs
-
     def forward(self, x):
-        if self.folded and not self.training:
+        if runs_folded(self.conv1, False):
             identity = conv_folded(self.down_conv, x) if self.downsample else x
             return conv_add_relu(self.conv2, conv_relu(self.conv1, x), identity)
         out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
@@ -78,6 +81,8 @@ class Bottleneck(nn.Module):
     """1-3-1 bottleneck block (ResNet-50/101/152), the stride on the 3x3."""
 
     expansion = 4
+    FOLD_PAIRS = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+                  ("down_conv", "down_bn"))
 
     def __init__(self, cin: int, planes: int, stride: int = 1, downsample: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -93,14 +98,8 @@ class Bottleneck(nn.Module):
             self.down_conv = Conv(cin, planes * 4, 1, dtype=dtype, stride=stride, use_bias=False)
             self.down_bn = BatchNorm(planes * 4, dtype)
 
-    folded = False  # set by PoseResNet.fold
-
-    def fold_pairs(self) -> List[Tuple[Conv, BatchNorm]]:
-        pairs = [(self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)]
-        return pairs + [(self.down_conv, self.down_bn)] if self.downsample else pairs
-
     def forward(self, x):
-        if self.folded and not self.training:
+        if runs_folded(self.conv1, False):
             out = conv_relu(self.conv2, conv_relu(self.conv1, x))
             identity = conv_folded(self.down_conv, x) if self.downsample else x
             return conv_add_relu(self.conv3, out, identity)
@@ -120,10 +119,10 @@ RESNET_SPEC = {
 }
 
 
-class PoseResNet(FoldedModule):
-    """ResNet trunk + deconv upsampling + per-joint heatmap head, in
-    inference: images (B, H, W, 3), normalised, any float dtype ->
-    heatmaps (B, H/4, W/4, J) float32.
+class PoseResNet(HeatmapBackbone):
+    """ResNet trunk + deconv upsampling + per-joint heatmap head
+    (`blocks.HeatmapBackbone`), in inference: images (B, H, W, 3),
+    normalised, any float dtype -> heatmaps (B, H/4, W/4, J) float32.
 
     A fresh module is a random backbone drawn from torch's generator: the
     trunk's convs Kaiming-normal (fan out, as torchvision's ResNet), the
@@ -134,6 +133,9 @@ class PoseResNet(FoldedModule):
     weights and biases are non-persistent buffers of the convs
     (`folded_weight`, `folded_bias`, channels-last, the compute dtype),
     refolded as `blocks.FoldedModule` says."""
+
+    FOLD_LABEL = "backbone"
+    FOLD_PAIRS = (("conv1", "bn1"),)
 
     def __init__(self, num_layers: int = 50, num_joints: int = 15,
                  deconv_filters: Sequence[int] = (256, 256, 256),
@@ -156,58 +158,12 @@ class PoseResNet(FoldedModule):
                 inplanes = planes * block_cls.expansion
         if any(k != 4 for k in deconv_kernels):
             raise ValueError(f"only kernel-4 deconvs are supported, got {tuple(deconv_kernels)}")
-        self.num_deconv = len(deconv_filters)
-        for i, f in enumerate(deconv_filters):
-            setattr(self, f"deconv{i + 1}", Deconv(inplanes, f, 4, 2, 1, 2, deconv_with_bias, dtype))
-            setattr(self, f"deconv_bn{i + 1}", BatchNorm(f, dtype))
-            inplanes = f
-        # a head whose result is cast to float32 at once: float32 sums, as
-        # for the fusion nets' heads (blocks.Conv, `float32_out`)
-        self.final = Conv(inplanes, num_joints, final_conv_kernel, dtype=dtype,
-                          float32_out=True, padding=(final_conv_kernel - 1) // 2)
+        self.build_head(inplanes, deconv_filters, deconv_with_bias, num_joints, final_conv_kernel,
+                        dtype)
         with torch.no_grad():
             for name, m in self.named_modules():
                 if isinstance(m, Conv) and name != "final":
                     nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
-        # the normalisation of uint8 frames (images_to_heatmaps), on the
-        # module's device, so that it copies nothing from the host
-        self.register_buffer("image_mean", torch.as_tensor(IMAGENET_MEAN), persistent=False)
-        self.register_buffer("image_std", torch.as_tensor(IMAGENET_STD), persistent=False)
-
-    def fold_pairs(self) -> List[Tuple[nn.Module, BatchNorm]]:
-        """(conv or transposed conv, the BatchNorm after it) of every pair
-        the fold merges; `final` has no BatchNorm and is not folded."""
-        pairs: List[Tuple[nn.Module, BatchNorm]] = [(self.conv1, self.bn1)]
-        for name in self.stages:
-            pairs += getattr(self, name).fold_pairs()
-        return pairs + [(getattr(self, f"deconv{i}"), getattr(self, f"deconv_bn{i}"))
-                        for i in range(1, self.num_deconv + 1)]
-
-    def fold(self, owner: Optional[int] = None) -> "PoseResNet":
-        """Fold each BatchNorm into the convolution before it
-        (`blocks.fold_batchnorm`, in float32 from the live parameters and
-        running statistics), stored once in the compute dtype; a refold
-        copies into the buffers of the first fold, so a CUDA graph that
-        reads them sees it.  Each fold is a set-up span `setup.fold`
-        (label "backbone") of the span log's service `owner` (kept for
-        later refolds).  Returns the module."""
-        if owner is not None:
-            self._fold_owner = owner
-        pairs = self.fold_pairs()
-        with profiling.SPANS.span("setup.fold", owner=self._fold_owner, label="backbone"):
-            for conv, bn in pairs:
-                # ordinary tensors even under inference mode, so that a
-                # refold outside it can write into them
-                with torch.inference_mode(False), torch.no_grad():
-                    w, b = fold_batchnorm(conv.weight, bn, conv.bias,
-                                          out_dim=1 if isinstance(conv, Deconv) else 0)
-                    store_folded(conv, w.to(self.dtype).contiguous(
-                        memory_format=torch.channels_last), b.to(self.dtype))
-        for m in (self, *(getattr(self, name) for name in self.stages)):
-            m.folded = True
-        self._stamp(t for conv, bn in pairs
-                    for d in (conv._parameters, bn._parameters, bn._buffers) for t in d.values())
-        return self
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)
@@ -215,31 +171,20 @@ class PoseResNet(FoldedModule):
         x = self.stem(x)
         for name in self.stages:
             x = getattr(self, name)(x)
-        return self.final(self.upsample(x)).float().permute(0, 2, 3, 1)
+        return self.head(x)
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """Images (NCHW) cast to the compute dtype, through conv1, bn1 and
         ReLU, then the max pool."""
         x = x.to(self.dtype)
-        if self.folded and not self.training:
+        if runs_folded(self.conv1, False):
             x = conv_relu(self.conv1, x)
         else:
             x = F.relu(self.bn1(self.conv1(x)))
         return F.max_pool2d(x, 3, 2, padding=1)
 
-    def upsample(self, x: torch.Tensor) -> torch.Tensor:
-        """The transposed convs, each with its BatchNorm and ReLU."""
-        for i in range(1, self.num_deconv + 1):
-            deconv = getattr(self, f"deconv{i}")
-            if self.folded and not self.training:
-                x = F.conv_transpose2d(x, deconv.folded_weight, deconv.folded_bias,
-                                       deconv.stride, deconv.pad).relu_()
-            else:
-                x = F.relu(getattr(self, f"deconv_bn{i}")(deconv(x)))
-        return x
 
-
-def build_backbone(cfg: Config, device=None) -> FoldedModule:
+def build_backbone(cfg: Config, device=None) -> HeatmapBackbone:
     """The backbone that `cfg.BACKBONE` names, in eval mode: 'resnet', a
     `PoseResNet` (RESNET, NUM_JOINTS, COMPUTE_DTYPE), drawn on the host;
     'vitpose', a `vitpose.ViTPose` (VIT, IMAGE_SIZE, NUM_JOINTS,
@@ -247,8 +192,6 @@ def build_backbone(cfg: Config, device=None) -> FoldedModule:
     ViTPose-H's 639 M parameters are not drawn on the host to be copied
     or overwritten."""
     if cfg.BACKBONE == "vitpose":
-        from .vitpose import build_vitpose  # it imports this module
-
         return build_vitpose(cfg, device)
     if cfg.BACKBONE != "resnet":
         raise ValueError(f"unknown BACKBONE {cfg.BACKBONE!r}; known: 'resnet', 'vitpose'")
@@ -261,7 +204,7 @@ def build_backbone(cfg: Config, device=None) -> FoldedModule:
     ).eval()
 
 
-def images_to_heatmaps(backbone: FoldedModule, images: torch.Tensor,
+def images_to_heatmaps(backbone: HeatmapBackbone, images: torch.Tensor,
                        color_rgb: bool) -> torch.Tensor:
     """Frames (B, V, ih, iw, 3) -> heatmaps (B, V, ih/4, iw/4, J) float32:
     uint8 frames are decoded BGR, normalised on their device (RGB when

@@ -17,10 +17,10 @@ counterpart: it runs only the Pose-ResNet.
   tokens (`F.scaled_dot_product_attention`); `x += fc2(GELU(fc1(LN2(x))))`,
   fc1 of MLP_RATIO x C, the exact (erf) GELU.  LayerNorm eps 1e-6.
   Drop-path is a training-only regulariser and the identity here.
-- `last_norm`, the tokens back to (C, Hp, Wp), then the head: each
-  transposed conv (bias-free) with BatchNorm and ReLU, and the output conv
-  with bias, its result float32 (`blocks.Conv`, `float32_out`), as the
-  Pose-ResNet's.
+- `last_norm`, the tokens back to (C, Hp, Wp), then the head the
+  Pose-ResNet ends in too (`blocks.HeatmapBackbone`): each transposed
+  conv (bias-free) with BatchNorm and ReLU, and the output conv with bias,
+  its result float32 (`blocks.Conv`, `float32_out`).
 
 Parameter names follow the upstream backbone's (`patch_embed.proj`,
 `pos_embed`, `blocks.<i>.attn.qkv`, `blocks.<i>.mlp.fc1`, `last_norm`);
@@ -29,28 +29,28 @@ the head's are the Pose-ResNet's (`deconv1`, `deconv_bn1`, `final`).
 Everything runs in the compute dtype: matmuls and convs on bf16 operands
 with float32 sums, LayerNorm and the softmax with float32 statistics
 inside torch's bf16 kernels, the residual stream in bf16.  For serving,
-`fold()` prepares every weight once in that dtype (the head's BatchNorms
-folded into its transposed convs by `blocks.fold_batchnorm`, the two
-position terms summed) into non-persistent buffers, so that no forward
-casts the parameters; refolds follow `blocks.FoldedModule`.  Training,
-and a module never folded, cast the float32 parameters in each forward.
+`FoldedModule.fold()` (label "vitpose") prepares every weight once in
+that dtype (`blocks.fold_layers`: the trunk's torch layers cast, the
+head's BatchNorms folded into its transposed convs; the two position
+terms summed by `fold_extra`) into non-persistent buffers, so that no
+forward casts the parameters; refolds follow `blocks.FoldedModule`.
+Training, and a module never folded, cast the float32 parameters in each
+forward.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
-from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD
 from ..utils import profiling
-from .blocks import BatchNorm, Conv, Deconv, FoldedModule, fold_batchnorm, store_folded
+from .blocks import HeatmapBackbone
 from .faster_voxelpose import DTYPES
-from .resnet import PoseResNet
 
 # (module) -> (weight, bias) in the compute dtype
 Weights = Callable[[nn.Module], Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -103,7 +103,7 @@ class Block(nn.Module):
         return x + F.linear(F.gelu(F.linear(h, *w(self.mlp.fc1))), *w(self.mlp.fc2))
 
 
-class ViTPose(FoldedModule):
+class ViTPose(HeatmapBackbone):
     """ViTPose in inference: images (B, H, W, 3), normalised, any float
     dtype -> heatmaps (B, H/4, W/4, J) float32, at the frame size
     `image_size` (W, H) that the position embedding is drawn for.
@@ -115,7 +115,7 @@ class ViTPose(FoldedModule):
     `nn.Conv2d` draws it (the upstream's inits); the head as the
     Pose-ResNet's."""
 
-    upsample = PoseResNet.upsample  # the head's transposed convs, BatchNorms and ReLUs
+    FOLD_LABEL = "vitpose"
 
     def __init__(self, image_size: Sequence[int] = (192, 256), num_joints: int = 17,
                  patch_size: int = 16, embed_dim: int = 1280, depth: int = 32,
@@ -132,75 +132,23 @@ class ViTPose(FoldedModule):
         self.blocks = nn.ModuleList(Block(embed_dim, num_heads, mlp_ratio * embed_dim)
                                     for _ in range(depth))
         self.last_norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.num_deconv = len(deconv_filters)
-        cin = embed_dim
-        for i, f in enumerate(deconv_filters):
-            setattr(self, f"deconv{i + 1}", Deconv(cin, f, 4, 2, 1, 2, False, dtype))
-            setattr(self, f"deconv_bn{i + 1}", BatchNorm(f, dtype))
-            cin = f
-        self.final = Conv(cin, num_joints, 1, dtype=dtype, float32_out=True)
+        self.build_head(embed_dim, deconv_filters, False, num_joints, 1, dtype)
         with torch.no_grad():
             nn.init.trunc_normal_(self.pos_embed, std=0.02)
             for m in self.blocks.modules():
                 if isinstance(m, nn.Linear):
                     nn.init.trunc_normal_(m.weight, std=0.02)
                     nn.init.zeros_(m.bias)
-        self.register_buffer("image_mean", torch.as_tensor(IMAGENET_MEAN), persistent=False)
-        self.register_buffer("image_std", torch.as_tensor(IMAGENET_STD), persistent=False)
 
-    def cast_modules(self) -> Iterator[nn.Module]:
-        """The modules whose weight and bias the trunk reads: the patch
-        conv, every block's norms and linears, `last_norm`."""
-        yield self.patch_embed.proj
-        for blk in self.blocks:
-            yield from (blk.norm1, blk.attn.qkv, blk.attn.proj, blk.norm2, blk.mlp.fc1,
-                        blk.mlp.fc2)
-        yield self.last_norm
-
-    def fold_pairs(self):
-        """(transposed conv, the BatchNorm after it) of the head."""
-        return [(getattr(self, f"deconv{i}"), getattr(self, f"deconv_bn{i}"))
-                for i in range(1, self.num_deconv + 1)]
-
-    def fold(self, owner: Optional[int] = None) -> "ViTPose":
-        """Prepare the served weights from the live float32 parameters: each
-        of `cast_modules` as `folded_weight` and `folded_bias` in the
-        compute dtype, `pos_embed[:, 1:] + pos_embed[:, :1]` as
-        `folded_pos`, and each BatchNorm of the head folded into its
-        transposed conv (channels-last); a refold copies into the buffers
-        of the first fold, so a CUDA graph that reads them sees it.  Each
-        fold is a set-up span `setup.fold` (label "vitpose") of the span
-        log's service `owner` (kept for later refolds).  Returns the
-        module."""
-        if owner is not None:
-            self._fold_owner = owner
-        dt, pairs = self.dtype, self.fold_pairs()
-        with profiling.SPANS.span("setup.fold", owner=self._fold_owner, label="vitpose"), \
-                torch.inference_mode(False), torch.no_grad():
-            # ordinary tensors even under inference mode, so that a refold
-            # outside it can write into them
-            served = [(m, m.weight.to(dt), None if m.bias is None else m.bias.to(dt))
-                      for m in self.cast_modules()]
-            # the convs' weights channels-last, as the activations they take
-            m, w, b = served[0]
-            served[0] = (m, w.contiguous(memory_format=torch.channels_last), b)
-            for conv, bn in pairs:
-                w, b = fold_batchnorm(conv.weight, bn, out_dim=1)
-                served.append((conv, w.to(dt).contiguous(memory_format=torch.channels_last),
-                               b.to(dt)))
-            pos = (self.pos_embed[:, 1:] + self.pos_embed[:, :1]).to(dt)
-            for m, w, b in served:
-                store_folded(m, w, b)
-            if self.folded:
-                self.folded_pos.copy_(pos)
-            else:
-                self.register_buffer("folded_pos", pos, persistent=False)
-        self.folded = True
-        self._stamp([self.pos_embed] + [t for m in self.cast_modules() for t in (m.weight, m.bias)]
-                    + [t for conv, bn in pairs
-                       for d in (conv._parameters, bn._parameters, bn._buffers)
-                       for t in d.values()])
-        return self
+    def fold_extra(self) -> List[torch.Tensor]:
+        """`pos_embed[:, 1:] + pos_embed[:, :1]` in the compute dtype as
+        `folded_pos`, beside the layers' folded weights."""
+        pos = (self.pos_embed[:, 1:] + self.pos_embed[:, :1]).to(self.dtype)
+        if "folded_pos" in self._buffers:
+            self.folded_pos.copy_(pos)
+        else:
+            self.register_buffer("folded_pos", pos, persistent=False)
+        return [self.pos_embed]
 
     def _cast(self, m: nn.Module) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         dt = self.dtype
@@ -229,7 +177,7 @@ class ViTPose(FoldedModule):
         profiling.mark("vit_blocks")
         x = F.layer_norm(x, (C,), *w(self.last_norm), LN_EPS)
         x = x.transpose(1, 2).reshape(B, C, Hp, Wp)  # a channels-last view
-        return self.final(self.upsample(x)).float().permute(0, 2, 3, 1)
+        return self.head(x)
 
 
 def build_vitpose(cfg: Config, device=None) -> ViTPose:

@@ -14,7 +14,7 @@ by `tools.timing.scan_slope` between 2 and 10 steps (the script's
 slope(n1=2, n2=10); the scan body adds 1e-30 of the carry to the input
 and sums the output's [:, 0, 0, 0], as the script's).  With --folded the
 backbone's BatchNorms are folded into its convolutions first
-(`PoseResNet.fold`), as `PoseService` serves it.
+(`FoldedModule.fold`), as `PoseService` serves it.
 
 The candidates are the script's stem rewrites (:186-292), each computing
 what the JAX candidate computes, with weights of its own: s2d (2 x 2

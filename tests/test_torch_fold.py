@@ -1,10 +1,13 @@
-"""The fusion nets served folded (`FasterVoxelPoseNet.fold`,
+"""The fusion nets served folded (`FoldedModule.fold`,
 `blocks.fold_layers`): CenterNet, C2CNet, P2PNet and WeightNet with each
 BatchNorm folded into the convolution before it and every weight
 prepared once in the compute dtype, against the unfolded forward and
 the flax modules; the folded forward's aten ops; train mode, which
 never runs folded; and `PoseService`, which folds its model and refolds
-it after a reload.  CPU, tiny shapes.
+it after a reload.  Then the one fold of every served module (the
+fusion model, the Pose-ResNet and the ViTPose): what it folds, stamps
+and logs, and its refold after an in-place write; and the import graph
+of `models/`.  CPU, tiny shapes.
 
 Tolerances: float32 folded within 1e-4 of the unfolded forward, relative
 to the output's largest value (the fold reassociates one affine map per
@@ -202,8 +205,8 @@ def test_folded_forward_ops(name):
     assert names.count("_to_copy") == 1 + heads
 
 
-def _fold_spans(log):
-    return sum(s["name"] == "setup.fold" and s["label"] == "fusion" for s in log.setup_spans())
+def _fold_spans(log, label="fusion"):
+    return sum(s["name"] == "setup.fold" and s["label"] == label for s in log.setup_spans())
 
 
 @pytest.fixture
@@ -270,3 +273,96 @@ def test_service_refolds_reloaded_fusion_weights(log):
         assert g["poses_mm"] == want["poses_mm"] and g["scores"] == want["scores"]
     assert fresh.stats()["fusion_folded"] and _fold_spans(log) == 3
     assert before["poses_mm"] != got[0]["poses_mm"]
+
+
+def _served_case(kind):
+    """(a served module of `kind` with seeded random weights in float32, a
+    twin of the same weights, its input, its eval forward's output to
+    compare, the BatchNorm to write, the fold's span label)."""
+    from tests.test_torch_backbone import _random_backbone
+    from tests.test_torch_vitpose import randomize, tiny_config
+    from faster_voxelpose_tpu_torch.models.resnet import build_backbone
+
+    gen = torch.Generator().manual_seed(2)
+    if kind == "fusion":
+        cfg, model = _model()
+        hm, cams = torch.as_tensor(_tiny_frames(2)), _rig(cfg).expand(2, -1, -1)
+        return (model, _model()[1], lambda m: m(hm, cams).proposal_centers,
+                "hdn.center_net.front.front_basic.bn", "fusion")
+    if kind == "resnet":
+        x = torch.randn(2, 64, 96, 3, generator=gen)
+        return (_random_backbone(18, torch.float32), _random_backbone(18, torch.float32),
+                lambda m: m(x), "deconv_bn3", "backbone")
+    x = torch.randn(2, 48, 64, 3, generator=gen)
+    vit = [randomize(build_backbone(tiny_config()), 3) for _ in range(2)]
+    return (*vit, lambda m: m(x), "deconv_bn2", "vitpose")
+
+
+@pytest.mark.parametrize("kind", ["fusion", "resnet", "vitpose"])
+def test_one_fold_serves_every_module(kind, log):
+    """`FoldedModule.fold` on the fusion model, a PoseResNet-18 and a tiny
+    ViTPose, float32: it keeps `state_dict()`'s keys; it folds every
+    Conv, Deconv and Dense and every torch layer of a trunk, `final`
+    included; it is one `setup.fold` span of the module's label; its
+    stamp holds each parameter and each BatchNorm's running statistics,
+    once.  An in-place write to one BatchNorm's `running_var` moves the
+    answer, and the next eval forward refolds (a second span) and matches
+    the unfolded twin after the same write within 1e-5 of the largest
+    output."""
+    from torch import nn
+
+    from faster_voxelpose_tpu_torch.models.blocks import Conv, Deconv, Dense
+
+    model, twin, run, bn, label = _served_case(kind)
+    keys = list(model.state_dict())
+    model.fold()
+    assert list(model.state_dict()) == keys and model.folded
+    layers = [m for m in model.modules()
+              if isinstance(m, (Conv, Deconv, Dense, nn.Conv2d, nn.Linear, nn.LayerNorm))]
+    assert layers and all(m.folded for m in layers)
+    assert getattr(model, "final", layers[0]).folded
+    assert [(s["name"], s["label"]) for s in log.setup_spans()] == [("setup.fold", label)]
+    read = {id(t) for t in model.parameters()}
+    read |= {id(t) for n, t in model.named_buffers() if n.endswith(("running_mean", "running_var"))}
+    assert len(model._fold_tensors) == len(read) == len({id(t) for t in model._fold_tensors})
+    assert {id(t) for t in model._fold_tensors} == read
+    with torch.no_grad():
+        before = run(model)
+        for m in (model, twin):
+            m.get_submodule(bn).running_var.mul_(1.5)
+        got, want = run(model), run(twin)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((want - before).abs().max()) > 100 * tol
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
+    assert _fold_spans(log, label) == 2 and not model.sync_fold()
+
+
+def test_models_import_graph():
+    """`models/`: no module-level import cycle among blocks, resnet,
+    vitpose and faster_voxelpose (read from their sources); no import
+    inside a function of resnet.py; `build_backbone`,
+    `images_to_heatmaps` and `PoseResNet` importable from resnet."""
+    import ast
+    from pathlib import Path
+
+    import faster_voxelpose_tpu_torch.models as models
+    from faster_voxelpose_tpu_torch.models.resnet import (PoseResNet, build_backbone,
+                                                          images_to_heatmaps)
+
+    names = ("blocks", "resnet", "vitpose", "faster_voxelpose")
+    root = Path(models.__file__).parent
+    trees = {n: ast.parse((root / f"{n}.py").read_text()) for n in names}
+    deps = {n: {a.module for a in trees[n].body
+                if isinstance(a, ast.ImportFrom) and a.level == 1 and a.module in names}
+            for n in names}
+
+    def reaches(a, b, seen=()):
+        return any(d == b or (d not in seen and reaches(d, b, seen + (d,))) for d in deps[a])
+
+    assert not [n for n in names if reaches(n, n)], deps
+    assert "resnet" not in deps["vitpose"] | deps["blocks"]
+    inner = [node for f in ast.walk(trees["resnet"])
+             if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+             for node in ast.walk(f) if isinstance(node, (ast.Import, ast.ImportFrom))]
+    assert not inner
+    assert callable(build_backbone) and callable(images_to_heatmaps) and PoseResNet
