@@ -32,7 +32,11 @@ another committed snapshot's profile (`config.profile`):
    clock.  The crop sampler's three kernels run again at the Shelf shape
    (5 views, 200x152x17, K = 10) and the Campus shape (3 views,
    200x160x17, K = 5) of their profiles and rigs, each against its plain
-   version, timed and printed with its bound, yardstick and launch;
+   version, timed and printed with its bound, yardstick and launch.  Row
+   8, WeightNet's front (`weightnet_front`), at the Shelf and Panoptic
+   shapes in bf16 and at Shelf in float32, against its plain version
+   within one bf16 ulp (float32 1e-5), timed beside its bound and the
+   library chain it replaced (cuDNN's fused conv + ReLU, max pool, mean);
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
 4. route phase: the served path answers the same 6 frames under the
@@ -346,7 +350,7 @@ def build_phase():
     from faster_voxelpose_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["sampling", "window", "mma_window"])
+    libs = cuda_build.build_all(["sampling", "window", "mma_window", "weightnet"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -844,6 +848,86 @@ def crop_shapes_phase(card):
     return readings
 
 
+# WeightNet's front at the served shapes: M = 3 planes x K = 10 slots, J
+# joints, 64x64 planes, C = 32 channels
+WEIGHTNET_SHAPES = {"shelf": (30, 17), "panoptic": (30, 15)}
+WEIGHTNET_RTOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}  # as tests/test_torch_cuda.py
+
+
+def weightnet_case(M, J, dtype, seed=0):
+    """P2PNet-like feats (M, J, 64, 64) float32 channels-last, a folded
+    channels-last weight (32, 1, 3, 3) and bias in `dtype`."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.rand(M, 64, 64, J, generator=gen).permute(0, 3, 1, 2).to(CARD)
+    w = (torch.randn(32, 1, 3, 3, generator=gen) * (2.0 / 9) ** 0.5).to(dtype)
+    b = (torch.randn(32, generator=gen) * 0.2).to(dtype)
+    return feats, w.contiguous(memory_format=torch.channels_last).to(CARD), b.to(CARD)
+
+
+def weightnet_phase(card):
+    """Kernel row 8, weightnet_front, at the Shelf (510 maps) and Panoptic
+    (450) shapes in bf16 (as served) and at Shelf in float32: against its
+    plain version on the CPU within one bf16 ulp (float32 1e-5), two
+    launches equal, timed beside its bound (float32 FMA on the CUDA cores;
+    the benchmark's share counts the same work at the bf16 peak, where the
+    bytes bound), its plain version and the library chain the folded
+    WeightNet served before it: the cast, cuDNN's fused conv + bias + ReLU,
+    the NCHW max pool and the mean.  Returns the row, Shelf bf16 first and
+    the other cases under `cases`."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_voxelpose_tpu_torch.ops import weightnet_kernels as wk
+
+    cases = []
+    for label, (M, J), dt in (("shelf", WEIGHTNET_SHAPES["shelf"], "bfloat16"),
+                              ("panoptic", WEIGHTNET_SHAPES["panoptic"], "bfloat16"),
+                              ("shelf", WEIGHTNET_SHAPES["shelf"], "float32")):
+        feats, w, b = weightnet_case(M, J, getattr(torch, dt))
+        # the plain version as the CPU runs it: on the card `F.conv2d` adds
+        # the bias after rounding the conv to bf16 (tests/test_torch_cuda.py)
+        out = wk.weightnet_front(feats, w, b)
+        ref = wk.weightnet_front_plain(feats.cpu(), w.cpu(), b.cpu()).to(CARD)
+
+        def share_of_tolerance(got):  # <= 1 within the tests' tolerance
+            gap = (got.float() - ref.float()).abs()
+            return float((gap / (1e-7 + WEIGHTNET_RTOL[dt] * ref.float().abs())).max())
+
+        rel, equal = share_of_tolerance(out), float((out == ref).float().mean())
+        if not (rel <= 1.0 and torch.equal(out, wk.weightnet_front(feats, w, b))):
+            raise AssertionError(f"weightnet_front [{label} {dt}] off its plain version: "
+                                 f"{rel} of the tolerance")
+        maps = M * J
+
+        def library():
+            x = feats.reshape(maps, 1, 64, 64).to(w.dtype)
+            y = torch.cudnn_convolution_relu(x, w, b, (1, 1), (1, 1), (1, 1), 1)
+            return F.max_pool2d(y, 2).mean(dim=(2, 3))
+
+        lib_rel = share_of_tolerance(library())
+        nbytes = 4 * maps * 64 * 64 + out.element_size() * maps * 32
+        b_ms, b_by = bound(nbytes, 2 * maps * 64 * 64 * 32 * 9)
+        least_bf16 = bound(nbytes, maps * 32 * (19 * 64 * 64 + 5 * 32 * 32 + 1), BF16_FLOPS)
+        row = dict(name="weightnet_front", source="faster_voxelpose_tpu_torch/csrc/weightnet.cu",
+                   replaces="none (WeightNet, faster_voxelpose_tpu/models/cnns.py, flax layers)",
+                   path="serving", label=label, dtype=dt, maps=maps,
+                   **timings(lambda: wk.weightnet_front(feats, w, b)),
+                   plain_ms=device_readings(lambda: wk.weightnet_front_plain(feats, w, b))
+                   ["device_ms"],
+                   **library_readings(library), bound_ms=b_ms, bound_by=b_by,
+                   bf16_least_ms=least_bf16[0], share_of_tolerance=rel, equal=equal)
+        print(f"kernel weightnet_front [{label} {dt}]: {maps} maps, against the plain version "
+              f"{rel:.3g} of the tolerance, {equal:.4f} of the values equal (the library chain "
+              f"{lib_rel:.3g} of it) kernel_ms {fmt(row)} "
+              f"plain_ms (device) {row['plain_ms']:.4f} {fmt_library(row)} bound_ms "
+              f"{b_ms:.4f} ({b_by}; at the bf16 peak {least_bf16[0]:.4f}, {least_bf16[1]}) "
+              f"| {card}")
+        cases.append(row)
+    return dict(cases[0], cases=cases[1:])
+
+
 def small_config(dtype="float32"):
     """3 views, 40x32 heatmaps, 16x16x8 grid, 16^3 crops, K = 4; a
     2100 mm person box keeps every crop origin away from a .5 tie."""
@@ -941,7 +1025,8 @@ def route_phase(cfg, rig, card, rng):
         print(f"route {label}: {resolve_crop_route(rcfg)} launches {counts} p50_ms "
               f"{stats['p50_ms']} | {card}")
         want = {n: 0 for n in counts}
-        want.update({"sample_whole_projected": len(frames), kernel: len(frames)})
+        want.update({"sample_whole_projected": len(frames), kernel: len(frames),
+                     "weightnet_front": len(frames)})
         if counts != want:
             raise AssertionError(f"route {label}: launches {counts}, expected {want}")
     ref = results["sample_crop_planes"]
@@ -1743,7 +1828,8 @@ def serving_phase(cfg, rig, card, rng):
     sk.reset_launch_counts()
     results = [svc.infer_heatmaps(f) for f in frames]
     launches = sk.launch_counts()
-    route = ("sample_whole_projected", "sample_crop_planes")  # the default route's kernels
+    # the default route's kernels, and WeightNet's front of the folded model
+    route = ("sample_whole_projected", "sample_crop_planes", "weightnet_front")
 
     n_true = np.mean([len(p) for p in scenes])
     n_det = np.mean([r["n_people"] for r in results])
@@ -1860,7 +1946,8 @@ def compiled_phase(cfg, rig, card, rng, requests=N_REQUESTS):
         got = [svc.infer_heatmaps(f) for f in frames]
         counts = sk.launch_counts()
         expect = {n: 0 for n in counts}
-        expect.update({"sample_whole_projected": requests, "sample_crop_planes": requests})
+        expect.update({"sample_whole_projected": requests, "sample_crop_planes": requests,
+                       "weightnet_front": requests})
         if counts != expect:
             raise AssertionError(f"compiled [{label}]: launches {counts}, expected {expect}")
         graph_against_eager(f"{label} heatmaps", got, want, c is f32, card)
@@ -2583,8 +2670,9 @@ def service_replay(card, res, requests):
           f"{counts}, p50_ms {stats['p50_ms']} p95_ms {stats['p95_ms']}; in float32 the "
           f"service at batch 1 within {worst32:.3g} mm of the validator at batch "
           f"{f32.TEST.BATCH_SIZE} (people {people32}) | {card}")
-    want = {n: 0 for n in counts}
-    want.update({"sample_whole_projected": requests, "sample_crop_planes": requests})
+    want = {n: 0 for n in counts}  # the service serves the folded model: WeightNet's kernel too
+    want.update({"sample_whole_projected": requests, "sample_crop_planes": requests,
+                 "weightnet_front": requests})
     if counts != want:
         raise AssertionError(f"service: launches {counts}, expected {want}")
     if not (worst <= 0.01 and sum(people) > 0):
@@ -2732,7 +2820,8 @@ def images_phase(card, requests=N_REQUESTS):
           f"the backbone alone on {d.CAMERA_NUM} normalised frames device_ms "
           f"{bb_ms:.4f} ({method}); people {people}; launches {launches} | {card}")
     want = {n: 0 for n in launches}
-    want.update({"sample_whole_projected": requests, "sample_crop_planes": requests})
+    want.update({"sample_whole_projected": requests, "sample_crop_planes": requests,
+                 "weightnet_front": requests})
     if launches != want:
         raise AssertionError(f"images: launches {launches}, expected {want}")
     return launches
@@ -4224,7 +4313,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only the kernel rows (1-7), each timed by tools/timing.py's three "
+                    help="only the kernel rows (1-8), each timed by tools/timing.py's three "
                          "timers, then their table; no path runs, no result line")
     args = ap.parse_args(argv)
     t_start = T_START
@@ -4263,6 +4352,7 @@ def main(argv=None) -> int:
     del case
     for name, cases in crop_shapes_phase(card).items():  # rows 2-4 at the Shelf and Campus shapes
         next(r for r in rows if r["name"] == name)["cases"] = cases
+    rows.append(weightnet_phase(card))
     if args.kernels:
         for phase in (window_phase, mma_phase):
             rows += phase(card)[0]

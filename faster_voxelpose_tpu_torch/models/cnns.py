@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.weightnet_kernels import weightnet_front
 from .blocks import (BatchNorm, Conv, Dense, EncoderDecoder, UNetFront, conv_relu, runs_folded,
                      scaled)
 
@@ -87,8 +88,10 @@ class WeightNet(nn.Module):
     """Per joint-plane fusion weight in (0, 1): (M, J, H, W) plane
     features -> conv + BN + maxpool + ReLU (the reference's order) ->
     global average pool -> 2-layer MLP -> sigmoid, (M, J, 1).  Folded, the
-    conv, its bias and the ReLU are one cuDNN call before the max pool:
-    the same values, since ReLU is monotone and so commutes with max."""
+    trunk before the MLP (cast, conv + bias, ReLU, max pool, mean) is
+    `ops.weightnet_kernels.weightnet_front`: one kernel on the card, on the
+    CPU its plain version, which runs the ReLU before the max pool: the
+    same values, since ReLU is monotone and so commutes with max."""
 
     FOLD_PAIRS = (("feat_conv", "feat_bn"),)
 
@@ -101,11 +104,11 @@ class WeightNet(nn.Module):
 
     def forward(self, x, train: bool = False):
         M, J, H, W = x.shape
-        x, conv = x.reshape(M * J, 1, H, W), self.feat_conv
+        conv = self.feat_conv
         if runs_folded(conv, train):
-            x = F.max_pool2d(conv_relu(conv, x.to(conv.dtype)), 2)
+            x = weightnet_front(x, conv.folded_weight, conv.folded_bias)
         else:
-            x = F.relu(F.max_pool2d(self.feat_bn(conv(x, train), train), 2))
-        x = x.mean(dim=(2, 3))
+            x = conv(x.reshape(M * J, 1, H, W), train)
+            x = F.relu(F.max_pool2d(self.feat_bn(x, train), 2)).mean(dim=(2, 3))
         x = self.fc2(F.relu(self.fc1(x, train)), train)
         return torch.sigmoid(x.float()).reshape(M, J, 1)

@@ -138,6 +138,8 @@ LAUNCHES: Dict[str, int] = {
     # the tuning kernels of ops/window_kernels.py
     "window_sample": 0,
     "mma_window": 0,
+    # WeightNet's front, ops/weightnet_kernels.py
+    "weightnet_front": 0,
 }
 
 

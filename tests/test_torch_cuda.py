@@ -336,7 +336,7 @@ def test_model_cuda_matches_cpu(dev):
     assert sk.launch_counts() == {"sample_whole": 0, "sample_whole_projected": 1,
                                   "sample_crop_planes": 1,
                                   "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
-                                  "window_sample": 0, "mma_window": 0}
+                                  "window_sample": 0, "mma_window": 0, "weightnet_front": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5
 
@@ -679,6 +679,107 @@ def test_tuning_wrappers_check_and_count(dev):
 
 
 # ---------------------------------------------------------------------------
+# WeightNet's front (weightnet_front, csrc/weightnet.cu)
+# ---------------------------------------------------------------------------
+
+# Against the plain version as the CPU runs it (oneDNN rounds conv + bias
+# to bf16 once, as the kernel and cuDNN's fused conv + bias + ReLU do; on
+# the card `F.conv2d` rounds the conv before it adds the bias, which near
+# cancellation moves a value by half a bf16 ulp of the conv, so the card's
+# plain version is no reference in bf16).  One bf16 ulp of the value (2^-7
+# relative): the kernel's float32 sums of the 9 taps and of the pooled
+# positions run in another order, which can move a rounding to bf16 by one
+# step; 1e-7 absolute for means that float32 cancellation leaves near 0.
+# In float32 the sums' order alone: 1e-5 relative.
+WEIGHTNET_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def _weightnet_plain_on_cpu(feats, w, b):
+    from faster_voxelpose_tpu_torch.ops import weightnet_kernels as wk
+
+    return wk.weightnet_front_plain(feats.cpu(), w.cpu(), b.cpu())
+
+
+def _weightnet_case(dev, M, J, H, W, C, dtype, seed=0, layout="channels_last"):
+    """feats (M, J, H, W) float32 in P2PNet's channels-last layout (or
+    with a gap between joints), a folded weight (C, 1, 3, 3) channels-last
+    and a nonzero bias in `dtype`; channels 0-3 have negative weights and
+    bias over non-negative feats, so every conv output there is negative."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "channels_last":
+        feats = torch.rand(M, H, W, J, generator=gen).to(dev).permute(0, 3, 1, 2)
+    else:  # every other joint plane of a wider tensor
+        feats = torch.rand(M, 2 * J, H, W, generator=gen).to(dev)[:, ::2]
+    w = torch.randn(C, 1, 3, 3, generator=gen) * (2.0 / 9) ** 0.5
+    b = torch.randn(C, generator=gen) * 0.2
+    w[:4] = -w[:4].abs()
+    b[:4] = -b[:4].abs() - 0.01
+    w = w.to(dtype).contiguous(memory_format=torch.channels_last)
+    return feats, w.to(dev), b.to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("M, J", [(30, 17), (30, 15)], ids=["shelf", "panoptic"])
+@pytest.mark.parametrize("layout", ["channels_last", "strided"])
+def test_weightnet_kernel_matches_plain(dev, M, J, dtype, layout):
+    """The served shapes (M*J = 510 and 450 maps of 64x64, C = 32) against
+    the plain version on the CPU within WEIGHTNET_RTOL; the all-negative
+    channels read exactly 0; one launch; a second launch equal bit for
+    bit."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops import weightnet_kernels as wk
+
+    feats, w, b = _weightnet_case(dev, M, J, 64, 64, 32, dtype, layout=layout)
+    assert not feats.is_contiguous()
+    sk.reset_launch_counts()
+    got = wk.weightnet_front(feats, w, b)
+    assert sk.launch_counts()["weightnet_front"] == 1
+    want = _weightnet_plain_on_cpu(feats, w, b)
+    assert got.dtype == want.dtype == dtype and got.shape == (M * J, 32)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=WEIGHTNET_RTOL[dtype],
+                               atol=1e-7)
+    assert not bool(got[:, :4].any()) and bool((got[:, 4:] > 0).any())
+    assert torch.equal(got, wk.weightnet_front(feats, w, b))
+
+
+@pytest.mark.parametrize("H, W, C", [(16, 16, 8), (6, 10, 33), (64, 64, 64), (2, 2, 1),
+                                     (128, 96, 32)])
+def test_weightnet_kernel_at_other_shapes(dev, H, W, C):
+    """Ragged strips (W/2 not a multiple of 4), C across and at the
+    kernel's 64 channels, one pixel of pooled map, a map above 48 KB of
+    shared memory: against the plain version on the CPU in bf16."""
+    from faster_voxelpose_tpu_torch.ops import weightnet_kernels as wk
+
+    feats, w, b = _weightnet_case(dev, 3, 5, H, W, C, torch.bfloat16, seed=H + W + C)
+    got = wk.weightnet_front(feats, w, b)
+    want = _weightnet_plain_on_cpu(feats, w, b)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               rtol=WEIGHTNET_RTOL[torch.bfloat16], atol=1e-7)
+
+
+def test_weightnet_wrapper_checks_and_counts(dev):
+    """Odd sides, a float16 weight, 65 channels and weights off the card
+    are refused on the card and launch nothing."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+    from faster_voxelpose_tpu_torch.ops import weightnet_kernels as wk
+
+    feats, w, b = _weightnet_case(dev, 2, 3, 8, 8, 32, torch.bfloat16)
+    sk.reset_launch_counts()
+    with pytest.raises(ValueError):
+        wk.weightnet_front(feats[..., :7], w, b)
+    with pytest.raises(TypeError):
+        wk.weightnet_front(feats, w.half(), b.half())
+    w65, b65 = torch.cat([w, w, w[:1]]), torch.cat([b, b, b[:1]])
+    with pytest.raises(ValueError):
+        wk.weightnet_front(feats, w65, b65)
+    with pytest.raises(ValueError):
+        wk.weightnet_front(feats, w.cpu(), b.cpu())
+    assert sk.launch_counts()["weightnet_front"] == 0
+    wk.weightnet_front(feats, w, b)
+    assert sk.launch_counts()["weightnet_front"] == 1
+
+
+# ---------------------------------------------------------------------------
 # the image path: the Pose-ResNet backbone (cuDNN) and infer_images
 # ---------------------------------------------------------------------------
 
@@ -745,7 +846,7 @@ def test_infer_images_cuda_matches_cpu(dev):
     answers = [card.infer_images(f) for f in u8]
     counts = sk.launch_counts()
     assert counts["sample_whole_projected"] == counts["sample_crop_planes"] == 2
-    assert sum(counts.values()) == 4
+    assert counts["weightnet_front"] == 2 and sum(counts.values()) == 6
     for f, got in zip(u8, answers):
         want = cpu.infer_images(f)
         assert got["n_people"] == want["n_people"] == 4
@@ -897,13 +998,13 @@ def test_launch_counts_under_replay(dev):
     warm = sk.launch_counts()  # the eager forwards before the capture
     assert warm["sample_whole_projected"] == warm["sample_crop_planes"] == 3
     assert svc._compiled["heatmaps"].launches == {"sample_whole_projected": 1,
-                                                  "sample_crop_planes": 1}
+                                                  "sample_crop_planes": 1, "weightnet_front": 1}
     sk.reset_launch_counts()
     for f in _tiny_frames(5):
         svc.infer_heatmaps(f)
     counts = sk.launch_counts()
     assert counts["sample_whole_projected"] == counts["sample_crop_planes"] == 5
-    assert sum(counts.values()) == 10
+    assert counts["weightnet_front"] == 5 and sum(counts.values()) == 15
 
 
 def test_capture_with_a_host_synchronisation_raises(dev):
@@ -1162,6 +1263,51 @@ def test_heatmaps_graph_launches_no_batch_norm(dev):
     unfolded.load_state_dict(svc.model.state_dict())
     unfolded = unfolded.to(dev)
     assert [n for n in _kernel_names(_captured(lambda: unfolded(g.input, svc._rig))) if is_bn(n)]
+
+
+def test_heatmaps_graph_runs_weightnet_kernel(dev):
+    """The service's captured heatmaps graph launches WeightNet's front as
+    `weightnet_kernel` once per replay.  The folded bf16 WeightNet alone at
+    Shelf's served shapes (P2PNet's (30, 17, 64, 64) channels-last float32
+    feats), captured, launches it once per replay and none of the library
+    chain it replaced (cuDNN's CUDA-core `implicit_convolve_sgemm`, an NCHW
+    `max_pool_forward_nchw`); a refold after the capture (new BatchNorm
+    statistics, `sync_fold`) reaches the replayed kernel: the graph then
+    answers as the eager folded forward."""
+    from faster_voxelpose_tpu_torch.engine import graphs
+
+    svc = _tiny_service(dev)
+    g = svc._compiled["heatmaps"]
+    g.input.copy_(torch.as_tensor(_tiny_frames(1), device=dev))
+    served = _kernel_names(lambda: graphs.replay(g.captured))
+    assert sum("weightnet_kernel" in n for n in served) == 3
+
+    cfg = tiny_cfg()
+    cfg.NETWORK.COMPUTE_DTYPE = "bfloat16"
+    model = _random_fusion(cfg).to(dev).fold()
+    net = model.jln.weight_net
+    gen = torch.Generator().manual_seed(3)
+    feats = torch.rand(30, 64, 64, 17, generator=gen).to(dev).permute(0, 3, 1, 2)
+    out = {}
+    replay = _captured(lambda: out.update(w=net(feats)))
+    names = _kernel_names(replay, 3)
+    assert sum("weightnet_kernel" in n for n in names) == 3
+    replaced = [n for n in names if "implicit_convolve_sgemm" in n or "max_pool" in n]
+    assert not replaced, "\n".join(sorted(set(replaced)))
+
+    replay()
+    torch.cuda.synchronize(dev)
+    before = out["w"].clone()
+    with torch.no_grad():
+        net.feat_bn.running_var.mul_(4.0)
+        net.feat_bn.bias.add_(0.5)
+    assert model.sync_fold()
+    replay()
+    with torch.inference_mode():
+        want = net(feats)
+    torch.cuda.synchronize(dev)
+    torch.testing.assert_close(out["w"], want, rtol=0, atol=1e-6)
+    assert float((before - want).abs().max()) > 1e-3
 
 
 def _train_setup(dev, n_batches, B=2, seed=0):
