@@ -1,0 +1,12 @@
+"""The VoxelPose request's share of the card's bf16 peak: the FLOPs of one
+request (`counts/voxelpose.py`: the CPN and the PRN over every slot) over
+the median request's latency, in %."""
+
+import numpy as np
+
+
+def read(run):
+    lat = run.latencies_ms()
+    if not lat.size or "bf16_flops" not in run.peaks or not run.flops_per_request:
+        return None
+    return 100.0 * run.flops_per_request / (np.percentile(lat, 50) * 1e-3) / run.peaks["bf16_flops"]

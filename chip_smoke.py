@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # the kernel rows alone (no path run)
+    python3 chip_smoke.py --voxelpose   # the build and the VoxelPose phase alone
 
 Drives the port (`faster_voxelpose_tpu_torch`) only, at the Panoptic
 profile of configs/demo/panoptic_synthetic.yaml (5 views, 240x128x15
@@ -198,7 +199,13 @@ synchronisation that must raise runs after the bench phase
 the device generator draws and cached memory is given back after it,
 and the datasets phase is measured after it).  Between phases the card's
 cached memory is given back (`released`, which prints the seconds from
-the start).  PoseService captures its graphs at construction on
+the start).  The VoxelPose phase (`voxelpose_phase`) follows the
+compiled one: `MODEL: voxelpose` at the widths of the benchmark's
+`panoptic_voxelpose` configuration, rows 1 and 4 in their bounded modes
+(the whole space, and the K = 10 cubes of 64^3 about the CPN's float
+centres) against their plain versions at those shapes, the served
+graph's launches, and its answers against eager ones in float32.
+PoseService captures its graphs at construction on
 the card, so the serving, profiles and images phases answer through
 them too (the profiles phase's Campus service against an eager one as
 well); the route phase runs eagerly, since the coords route builds its
@@ -926,6 +933,95 @@ def weightnet_phase(card):
               f"| {card}")
         cases.append(row)
     return dict(cases[0], cases=cases[1:])
+
+
+def voxelpose_phase(card, requests=8):
+    """VoxelPose (`MODEL: voxelpose`) at the widths of the benchmark's
+    `panoptic_voxelpose` (5 views of 240x128x15, 80x80x20, K = 10 cubes of
+    64^3), on its rig and a rendered 4-person frame: row 1's bounded mode
+    (`whole_kernel<true>`) and row 4's float-centred bounded cube
+    (`crop_kernel<false, true, true>`, about the CPN's own centres) against
+    their plain versions (1e-5), timed; then the bf16 service as the cell
+    serves it: one replay of its 'heatmaps' graph launches each of the two
+    once and no other sampler (counts reset just before it), `requests`
+    more launch them once each; last the float32 graph against an eager
+    service with every slot answered (MIN_SCORE -1e9; within 0.01 mm).
+    Returns the launch counts of the `requests` bf16 requests."""
+    import torch
+
+    from benchmark.drivers.live_service import port_config
+    from benchmark.traffic.generate import config_rig
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.models import VoxelPoseNet
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    config = json.loads((ROOT / "benchmark/configs/panoptic_voxelpose.json").read_text())
+    cfg = port_config(config)
+    rig = config_rig(config).astype(np.float32)
+    cams = torch.as_tensor(rig, device=CARD)
+    hm = render_frame(make_people(np.random.RandomState(24), 4, cfg.CAPTURE_SPEC.SPACE_CENTER),
+                      rig, cfg, CARD)
+    svc = PoseService(cfg, rig=rig, device=CARD, seed=0)
+    model = svc.model
+    if not isinstance(model, VoxelPoseNet) or svc.warmup() != ["heatmaps"]:
+        raise AssertionError(f"voxelpose: {type(model).__name__}, graphs {svc.warmup()}")
+
+    axes = (model.whole_gx, model.whole_gy, model.whole_gz)
+    masks = (model.mask_x, model.mask_y, model.mask_z, model.all_slots)
+    with torch.no_grad():
+        centres = model.proposals(hm[None], cams[None])[1][0].contiguous()  # (K, 3) mm
+
+    def whole():
+        return sk.sample_whole_projected(hm[None], cams[None], axes, model.whole, bounded=True)
+
+    def cube():
+        return sk.sample_crop_cube(hm, *masks, cams=cams, crop=model.crop, centres=centres)
+
+    plains = (sk.sample_whole_projected_plain(hm[None], cams[None], axes, model.whole,
+                                              bounded=True),
+              sk.sample_crop_centred_plain(hm, cams, centres, *masks, model.crop))
+    rows = {}
+    for name, fn, plain in (("sample_whole_projected", whole, plains[0]),
+                            ("sample_crop_cube", cube, plains[1])):
+        out = fn()
+        err = float((out - plain).abs().max())
+        if not (err <= TOL and torch.isfinite(out).all() and torch.equal(out, fn())):
+            raise AssertionError(f"voxelpose: bounded {name} {tuple(out.shape)} off its plain "
+                                 f"version by {err}")
+        rows[name] = dict(err=err, shape=tuple(out.shape), **timings(fn))
+        print(f"voxelpose: bounded {name} {tuple(out.shape)} against its plain version "
+              f"{err:.3g} (limit {TOL:g}) {fmt(rows[name])} | {card}")
+    del plains
+
+    sk.reset_launch_counts()
+    svc.infer_heatmaps(hm)
+    one = sk.launch_counts()
+    expect = {n: 0 for n in one}
+    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1})
+    if one != expect:
+        raise AssertionError(f"voxelpose: one replay launched {one}, expected {expect}")
+    sk.reset_launch_counts()
+    for _ in range(requests):
+        svc.infer_heatmaps(hm)
+    launches = sk.launch_counts()
+    if launches != {n: c * requests for n, c in expect.items()}:
+        raise AssertionError(f"voxelpose: {requests} requests launched {launches}")
+    print(f"voxelpose: one replay of the bf16 'heatmaps' graph launched "
+          f"{ {n: c for n, c in one.items() if c} }; {requests} requests "
+          f"{ {n: c for n, c in launches.items() if c} } | {card}")
+    del svc, model
+
+    f32 = port_config(config)
+    f32.NETWORK.COMPUTE_DTYPE = "float32"
+    f32.CAPTURE_SPEC.MIN_SCORE = -1e9
+    graph = PoseService(f32, rig=rig, device=CARD, seed=0)
+    eager = PoseService(f32, rig=rig, device=CARD, seed=0, aot=False)
+    frames = [render_frame(make_people(np.random.RandomState(s), n, cfg.CAPTURE_SPEC.SPACE_CENTER),
+                           rig, cfg, CARD) for s, n in ((25, 1), (26, 6), (27, 10))]
+    got = [graph.infer_heatmaps(f) for f in frames]
+    graph_against_eager("voxelpose float32", got, [eager.infer_heatmaps(f) for f in frames],
+                        True, card)
+    return launches
 
 
 def small_config(dtype="float32"):
@@ -3019,7 +3115,7 @@ def _tools_trace(tmp, card, bench_ms):
     got = _in_process("analyze_trace", analyze_trace.main,
                       [logdir, "15", "--frames", str(TRACE_FRAMES)])
     count = {row: sum(n for name, n in got["count"].items() if key in name)
-             for row, key in (("row 1", "whole_kernel"), ("row 2", "crop_kernel<false, false>"))}
+             for row, key in (("row 1", "whole_kernel"), ("row 2", "crop_kernel<false, false, false>"))}
     per_frame = got["sum_us"] / 1e3 / TRACE_FRAMES
     print(f"script tools: trace of {TRACE_FRAMES} worst-case frames: device {per_frame:.4f} ms "
           f"a frame against the bench's {bench_ms:.4f} ({per_frame / bench_ms - 1:+.2%}), busy "
@@ -4315,6 +4411,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="only the kernel rows (1-8), each timed by tools/timing.py's three "
                          "timers, then their table; no path runs, no result line")
+    ap.add_argument("--voxelpose", action="store_true",
+                    help="only the build and the VoxelPose phase; no result line")
     args = ap.parse_args(argv)
     t_start = T_START
     import torch
@@ -4337,6 +4435,10 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {card}")
     pin_float32()
     build_phase()
+    if args.voxelpose:
+        print(json.dumps({"voxelpose": released(voxelpose_phase(card), "voxelpose")}))
+        print(f"chip_smoke --voxelpose: {time.perf_counter() - t_start:.1f} s from start")
+        return 0
 
     cfg = panoptic_synthetic_profile()
     geom = make_projection_geometry(cfg)
@@ -4365,6 +4467,7 @@ def main(argv=None) -> int:
     paths = {"serving": released(serving_phase(cfg, rig, card, rng), "serving")}
     paths["compiled"] = released(compiled_phase(cfg, rig, card, np.random.RandomState(9)),
                                  "compiled")
+    paths["voxelpose"] = released(voxelpose_phase(card), "voxelpose")
     paths["route"] = released(route_phase(cfg, rig, card, rng), "route")
     released(train_parity_phase(card), "train parity")
     released(compiled_train_phase(card), "train graph")

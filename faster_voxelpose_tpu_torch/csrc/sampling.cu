@@ -25,6 +25,14 @@
 //                     (:947) with emit_planes=True, and both in their
 //                     masked cube mode.
 //
+// The whole-space sampler and the crop sampler's projected cube mode also
+// have a bounded mode (template switch kBounded), VoxelPose's ProjectLayer:
+// the sum over the views in whose original image the voxel's projected
+// point lies, over their count plus 1e-6, clamped to [0, 1]; in it the crop
+// sampler takes each slot's crop about a float world centre (the PRN's
+// cubes) in place of an integer origin on the fine grid.  The instantiations
+// of Faster VoxelPose's modes are unchanged.
+//
 // All compute, per voxel and joint, the mean over V views of
 // grid_sample(align_corners=True, padding_mode='zeros') on pixel
 // coordinates, clamped to [0, 1].  A direct four-corner gather with a
@@ -97,7 +105,13 @@ struct CropConsts {
   float hm_w, inv_img_w, hm_h, inv_img_h;  // input -> heatmap rescale
   float inv_wm1, inv_hm1;  // float32 1 / (heatmap w - 1), 1 / (h - 1)
   float wm1, hm1;          // heatmap w - 1, h - 1
+  float ori_w, ori_h;      // original image w, h: the bounded mode's bounds
 };
+
+// Bit 4 of a tap's corner mask (make_tap): in the bounded mode, the voxel's
+// point lies inside that view's original image.  A tap outside it keeps no
+// corner, so it adds 0 to the sum, and the bits count the views averaged.
+constexpr int kInBounds = 16;
 
 int lane_shift_for(int J) {
   int s = 0;
@@ -162,11 +176,13 @@ __device__ __forceinline__ float clamp01(float v) {
 
 // Camera-frame point (xc0, xc1, xc2) of one packed camera c[21] -> heatmap
 // pixel, op for op as the rest of project_points + project_to_norm_coords
-// + norm_to_pixel (geometry/cameras.py, geometry/grids.py).
+// + norm_to_pixel (geometry/cameras.py, geometry/grids.py).  Where inb is
+// given, whether the projected point, before its clamp, lies inside the
+// original image ([0, ori_w) x [0, ori_h): VoxelPose's `bounding`).
 __device__ __forceinline__ void camera_to_pixel(const float* c, float xc0,
                                                 float xc1, float xc2,
                                                 const CropConsts& k, float& px,
-                                                float& py) {
+                                                float& py, bool* inb = nullptr) {
   const float den = ADD(xc2, 1e-5f);
   const float y0 = DIV(xc0, den), y1 = DIV(xc1, den);
   const float r2 = ADD(MUL(y0, y0), MUL(y1, y1));
@@ -176,8 +192,10 @@ __device__ __forceinline__ void camera_to_pixel(const float* c, float xc0,
                       MUL(c[20], ADD(r2, MUL(MUL(2.0f, y0), y0))));
   const float v = ADD(ADD(MUL(y1, d), MUL(MUL(MUL(2.0f, c[20]), y0), y1)),
                       MUL(c[19], ADD(r2, MUL(MUL(2.0f, y1), y1))));
-  const float ox = fminf(fmaxf(ADD(MUL(u, c[12]), c[14]), -1.0f), k.clip_hi);
-  const float oy = fminf(fmaxf(ADD(MUL(v, c[13]), c[15]), -1.0f), k.clip_hi);
+  const float rx = ADD(MUL(u, c[12]), c[14]), ry = ADD(MUL(v, c[13]), c[15]);
+  if (inb) *inb = rx >= 0.0f && ry >= 0.0f && rx < k.ori_w && ry < k.ori_h;
+  const float ox = fminf(fmaxf(rx, -1.0f), k.clip_hi);
+  const float oy = fminf(fmaxf(ry, -1.0f), k.clip_hi);
   float qx = ADD(ADD(MUL(ox, k.t[0]), MUL(oy, k.t[1])), k.t[2]);
   float qy = ADD(ADD(MUL(ox, k.t[3]), MUL(oy, k.t[4])), k.t[5]);
   qx = MUL(MUL(qx, k.hm_w), k.inv_img_w);
@@ -202,13 +220,28 @@ __device__ __forceinline__ float axis_product(const float* c, int r, int a, floa
 // in project_points' order, so the pixel is bit for bit the unfactored one.
 __device__ __forceinline__ void voxel_pixel(const float* pr, int stride, int ix, int iy,
                                             int iz, const float* c, const CropConsts& k,
-                                            float& px, float& py) {
+                                            float& px, float& py, bool* inb = nullptr) {
   const float xc0 = ADD(ADD(pr[ix], pr[iy]), pr[iz]);
   pr += stride;
   const float xc1 = ADD(ADD(pr[ix], pr[iy]), pr[iz]);
   pr += stride;
   const float xc2 = ADD(ADD(pr[ix], pr[iy]), pr[iz]);
-  camera_to_pixel(c, xc0, xc1, xc2, k, px, py);
+  camera_to_pixel(c, xc0, xc1, xc2, k, px, py, inb);
+}
+
+// The taps of pixel (px, py); in the bounded mode none outside the original
+// image (inb false), and kInBounds set inside it.
+template <bool kBounded>
+__device__ __forceinline__ int4 bounded_tap(float px, float py, bool inb, int H, int W) {
+  int4 tap = make_tap(px, py, H, W);
+  if (kBounded) tap.y = inb ? tap.y | kInBounds : 0;
+  return tap;
+}
+
+// The bounded mode's divisor: the views a voxel's taps lie inside, plus
+// 1e-6, as VoxelPose divides (sum(bounding) + 1e-6).
+__device__ __forceinline__ float bounded_count(int count) {
+  return (float)count + 1e-6f;
 }
 
 // One thread per (voxel, joint lane); lanes per voxel = 1 << lane_shift.
@@ -274,6 +307,11 @@ sample_whole_kernel(const float* __restrict__ hm, const float* __restrict__ pix,
 // pixels per voxel as the four corners a voxel gathers, and staging adds
 // the copies' latency and halves the blocks per SM (97 KB of shared
 // memory a block against 32 KB).
+//
+// Bounded mode (kBounded): a tap outside the view's original image keeps
+// no corner and carries kInBounds inside it; each (voxel, joint) sum is
+// divided by the count of its voxel's in-bound taps plus 1e-6, read back
+// from shared memory after the sums.
 constexpr int kWholeVoxels = FVP_WHOLE_VOXELS;  // voxels and threads per block of the whole-space sampler
 constexpr int kMaxJoints = 32;
 static_assert(kWholeVoxels % 32 == 0 && kWholeVoxels >= kMaxJoints && kWholeVoxels <= 1024,
@@ -282,6 +320,7 @@ static_assert(kWholeVoxels % 32 == 0 && kWholeVoxels >= kMaxJoints && kWholeVoxe
 // blocks, and a Panoptic sample's 500 blocks run in one wave on 132 SMs.
 constexpr int kWholeBlocksPerSM = 1024 / kWholeVoxels;
 
+template <bool kBounded>
 __global__ void __launch_bounds__(kWholeVoxels, kWholeBlocksPerSM)
 whole_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
              const float* __restrict__ gx, const float* __restrict__ gy,
@@ -313,8 +352,10 @@ whole_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
     int4 tap = make_int4(0, 0, 0, 0);  // no corner inside: adds 0
     if (n < N) {
       float px, py;
-      voxel_pixel(s_prod + v * 3 * S, S, x, X + y, X + Y + z, s_cam + 21 * v, kc, px, py);
-      tap = make_tap(px, py, H, W);
+      bool inb = true;
+      voxel_pixel(s_prod + v * 3 * S, S, x, X + y, X + Y + z, s_cam + 21 * v, kc, px, py,
+                  kBounded ? &inb : nullptr);
+      tap = bounded_tap<kBounded>(px, py, inb, H, W);
     }
     s_tap[v * kWholeVoxels + t] = tap;
   }
@@ -347,6 +388,26 @@ whole_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
   // the view means, clamped: the block writes one contiguous run
   float* ob = out + (size_t)b * N * J + (size_t)tile * kWholeVoxels * J;
   const long long live = (N - (long long)tile * kWholeVoxels) * J;  // pairs in the grid
+  if (kBounded) {
+    int l = l0, j = j0;
+#pragma unroll
+    for (int i = 0; i < kMaxJoints; ++i) {
+      if (i < J) {
+        if ((long long)i * kWholeVoxels + t < live) {
+          int count = 0;
+          for (int v = 0; v < V; ++v) count += (s_tap[v * kWholeVoxels + l].y & kInBounds) != 0;
+          ob[i * kWholeVoxels + t] = clamp01(acc[i] / bounded_count(count));
+        }
+        l += dl;
+        j += dj;
+        if (j >= J) {
+          j -= J;
+          ++l;
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < kMaxJoints; ++i)
     if (i < J && (long long)i * kWholeVoxels + t < live)
@@ -386,7 +447,13 @@ whole_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
 //            true:  the bbox-masked cube (K, vx, vy, vz, J) is written
 //                   whole, zeros for dead slots and masked tiles, columns
 //                   and voxels, so the output needs no zero fill.
-template <bool kCoords, bool kCube>
+//   kBounded true:  (projected cube mode only) VoxelPose's crops: tl holds
+//                   each slot's float world centre (K, 3) mm, and index i
+//                   of axis a lies at (origin_a + i * step_a) + centre_a, a
+//                   linspace about the centre; each sum is over the views
+//                   whose original image holds the voxel's point, divided
+//                   by their count plus 1e-6 (the bounded mode).
+template <bool kCoords, bool kCube, bool kBounded = false>
 __global__ void __launch_bounds__(kThreads)
 crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
             const int* __restrict__ tl, const float* __restrict__ pix,
@@ -434,8 +501,13 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
     for (int i = t; i < V * 3 * kTS; i += kThreads) {
       const int v = i / (3 * kTS), r = i / kTS % 3, s = i % kTS;
       const int a = s < kTX ? 0 : s < kTX + kTY ? 1 : 2;
-      const int idx = tl[3 * k + a] + (a == 0 ? x0 + s : a == 1 ? y0 + s - kTX : z0 + s - kTX - kTY);
-      const float w = ADD(kc.origin[a], MUL((float)idx, kc.step[a]));
+      const int loc = a == 0 ? x0 + s : a == 1 ? y0 + s - kTX : z0 + s - kTX - kTY;
+      float w;
+      if (kBounded)
+        w = ADD(ADD(kc.origin[a], MUL((float)loc, kc.step[a])),
+                reinterpret_cast<const float*>(tl)[3 * k + a]);
+      else
+        w = ADD(kc.origin[a], MUL((float)(tl[3 * k + a] + loc), kc.step[a]));
       s_prod[i] = axis_product(cams + 21 * v, r, a, w);
     }
   }
@@ -471,6 +543,7 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
       zof[q] = lane;
       for (int v = 0; v < V; ++v) {
         float px, py;
+        bool inb = true;
         if (kCoords) {
           const float2 p = reinterpret_cast<const float2*>(pix)
               [((size_t)k * V + v) * n_vox + ((size_t)x * vy + y) * vz + z0 + lane];
@@ -478,9 +551,9 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
           py = p.y;
         } else {
           voxel_pixel(s_prod + v * 3 * kTS, kTS, xl, kTX + yl, kTX + kTY + lane, s_cam + 21 * v,
-                      kc, px, py);
+                      kc, px, py, kBounded ? &inb : nullptr);
         }
-        tap[v * 32 + q] = make_tap(px, py, H, W);
+        tap[v * 32 + q] = bounded_tap<kBounded>(px, py, inb, H, W);
       }
     }
     __syncwarp();
@@ -490,6 +563,7 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
       const int n = __popc(kept);
       for (int s = g; s < n; s += per_step) {
         float acc = 0.0f;
+        int count = 0;  // the bounded mode's views
         for (int v0 = 0; v0 < V; v0 += kViews) {  // kViews views' loads in flight
           float4 c[kViews];
 #pragma unroll
@@ -497,9 +571,13 @@ crop_kernel(const float* __restrict__ hm, const float* __restrict__ cams,
             if (v0 + u < V) c[u] = tap_load(hm + (v0 + u) * view, W, J, j, tap[(v0 + u) * 32 + s]);
 #pragma unroll
           for (int u = 0; u < kViews; ++u)
-            if (v0 + u < V) acc += tap_sum(tap[(v0 + u) * 32 + s], c[u]);
+            if (v0 + u < V) {
+              const int4 tp = tap[(v0 + u) * 32 + s];
+              acc += tap_sum(tp, c[u]);
+              if (kBounded) count += (tp.y & kInBounds) != 0;
+            }
         }
-        const float r = clamp01(acc / (float)V) + 0.0f;
+        const float r = clamp01(acc / (kBounded ? bounded_count(count) : (float)V)) + 0.0f;
         const int zl = zof[s];
         if (kCube) {
           col[zl * J + j] = r;
@@ -603,8 +681,9 @@ int fvp_whole_launch_geometry(int V, int X, int Y, int Z, int B, long long* out)
 }
 
 // The whole-space cube of a batch.  heatmaps (B, V, H, W, J), cams
-// (B, V, 21), the grid's axes gx (X), gy (Y), gz (Z), consts the 21 host
-// floats of CropConsts (origin and step unused) -> out (B, X, Y, Z, J).
+// (B, V, 21), the grid's axes gx (X), gy (Y), gz (Z), consts the 23 host
+// floats of CropConsts (origin and step unused) -> out (B, X, Y, Z, J);
+// bounded = 1: the bounded view mean (VoxelPose), else the mean over V.
 // V <= 8, J <= 32.  Returns kErrSharedMemory (-1) when V and the grid's
 // axes need more shared memory than a block may have, else the launch's
 // CUDA error.  Safe to call while the stream is captured into a CUDA graph
@@ -615,23 +694,29 @@ int fvp_whole_launch_geometry(int V, int X, int Y, int Z, int B, long long* out)
 int fvp_sample_whole_projected(const float* hm, const float* cams, const float* gx,
                                const float* gy, const float* gz, const float* consts,
                                float* out, int B, int V, int H, int W, int J, int X, int Y,
-                               int Z, void* stream) {
+                               int Z, int bounded, void* stream) {
   if (B <= 0 || (long long)X * Y * Z <= 0) return (int)cudaGetLastError();
   const WholeLaunch l = whole_launch(V, X, Y, Z);
   int most = 0;
   cudaError_t e = max_smem(&most);
   if (e != cudaSuccess) return (int)e;
   if (l.smem > (size_t)most) return kErrSharedMemory;
-  if (l.smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(whole_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)l.smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   CropConsts kc;
   float* dst = reinterpret_cast<float*>(&kc);
   for (int i = 0; i < (int)(sizeof(CropConsts) / sizeof(float)); ++i) dst[i] = consts[i];
-  whole_kernel<<<dim3(l.tiles, (unsigned)B), kWholeVoxels, l.smem, (cudaStream_t)stream>>>(
-      hm, cams, gx, gy, gz, kc, out, V, H, W, J, X, Y, Z);
+  const dim3 grid(l.tiles, (unsigned)B);
+#define FVP_WHOLE(Q)                                                                       \
+  do {                                                                                     \
+    if (l.smem > 48 * 1024) {                                                              \
+      e = cudaFuncSetAttribute(whole_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               (int)l.smem);                                               \
+      if (e != cudaSuccess) return (int)e;                                                 \
+    }                                                                                      \
+    whole_kernel<Q><<<grid, kWholeVoxels, l.smem, (cudaStream_t)stream>>>(                 \
+        hm, cams, gx, gy, gz, kc, out, V, H, W, J, X, Y, Z);                               \
+  } while (0)
+  if (bounded) FVP_WHOLE(true); else FVP_WHOLE(false);
+#undef FVP_WHOLE
   return (int)cudaGetLastError();
 }
 
@@ -652,10 +737,12 @@ int fvp_crop_launch_geometry(int V, int J, int K, int vx, int vy, int vz,
 
 // The crop sampler in its four modes.  heatmaps (V, H, W, J); mx (K, vx),
 // my (K, vy), mz (K, vz), valid (K,) uint8.  from_coords = 0: cams (V, 21),
-// tl (K, 3) int32 and consts (21 host floats in CropConsts order) give the
+// tl (K, 3) int32 and consts (23 host floats in CropConsts order) give the
 // pixels; from_coords = 1: pix (K, V, vx*vy*vz, 2) gives them.  cube = 0:
 // outputs (K, vx, vy, J), (K, vx, vz, J), (K, vy, vz, J), zero-filled;
-// cube = 1: output (K, vx, vy, vz, J), any contents.  Unused pointers may
+// cube = 1: output (K, vx, vy, vz, J), any contents.  bounded = 1 (with
+// from_coords = 0 and cube = 1 only): tl holds float world centres (K, 3)
+// and the view mean is the bounded one (kBounded).  Unused pointers may
 // be null.  Returns kErrSharedMemory (-1) when V and J need more shared
 // memory than a block may have, else the launch's CUDA error.  Safe to
 // call during a CUDA graph capture, as fvp_sample_whole_projected is.
@@ -665,8 +752,9 @@ int fvp_sample_crop(const float* hm, const float* cams, const int* tl,
                     const float* consts, float* out_xy, float* out_xz,
                     float* out_yz, float* out_cube, int V, int H, int W, int J,
                     int K, int vx, int vy, int vz, int from_coords, int cube,
-                    void* stream) {
+                    int bounded, void* stream) {
   if (K <= 0) return (int)cudaGetLastError();
+  if (bounded && (from_coords || !cube)) return (int)cudaErrorInvalidValue;
   const CropLaunch l = crop_launch(V, J, vx, vy, vz, from_coords, cube);
   int most = 0;
   const cudaError_t e = max_smem(&most);
@@ -679,22 +767,24 @@ int fvp_sample_crop(const float* hm, const float* cams, const int* tl,
   const int shift = lane_shift_for(J);
   const dim3 grid(l.tiles, (unsigned)K);
   const cudaStream_t st = (cudaStream_t)stream;
-#define FVP_CROP(C, Q)                                                          \
+#define FVP_CROP(C, Q, B)                                                       \
   do {                                                                          \
     if (l.smem > 48 * 1024) {                                                   \
       const cudaError_t a = cudaFuncSetAttribute(                               \
-          crop_kernel<C, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,       \
+          crop_kernel<C, Q, B>, cudaFuncAttributeMaxDynamicSharedMemorySize,    \
           (int)l.smem);                                                         \
       if (a != cudaSuccess) return (int)a;                                      \
     }                                                                           \
-    crop_kernel<C, Q><<<grid, kThreads, l.smem, st>>>(                          \
+    crop_kernel<C, Q, B><<<grid, kThreads, l.smem, st>>>(                       \
         hm, cams, tl, pix, mx, my, mz, valid, kc, out_xy, out_xz, out_yz,       \
         out_cube, V, H, W, J, vx, vy, vz, (int)l.nty, (int)l.nzc, shift);       \
   } while (0)
-  if (from_coords) {
-    if (cube) FVP_CROP(true, true); else FVP_CROP(true, false);
+  if (bounded) {
+    FVP_CROP(false, true, true);
+  } else if (from_coords) {
+    if (cube) FVP_CROP(true, true, false); else FVP_CROP(true, false, false);
   } else {
-    if (cube) FVP_CROP(false, true); else FVP_CROP(false, false);
+    if (cube) FVP_CROP(false, true, false); else FVP_CROP(false, false, false);
   }
 #undef FVP_CROP
   return (int)cudaGetLastError();

@@ -39,11 +39,15 @@ device.
   `jln.people`).  One request in `GraphMarks.EVERY` answered by a
   captured graph adds its device intervals from CUDA events
   (`device.upload`, `device.launch_gap`, and from marks captured into
-  the graph `device.backbone`, `device.hdn`, `device.jln`, and with a
-  ViTPose `device.vit_blocks` and `device.vit_head`).
+  the graph `device.backbone`, `device.hdn`, `device.jln`, with a
+  ViTPose `device.vit_blocks` and `device.vit_head`, and for VoxelPose
+  (`cfg.MODEL` "voxelpose", `models/voxelpose.py`) `device.cpn` and
+  `device.prn` alone; its PRN's slots and valid people fill the same
+  counters).
   Construction, each graph's capture and each fold of the model or the
   backbone are set-up spans (`setup.build`, `setup.capture`, `setup.fold`
-  labelled "fusion", or the backbone's "backbone" or "vitpose").  `stats`
+  labelled "fusion", or "voxelpose" for VoxelPose, or the backbone's
+  "backbone" or "vitpose").  `stats`
   gives count / mean / p50 / p95 of the request spans, `trace_summary`
   every span, interval, counter and set-up span.
 - **Raw outputs.** Each graph returns the fused poses and the proposal
@@ -67,7 +71,7 @@ from ..device import DeviceLike, pin_float32, resolve_device
 from ..geometry.cameras import pack_rig
 from ..geometry.example_rigs import dome_rig
 from ..geometry.transforms import get_resize_transform
-from ..models.faster_voxelpose import ModelOutputs, build_model
+from ..models import ModelOutputs, build_fusion_model
 from ..models.resnet import build_backbone, images_to_heatmaps
 from ..utils import profiling
 from ..weights import from_jax_variables
@@ -145,7 +149,7 @@ class PoseService:
             on_card = [self.device] if self.device.type == "cuda" else []
             with torch.random.fork_rng(devices=on_card):
                 torch.manual_seed(seed)
-                self.model = build_model(cfg)
+                self.model = build_fusion_model(cfg)
                 self.backbone = build_backbone(cfg, self.device)
             self.random_init = variables is None
             self.backbone_random_init = backbone_variables is None

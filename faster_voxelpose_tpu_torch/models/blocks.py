@@ -34,9 +34,9 @@ from torch import nn
 from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD
 from ..utils import profiling
 
-_CONV = {1: F.conv1d, 2: F.conv2d}
-_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d}
-_POOL = {1: F.max_pool1d, 2: F.max_pool2d}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
 def scaled(channels: int, width: float) -> int:
@@ -215,20 +215,21 @@ def deconv_folded(deconv: "Deconv", x: torch.Tensor) -> torch.Tensor:
 
 
 def _cudnn_operands(conv: "Conv", x: torch.Tensor):
-    """(x, weight, stride, padding) of conv's folded convolution as
-    cuDNN's fused ops take them, in 2D: a rank-1 conv as one of unit
-    height (views, no copy)."""
+    """(x, weight, stride, padding, dilation) of conv's folded convolution
+    as cuDNN's fused ops take them, in 2D or 3D: a rank-1 conv as one of
+    unit height (views, no copy)."""
     x, w = conv.pad_same(x), conv.folded_weight
     if conv.rank == 1:
-        return x.unsqueeze(2), w.unsqueeze(2), (1, conv.stride), (0, conv.pad)
-    return x, w, (conv.stride,) * 2, (conv.pad,) * 2
+        return x.unsqueeze(2), w.unsqueeze(2), (1, conv.stride), (0, conv.pad), (1, 1)
+    r = conv.rank
+    return x, w, (conv.stride,) * r, (conv.pad,) * r, (1,) * r
 
 
 def conv_relu(conv: "Conv", x: torch.Tensor) -> torch.Tensor:
     """relu(conv's folded convolution of x): one cuDNN call on the card."""
     if x.is_cuda:
-        x2, w, stride, pad = _cudnn_operands(conv, x)
-        y = torch.cudnn_convolution_relu(x2, w, conv.folded_bias, stride, pad, (1, 1), 1)
+        x2, w, stride, pad, dil = _cudnn_operands(conv, x)
+        y = torch.cudnn_convolution_relu(x2, w, conv.folded_bias, stride, pad, dil, 1)
         return y.squeeze(2) if conv.rank == 1 else y
     return conv_folded(conv, x).relu_()
 
@@ -237,10 +238,10 @@ def conv_add_relu(conv: "Conv", x: torch.Tensor, z: torch.Tensor) -> torch.Tenso
     """relu(conv's folded convolution of x + z), z the block's shortcut:
     one cuDNN call on the card."""
     if x.is_cuda:
-        x2, w, stride, pad = _cudnn_operands(conv, x)
+        x2, w, stride, pad, dil = _cudnn_operands(conv, x)
         z2 = z.unsqueeze(2) if conv.rank == 1 else z
         y = torch.cudnn_convolution_add_relu(x2, w, z2, 1.0, conv.folded_bias, stride, pad,
-                                             (1, 1), 1)
+                                             dil, 1)
         return y.squeeze(2) if conv.rank == 1 else y
     return conv_folded(conv, x).add_(z).relu_()
 
@@ -268,7 +269,8 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
     rounded to the layer's compute dtype and kept in its output dtype
     (float32 for a `float32_out` layer); torch's own `nn.Conv2d`,
     `nn.Linear` and `nn.LayerNorm` (a transformer's trunk) rounded to
-    `module.dtype`.  4D kernels are channels-last, kept as `store_folded`
+    `module.dtype`.  4D kernels are channels-last and 5D kernels
+    channels-last-3d, kept as `store_folded`
     keeps them; then the layer's forward runs on them outside train mode
     (`runs_folded`).  Returns the tensors the fold read.  Run it under
     `torch.no_grad()`, and outside inference mode, so that a refold
@@ -293,6 +295,8 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
         w = w.to(dt, copy=True).to(out)
         if w.ndim == 4:
             w = w.contiguous(memory_format=torch.channels_last)
+        elif w.ndim == 5:
+            w = w.contiguous(memory_format=torch.channels_last_3d)
         store_folded(layer, w, None if b is None else b.to(dt, copy=True).to(out))
         layer.folded = True
         read += layer._parameters.values()
@@ -474,7 +478,8 @@ class UpsampleBlock(nn.Module):
 
 class EncoderDecoder(nn.Module):
     """Two-level U-Net trunk 32 -> 64 -> 128 -> 64 -> 32 with residual
-    skips (reference EncoderDecorder), for rank 1 or 2."""
+    skips (reference EncoderDecorder), for rank 1, 2 or 3 (VoxelPose's
+    V2VNet trunk)."""
 
     def __init__(self, rank=2, dtype=torch.float32, width=1.0):
         super().__init__()
@@ -504,7 +509,8 @@ class EncoderDecoder(nn.Module):
 
 class UNetFront(nn.Module):
     """Front 7-wide conv block + residual widen to 32 channels, shared by
-    P2PNet / CenterNet / C2CNet (reference front_layers)."""
+    P2PNet / CenterNet / C2CNet and, at rank 3, VoxelPose's V2VNet
+    (reference front_layers)."""
 
     def __init__(self, cin, rank=2, dtype=torch.float32, width=1.0):
         super().__init__()

@@ -11,27 +11,17 @@ mode the folded layers then run on them.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..config import Config
 from ..utils import profiling
 from .blocks import BatchNorm, FoldedModule
+from .common import DTYPES, ModelOutputs
 from .hdn import HDNOutputs, HumanDetectionNet
 from .jln import JLNOutputs, JointLocalizationNet
 from .projection import make_projection_geometry, resolve_crop_route
-
-DTYPES = {"float32": torch.float32, "float64": torch.float64,
-          "bfloat16": torch.bfloat16, "float16": torch.float16}
-
-
-class ModelOutputs(NamedTuple):
-    fused_poses: torch.Tensor  # (B, K, J, 5): xyz, validity flag, score
-    plane_poses: torch.Tensor  # (3, B, K, J, 2)
-    proposal_centers: torch.Tensor  # (B, K, 7)
-    losses: Optional[Dict[str, torch.Tensor]]
-
 
 GlobalSum = Callable[[torch.Tensor], torch.Tensor]
 

@@ -1,5 +1,7 @@
-"""BEV proposal decoding: max-pool-equality NMS + top-k (counterpart of
-`faster_voxelpose_tpu/ops/nms.py`, reference lib/core/proposal.py)."""
+"""Proposal decoding: max-pool-equality NMS + top-k, on Faster VoxelPose's
+BEV map (counterpart of `faster_voxelpose_tpu/ops/nms.py`, reference
+lib/core/proposal.py) and on VoxelPose's root cube (`nms3d_topk`,
+voxelpose-pytorch lib/core/proposal.py)."""
 
 from __future__ import annotations
 
@@ -33,3 +35,19 @@ def nms2d_topk(
     values, topk_flat = values[:, :max_num], order[:, :max_num]
     index = torch.stack([topk_flat // W, topk_flat % W], dim=-1)
     return values, index, topk_flat
+
+
+def nms3d_topk(root_cubes: torch.Tensor, max_num: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VoxelPose's proposals: (B, X, Y, Z) root cubes, only the voxels equal
+    to their 3x3x3 max-pool kept (the others zeroed), flattened, top-k.
+
+    Returns (values (B, K), index (B, K, 3) as (x, y, z), flat index
+    (B, K)); ties go to the lower flat index, as in `nms2d_topk`."""
+    B, X, Y, Z = root_cubes.shape
+    pooled = F.max_pool3d(root_cubes[:, None], 3, stride=1, padding=1)[:, 0]
+    kept = torch.where(root_cubes == pooled, root_cubes, torch.zeros_like(root_cubes))
+    values, order = torch.sort(kept.reshape(B, -1), dim=1, descending=True, stable=True)
+    values, flat = values[:, :max_num], order[:, :max_num]
+    index = torch.stack([flat // (Y * Z), flat // Z % Y, flat % Z], dim=-1)
+    return values, index, flat

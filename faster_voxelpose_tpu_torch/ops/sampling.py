@@ -47,3 +47,15 @@ def sample_and_mean_views(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Te
     (V, N, 2) -> (N, J), clamped to [0, 1] (reference project_whole.py:83
     mean over cameras, clamp at :86)."""
     return bilinear_sample_pixels(heatmaps, pix).mean(dim=0).clamp(0.0, 1.0)
+
+
+def sample_and_bound_views(heatmaps: torch.Tensor, pix: torch.Tensor,
+                           inside: torch.Tensor) -> torch.Tensor:
+    """VoxelPose's view mean (its ProjectLayer, `bounding`): heatmaps
+    (V, H, W, J), pix (V, N, 2), inside (V, N) bool, whether each point's
+    projection lies in that view's original image -> (N, J): the samples
+    of the views it lies inside, summed in view order, over their count
+    plus 1e-6, clamped to [0, 1]."""
+    vals = bilinear_sample_pixels(heatmaps, pix) * inside[..., None].to(heatmaps.dtype)
+    count = inside.to(heatmaps.dtype).sum(dim=0)[:, None]
+    return (vals.sum(dim=0) / (count + 1e-6)).clamp(0.0, 1.0)

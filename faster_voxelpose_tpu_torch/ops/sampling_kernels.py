@@ -105,6 +105,21 @@ sample_crop_cube
     columns and voxels), a column's z run contiguous, so the output needs
     no zero fill.
 
+Bounded mode (VoxelPose, `models/voxelpose.py`)
+    sample_whole_projected(..., bounded=True) and sample_crop_cube(...,
+    centres=...) run the whole-space sampler and the crop sampler's
+    projected cube mode with VoxelPose's ProjectLayer in place of the view
+    mean: each sum runs over the views whose original image holds the
+    voxel's projected point (before its clamp), divided by their count plus
+    1e-6.  The crop sampler then takes each slot's crop about a float world
+    centre (index i of axis a at (origin_a + i * step_a) + centre_a,
+    `centred_projection`) with all-true axis masks, in place of an integer
+    origin on the fine grid and the bbox masks.  Both are compile-time modes
+    of the same kernels (`csrc/sampling.cu`, kBounded), whose Faster
+    VoxelPose instantiations are unchanged.  Bound on an H100: bytes; the
+    crop cube writes K x 64^3 x J float32 (157 MB at the Panoptic profile,
+    about 47 us).
+
 Every kernel here is forward only: no gradient reaches the samplers in
 training (the heatmaps are data, the proposals are detached), and each
 wrapper raises on an input that requires grad rather than detach it.
@@ -126,8 +141,9 @@ from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..geometry.cameras import project_points
 from ..geometry.grids import norm_to_pixel, project_to_norm_coords, reciprocal_f32
-from .sampling import sample_and_mean_views
+from .sampling import sample_and_bound_views, sample_and_mean_views
 
 LAUNCHES: Dict[str, int] = {
     "sample_whole": 0,
@@ -177,16 +193,32 @@ class CropProjection:
     heatmap_size: Tuple[int, int]
 
     def consts(self) -> np.ndarray:
-        """The 21 float32 values of the kernel's CropConsts struct."""
+        """The 23 float32 values of the kernel's CropConsts struct."""
         w, h = self.heatmap_size
         iw, ih = self.image_size
         return np.asarray(
             [*self.origin, *self.step, *self.resize_transform,
              float(max(self.ori_image_size)),
              w, reciprocal_f32(iw), h, reciprocal_f32(ih),
-             reciprocal_f32(w - 1), reciprocal_f32(h - 1), w - 1, h - 1],
+             reciprocal_f32(w - 1), reciprocal_f32(h - 1), w - 1, h - 1,
+             *self.ori_image_size],
             np.float32,
         )
+
+
+def centred_projection(proj: CropProjection, size: Sequence[float],
+                       voxels: Sequence[int]) -> CropProjection:
+    """The crop projection of VoxelPose's cubes, `voxels` per axis over
+    `size` mm about a float centre: index i of axis a at
+    (origin_a + i * step_a) + centre_a, origin -size / 2 and step
+    size / (voxels - 1), in float32; the frames as in `proj`."""
+    size = np.asarray(size, np.float32)
+    step = size / (np.asarray(voxels, np.float32) - np.float32(1.0))
+    return CropProjection(origin=tuple(float(v) for v in -size / np.float32(2.0)),
+                          step=tuple(float(v) for v in step),
+                          resize_transform=proj.resize_transform,
+                          ori_image_size=proj.ori_image_size, image_size=proj.image_size,
+                          heatmap_size=proj.heatmap_size)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +229,26 @@ class CropProjection:
 def sample_whole_plain(heatmaps: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
     """heatmaps (V, H, W, J), pix (V, N, 2) -> (N, J) view mean, clamped."""
     return sample_and_mean_views(heatmaps, pix)
+
+
+def inside_original(proj: CropProjection, pts: torch.Tensor, cams: torch.Tensor) -> torch.Tensor:
+    """Whether each world point (..., N, 3) projects, before any clamp,
+    into the original image of each camera (..., 21): (..., N) bool, the
+    bounded mode's `bounding`."""
+    xy = project_points(pts, cams)
+    w, h = (float(v) for v in proj.ori_image_size)
+    return (xy[..., 0] >= 0) & (xy[..., 1] >= 0) & (xy[..., 0] < w) & (xy[..., 1] < h)
+
+
+def sample_points_plain(heatmaps: torch.Tensor, proj: CropProjection, pts: torch.Tensor,
+                        cams: torch.Tensor, bounded: bool) -> torch.Tensor:
+    """heatmaps (V, H, W, J) sampled at world points pts (N, 3) of every
+    view of cams (V, 21) -> (N, J): the view mean, or with `bounded` the
+    bounded one, clamped."""
+    pix = grid_pixels(proj, pts, cams)
+    if bounded:
+        return sample_and_bound_views(heatmaps, pix, inside_original(proj, pts, cams))
+    return sample_whole_plain(heatmaps, pix)
 
 
 def grid_pixels(proj: CropProjection, pts: torch.Tensor, cams: torch.Tensor) -> torch.Tensor:
@@ -221,16 +273,16 @@ def axes_grid(axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]) -> torch.Te
 def sample_whole_projected_plain(
     heatmaps: torch.Tensor, cams: torch.Tensor,
     axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], proj: CropProjection,
+    bounded: bool = False,
 ) -> torch.Tensor:
     """heatmaps (B, V, H, W, J), cams (B, V, 21), axes (X,), (Y,), (Z,) ->
     (B, X, Y, Z, J): per sample the grid's pixels in every view, then the
-    view mean of their bilinear samples, clamped."""
+    view mean of their bilinear samples (with `bounded` the bounded mean),
+    clamped."""
     grid = axes_grid(axes)
     shape = tuple(len(a) for a in axes) + (heatmaps.shape[-1],)
-    return torch.stack([
-        sample_whole_plain(hm, grid_pixels(proj, grid, c)).reshape(shape)
-        for hm, c in zip(heatmaps, cams)
-    ])
+    return torch.stack([sample_points_plain(hm, proj, grid, c, bounded).reshape(shape)
+                        for hm, c in zip(heatmaps, cams)])
 
 
 def crop_world_points(
@@ -248,6 +300,33 @@ def crop_world_points(
     gy = axes[1][..., None, :, None].expand(full)
     gz = axes[2][..., None, None, :].expand(full)
     return torch.stack([gx, gy, gz], dim=-1).reshape(lead + (-1, 3))
+
+
+def centred_world_points(crop: CropProjection, centres: torch.Tensor,
+                         voxels: Tuple[int, int, int]) -> torch.Tensor:
+    """World coords (K, vx*vy*vz, 3) of crops about float centres (K, 3)
+    mm (`centred_projection`), voxels in (x, y, z) order, in the bounded
+    crop kernel's op order."""
+    axes = [(crop.origin[a] + torch.arange(voxels[a], device=centres.device).float()
+             * crop.step[a]) + centres[:, a, None] for a in range(3)]  # (K, v_a)
+    full = (centres.shape[0],) + tuple(voxels)
+    return torch.stack([axes[0][:, :, None, None].expand(full),
+                        axes[1][:, None, :, None].expand(full),
+                        axes[2][:, None, None, :].expand(full)], dim=-1).reshape(full[0], -1, 3)
+
+
+def sample_crop_centred_plain(heatmaps: torch.Tensor, cams: torch.Tensor, centres: torch.Tensor,
+                              mx: torch.Tensor, my: torch.Tensor, mz: torch.Tensor,
+                              valid: torch.Tensor, crop: CropProjection) -> torch.Tensor:
+    """The plain version of sample_crop_cube's centred, bounded mode: the
+    masked cube (K, vx, vy, vz, J) of crops about float centres."""
+    voxels = (mx.shape[1], my.shape[1], mz.shape[1])
+    pts = centred_world_points(crop, centres.float(), voxels)
+
+    def slot_samples(k: int) -> torch.Tensor:
+        return sample_points_plain(heatmaps, crop, pts[k], cams, True)
+
+    return _crop_plain(heatmaps, slot_samples, mx, my, mz, valid, cube=True)
 
 
 def crop_pixels(
@@ -278,10 +357,11 @@ def sample_crop_planes_plain(
     with `cube` of sample_crop_cube's projecting mode."""
     voxels = (mx.shape[1], my.shape[1], mz.shape[1])
 
-    def slot_pixels(k: int) -> torch.Tensor:
-        return grid_pixels(crop, crop_world_points(crop, centers_tl[k], voxels), cams)
+    def slot_samples(k: int) -> torch.Tensor:
+        pix = grid_pixels(crop, crop_world_points(crop, centers_tl[k], voxels), cams)
+        return sample_and_mean_views(heatmaps, pix)
 
-    return _crop_plain(heatmaps, slot_pixels, mx, my, mz, valid, cube=cube)
+    return _crop_plain(heatmaps, slot_samples, mx, my, mz, valid, cube=cube)
 
 
 def sample_crop_coords_plain(
@@ -297,15 +377,16 @@ def sample_crop_coords_plain(
     """The crop sampler with the pixels read from pix (K, V, N, 2): the
     plain version of sample_crop_planes_coords, and with `cube` of
     sample_crop_cube's coords mode."""
-    return _crop_plain(heatmaps, lambda k: pix[k], mx, my, mz, valid, cube=cube)
+    return _crop_plain(heatmaps, lambda k: sample_and_mean_views(heatmaps, pix[k]), mx, my, mz,
+                       valid, cube=cube)
 
 
-def _crop_plain(heatmaps, slot_pixels, mx, my, mz, valid, *, cube):
-    """Per valid slot: its pixels (V, N, 2) from slot_pixels(k), sample
-    every view, mean, clamp, mask; then max-project, or with `cube` keep
-    the masked cube.  One slot's cube is live at a time unless `cube`;
-    invalid slots give zeros.  Returns (K, vx, vy, J), (K, vx, vz, J),
-    (K, vy, vz, J), or the cube (K, vx, vy, vz, J)."""
+def _crop_plain(heatmaps, slot_samples, mx, my, mz, valid, *, cube):
+    """Per valid slot: its samples (N, J) from slot_samples(k) (every
+    view sampled, averaged, clamped), masked; then max-projected, or with
+    `cube` the masked cube kept.  One slot's cube is live at a time unless
+    `cube`; invalid slots give zeros.  Returns (K, vx, vy, J),
+    (K, vx, vz, J), (K, vy, vz, J), or the cube (K, vx, vy, vz, J)."""
     K, vx, vy, vz = mx.shape[0], mx.shape[1], my.shape[1], mz.shape[1]
     J = heatmaps.shape[-1]
     kw = dict(dtype=torch.float32, device=heatmaps.device)
@@ -317,7 +398,7 @@ def _crop_plain(heatmaps, slot_pixels, mx, my, mz, valid, *, cube):
     for k in range(K):
         if not bool(valid[k]):
             continue
-        c = sample_and_mean_views(heatmaps, slot_pixels(k)).reshape(vx, vy, vz, J)
+        c = slot_samples(k).reshape(vx, vy, vz, J)
         m = (mx[k].bool()[:, None, None] & my[k].bool()[None, :, None]
              & mz[k].bool()[None, None, :])
         c = c * m[..., None].float()
@@ -360,11 +441,11 @@ def _lib():
     if not getattr(lib, "_fvp_typed", False):
         lib.fvp_sample_whole.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.fvp_sample_whole.restype = _I
-        lib.fvp_sample_crop.argtypes = [_P] * 13 + [_I] * 10 + [_P]
+        lib.fvp_sample_crop.argtypes = [_P] * 13 + [_I] * 11 + [_P]
         lib.fvp_sample_crop.restype = _I
         lib.fvp_crop_launch_geometry.argtypes = [_I] * 8 + [_P]
         lib.fvp_crop_launch_geometry.restype = _I
-        lib.fvp_sample_whole_projected.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+        lib.fvp_sample_whole_projected.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         lib.fvp_sample_whole_projected.restype = _I
         lib.fvp_whole_launch_geometry.argtypes = [_I] * 5 + [_P]
         lib.fvp_whole_launch_geometry.restype = _I
@@ -449,13 +530,15 @@ def whole_launch_geometry(V: int, grid: Tuple[int, int, int], B: int) -> Dict[st
 def sample_whole_projected(
     heatmaps: torch.Tensor, cams: torch.Tensor,
     axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], proj: CropProjection,
+    bounded: bool = False,
 ) -> torch.Tensor:
     """heatmaps (B, V, H, W, J) f32, cams (B, V, 21) f32, the grid's axes
     (X,), (Y,), (Z,) f32 and the projection constants -> the whole-space
-    cubes (B, X, Y, Z, J) f32."""
+    cubes (B, X, Y, Z, J) f32; with `bounded`, VoxelPose's bounded view
+    mean."""
     gx, gy, gz = axes
     if _on_cpu(heatmaps, cams, gx, gy, gz):
-        return sample_whole_projected_plain(heatmaps, cams, axes, proj)
+        return sample_whole_projected_plain(heatmaps, cams, axes, proj, bounded)
     name = "sample_whole_projected"
     if heatmaps.dim() != 5:
         raise ValueError(f"{name}: heatmaps of shape {tuple(heatmaps.shape)}, expected "
@@ -479,7 +562,7 @@ def sample_whole_projected(
     consts = proj.consts()
     err = _lib().fvp_sample_whole_projected(
         heatmaps.data_ptr(), cams.data_ptr(), gx.data_ptr(), gy.data_ptr(), gz.data_ptr(),
-        consts.ctypes.data, out.data_ptr(), B, V, H, W, J, X, Y, Z,
+        consts.ctypes.data, out.data_ptr(), B, V, H, W, J, X, Y, Z, int(bounded),
         _stream(heatmaps.device),
     )
     if err == _ERR_SHARED_MEMORY:
@@ -505,23 +588,28 @@ def crop_launch_geometry(V: int, J: int, K: int, voxels: Tuple[int, int, int], *
 
 
 def _launch_crop(name, heatmaps, mx, my, mz, valid, *, cams=None, centers_tl=None,
-                 crop=None, pix=None, cube=False):
+                 crop=None, pix=None, cube=False, centres=None):
     """Check the inputs of one crop-sampler mode, allocate its outputs and
     launch fvp_sample_crop; pixels come from pix when given, else from
-    cams, centers_tl and crop."""
+    cams, centers_tl (or the float centres of the bounded mode) and
+    crop."""
     V, H, W, J = heatmaps.shape
     K, vx, vy, vz = mx.shape[0], mx.shape[1], my.shape[1], mz.shape[1]
     _check(heatmaps, "heatmaps", torch.float32, (V, H, W, J))
     for t, tname, n in ((mx, "mx", vx), (my, "my", vy), (mz, "mz", vz)):
         _check(t, tname, torch.uint8, (K, n))
     _check(valid, "valid", torch.uint8, (K,))
-    if pix is None:
+    if centres is not None:
+        _check(cams, "cams", torch.float32, (V, 21))
+        _check(centres, "centres", torch.float32, (K, 3))
+        consts = crop.consts()
+    elif pix is None:
         _check(cams, "cams", torch.float32, (V, 21))
         _check(centers_tl, "centers_tl", torch.int32, (K, 3))
         consts = crop.consts()
     else:
         _check(pix, "pix", torch.float32, (K, V, vx * vy * vz, 2))
-        consts = np.zeros(21, np.float32)
+        consts = np.zeros(23, np.float32)
     if not 0 < J <= 32:
         raise ValueError(f"{name} takes 1..32 joints, got {J}")
     if K > 65535:
@@ -534,10 +622,10 @@ def _launch_crop(name, heatmaps, mx, my, mz, valid, *, cams=None, centers_tl=Non
         out = planes = tuple(torch.zeros((K, a, b, J), **kw)
                              for a, b in ((vx, vy), (vx, vz), (vy, vz)))
     err = _lib().fvp_sample_crop(
-        heatmaps.data_ptr(), _ptr(cams), _ptr(centers_tl), _ptr(pix),
-        mx.data_ptr(), my.data_ptr(), mz.data_ptr(), valid.data_ptr(),
+        heatmaps.data_ptr(), _ptr(cams), _ptr(centers_tl if centres is None else centres),
+        _ptr(pix), mx.data_ptr(), my.data_ptr(), mz.data_ptr(), valid.data_ptr(),
         consts.ctypes.data, *(_ptr(p) for p in planes), _ptr(out[0]) if cube else None,
-        V, H, W, J, K, vx, vy, vz, int(pix is not None), int(cube),
+        V, H, W, J, K, vx, vy, vz, int(pix is not None), int(cube), int(centres is not None),
         _stream(heatmaps.device),
     )
     if err == _ERR_SHARED_MEMORY:
@@ -594,12 +682,23 @@ def sample_crop_cube(
     centers_tl: Optional[torch.Tensor] = None,
     crop: Optional[CropProjection] = None,
     pix: Optional[torch.Tensor] = None,
+    centres: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The bbox-masked crop cubes (K, vx, vy, vz, J) f32, zero for invalid
     slots; pixels from pix (K, V, N, 2) when given, else projected from
-    cams (V, 21), centers_tl (K, 3) int32 and crop."""
+    cams (V, 21), centers_tl (K, 3) int32 and crop.  With `centres` (K, 3)
+    f32 world mm in place of centers_tl: VoxelPose's cubes, each about its
+    float centre under `crop` (`centred_projection`), in the bounded mode."""
     if (pix is None) == (cams is None):
         raise ValueError("sample_crop_cube takes either pix or cams, centers_tl and crop")
+    if centres is not None:
+        if pix is not None or centers_tl is not None:
+            raise ValueError("sample_crop_cube's centred mode takes cams, centres and crop")
+        args = (heatmaps, cams, centres, mx, my, mz, valid)
+        if _on_cpu(*args):
+            return sample_crop_centred_plain(*args, crop)
+        return _launch_crop("sample_crop_cube", heatmaps, mx, my, mz, valid, cams=cams,
+                            crop=crop, cube=True, centres=centres)
     src = (pix,) if pix is not None else (cams, centers_tl)
     if _on_cpu(heatmaps, mx, my, mz, valid, *src):
         if pix is not None:

@@ -1,5 +1,6 @@
 """Soft-argmax decoding over orthographic plane heatmaps (counterpart of
-`faster_voxelpose_tpu/ops/soft_argmax.py`, reference SoftArgmaxLayer)."""
+`faster_voxelpose_tpu/ops/soft_argmax.py`, reference SoftArgmaxLayer), and
+over VoxelPose's joint cubes (`soft_argmax_3d`)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,16 @@ def soft_argmax(
         dim=-1,
     )
     return poses, confs
+
+
+def soft_argmax_3d(cubes: torch.Tensor, axes: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                   beta: float) -> torch.Tensor:
+    """VoxelPose's SoftArgmaxLayer: cubes (N, J, X, Y, Z), the grid's
+    offsets along each axis (X,), (Y,), (Z,) mm -> (N, J, 3), the
+    expectation of the grid under a softmax of beta * cube over its
+    voxels.  The grid is separable, so each coordinate is taken from its
+    axis' marginal; all in float32, with no matmul."""
+    N, J, X, Y, Z = cubes.shape
+    p = torch.softmax(beta * cubes.float().reshape(N, J, -1), dim=-1).reshape(N, J, X, Y, Z)
+    marginals = (p.sum(dim=(3, 4)), p.sum(dim=(2, 4)), p.sum(dim=(2, 3)))
+    return torch.stack([(m * a.float()).sum(-1) for m, a in zip(marginals, axes)], dim=-1)

@@ -15,7 +15,7 @@ to warm, then replayed once under `torch.profiler` (CPU and CUDA
 activities); `tensorboard_trace_handler` writes the trace under `logdir`
 (default build/trace, inside the checkout) as `<host>.<ns>.pt.trace.json.gz`.
 The replay's kernels are in the trace by name (`whole_kernel`,
-`crop_kernel<false, false>`, cuDNN's convolutions).  On the CPU (tests)
+`crop_kernel<false, false, false>`, cuDNN's convolutions).  On the CPU (tests)
 the F frames run eagerly under the CPU profiler.  Prints where the trace
 went and, last, one JSON line with its path, F and the kernel launches of
 the traced replay.

@@ -114,9 +114,12 @@ REQUEST_SPANS = ("service.request", "service.input", "service.upload", "service.
 # device intervals of a request served by a captured graph, ms (CUDA
 # events); NaN where not measured.  The ViT's two (a ViTPose backbone's
 # blocks, and its last norm and head) come after the first five, whose
-# columns keep their places
+# columns keep their places, and VoxelPose's two after them (its graph's
+# start to its proposals: whole-space sampling, CPN, NMS and top K; then
+# on to its end: cube sampling, PRN over the K slots, soft-argmax)
 DEVICE_INTERVALS = ("device.upload", "device.launch_gap", "device.backbone", "device.hdn",
-                    "device.jln", "device.vit_blocks", "device.vit_head")
+                    "device.jln", "device.vit_blocks", "device.vit_head", "device.cpn",
+                    "device.prn")
 COUNTERS = ("jln.slots", "jln.people")
 CAPACITY = 65536  # requests kept (the ring's bound)
 SETUP_CAPACITY = 4096  # set-up spans kept
@@ -319,7 +322,7 @@ class SpanLog:
     def requests(self, owner: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Copies of the kept requests, oldest first (of one service where
         `owner` is given): "id", "owner", "stamps_ns" (n, 6), "device_ms"
-        (n, 7), "counters" (n, 2)."""
+        (n, 9), "counters" (n, 2)."""
         order = self._order(self.written, self.capacity)
         if owner is not None:
             order = order[self.rows[order, 1] == owner]
@@ -408,6 +411,7 @@ class GraphMarks:
     EVERY = 16
     STAGES = ("start", "backbone", "hdn", "end")
     VIT_STAGES = ("vit_patch", "vit_blocks", "backbone")  # a ViTPose backbone's marks
+    VOXELPOSE_STAGES = ("start", "cpn", "end")  # a VoxelPose graph's marks
 
     def __init__(self):
         self.upload = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -430,10 +434,15 @@ class GraphMarks:
         graph's start, then start -> backbone -> hdn -> end (NaN where the
         graph has no such mark: the backbone of a heatmaps graph); where
         the graph holds a ViT's marks, vit_patch -> vit_blocks -> backbone
-        after them, which a graph without them does not read."""
+        after them, which a graph without them does not read.  A VoxelPose
+        graph (its "cpn" mark) reads NaN for the stages it lacks and
+        start -> cpn -> end as the last two."""
         ev, (a, b) = self.events, self.upload
         start, nan = ev.get("start"), float("nan")
         out = [a.elapsed_time(b), b.elapsed_time(start) if start is not None else nan]
+        if "cpn" in ev:
+            first, cpn, end = (ev[n] for n in self.VOXELPOSE_STAGES)
+            return out + [nan] * 5 + [first.elapsed_time(cpn), cpn.elapsed_time(end)]
         prev = start
         for name in self.STAGES[1:]:
             e = ev.get(name)

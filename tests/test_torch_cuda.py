@@ -1702,3 +1702,90 @@ def test_block_shape_variants_equal_the_production_build(dev, defines):
                                                ("FVP_CROP_TZ", 32)))
     assert g0["tile"] == (4, 4, 32) and g1["tile"] == want
     assert g0["threads"] == 256 and g1["threads"] == tile.get("FVP_THREADS", 256)
+
+
+# ---------------------------------------------------------------------------
+# VoxelPose (models/voxelpose.py): the samplers' bounded modes, its graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("heatmap", _WHOLE_HEATMAPS)
+@pytest.mark.parametrize("V", [3, 5])
+def test_whole_bounded_matches_plain(dev, V, heatmap):
+    """The whole-space sampler's bounded mode (VoxelPose's ProjectLayer)
+    against its plain version, 1e-5, on rigs with a camera inside the
+    volume (voxels outside some views' images); not the view mean."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    geom, hm, cams, axes, proj = _whole_case(dev, 15, V, 2, heatmap=heatmap, seed=V)
+    out = sk.sample_whole_projected(hm, cams, axes, proj, bounded=True)
+    ref = sk.sample_whole_projected_plain(hm.cpu(), cams.cpu(), tuple(a.cpu() for a in axes),
+                                          proj, bounded=True)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
+    assert float((out - sk.sample_whole_projected(hm, cams, axes, proj)).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("J", [15, 17])
+def test_centred_cube_matches_plain(dev, J):
+    """The crop sampler's bounded cube mode about float centres (one far
+    outside the space, one at the camera inside it) against its plain
+    version, 1e-5; a dead slot reads zeros; the launch is counted as
+    sample_crop_cube."""
+    from faster_voxelpose_tpu_torch.models import projection as pj
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    geom, hm, cams, axes, proj = _whole_case(dev, J, 5, 1, heatmap=(200, 152), seed=J)
+    crop = sk.centred_projection(pj.crop_projection(geom), (2000.0,) * 3, (24, 20, 16))
+    centres = torch.tensor([[0.0, 0.0, 800.0], [1234.5, -987.25, 400.0], [9000.0, 0.0, 0.0],
+                            [0.0, 0.0, 0.0], [300.0, -200.0, 1500.0]], device=dev)
+    centres[3] = cams[0, 0, 9:12]
+    masks = [torch.ones((5, n), dtype=torch.uint8, device=dev) for n in (24, 20, 16)]
+    valid = torch.tensor([1, 1, 1, 1, 0], dtype=torch.uint8, device=dev)
+    sk.reset_launch_counts()
+    out = sk.sample_crop_cube(hm[0], *masks, valid, cams=cams[0], crop=crop, centres=centres)
+    assert sk.launch_counts()["sample_crop_cube"] == 1
+    ref = sk.sample_crop_cube(hm[0].cpu(), *(m.cpu() for m in masks), valid.cpu(),
+                              cams=cams[0].cpu(), crop=crop, centres=centres.cpu())
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=0)
+    assert float(out[4].abs().max()) == 0.0 and float(out[0].max()) > 0.1
+
+
+def _voxelpose_service(dev, aot=True):
+    """PoseService serving the tiny VoxelPose (float32, 5 views) with
+    seeded fan-in scaled weights."""
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+
+    cfg = tiny_cfg()
+    cfg.MODEL, cfg.DATASET.CAMERA_NUM, cfg.CAPTURE_SPEC.MIN_SCORE = "voxelpose", 5, -1e9
+    rig = dome_rig(1, 5, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
+                   ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE, focal=240.0)[0]
+    svc = PoseService(cfg, rig=rig, device=dev, aot=False)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in svc.model.parameters():
+            if p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=gen) * (2.0 / p[0].numel()) ** 0.5)
+    if aot:
+        svc.warmup()
+    return svc
+
+
+def test_voxelpose_graph_equals_eager(dev):
+    """The captured VoxelPose graph answers as the eager forward, request
+    by request (float32), and fills `device.cpn`, `device.prn` and the
+    slot counters; the graph launches the bounded modes once each."""
+    compiled, eager = _voxelpose_service(dev), _voxelpose_service(dev, aot=False)
+    assert compiled._compiled["heatmaps"] is not None
+    assert compiled._compiled["heatmaps"].launches == {"sample_whole_projected": 1,
+                                                       "sample_crop_cube": 1}
+    hm = np.random.RandomState(3).rand(3, 5, 32, 40, 15).astype(np.float32) ** 4
+    got = [compiled.infer_heatmaps(h) for h in hm]
+    want = [eager.infer_heatmaps(h) for h in hm]
+    for a, b in zip(got, want):
+        assert a["n_people"] == b["n_people"] == 4
+        assert float(np.abs(np.asarray(a["poses_mm"]) - np.asarray(b["poses_mm"])).max()) <= 0.01
+    s = compiled.trace_summary()
+    assert s["device"]["device.cpn"]["count"] >= 1 and s["device"]["device.prn"]["count"] >= 1
+    assert s["device"]["device.hdn"]["count"] == 0 and s["device"]["device.jln"]["count"] == 0
+    assert s["counters"] == {"jln.slots": 12, "jln.people": 12}
