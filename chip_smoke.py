@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # the kernel rows alone (no path run)
-    python3 chip_smoke.py --voxelpose   # the build and the VoxelPose phase alone
+    python3 chip_smoke.py --voxelpose   # the build, row 9 and the VoxelPose phase alone
 
 Drives the port (`faster_voxelpose_tpu_torch`) only, at the Panoptic
 profile of configs/demo/panoptic_synthetic.yaml (5 views, 240x128x15
@@ -37,7 +37,13 @@ another committed snapshot's profile (`config.profile`):
    8, WeightNet's front (`weightnet_front`), at the Shelf and Panoptic
    shapes in bf16 and at Shelf in float32, against its plain version
    within one bf16 ulp (float32 1e-5), timed beside its bound and the
-   library chain it replaced (cuDNN's fused conv + ReLU, max pool, mean);
+   library chain it replaced (cuDNN's fused conv + ReLU, max pool, mean).
+   Row 9, VoxelPose's 7x7x7 front (`front3d`), at the PRN's (10 cubes of
+   64^3) and the CPN's (80x80x20) shapes at 15 joints, against its plain
+   version in float64 on the same bf16 operands within one bf16 ulp, timed
+   beside its bound
+   (bf16 operations), its plain version and cuDNN's `F.conv3d` + ReLU on
+   the cast cube, which the port no longer calls;
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
 4. route phase: the served path answers the same 6 frames under the
@@ -357,7 +363,7 @@ def build_phase():
     from faster_voxelpose_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["sampling", "window", "mma_window", "weightnet"])
+    libs = cuda_build.build_all(["sampling", "window", "mma_window", "weightnet", "front3d"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -935,6 +941,89 @@ def weightnet_phase(card):
     return dict(cases[0], cases=cases[1:])
 
 
+FRONT3D_SHAPES = {"prn": (10, 15, 64, 64, 64), "cpn": (1, 15, 80, 80, 20)}
+
+
+def front3d_case(N, C, X, Y, Z, seed=0):
+    """The samplers' cube (N, X, Y, Z, C) float32 in [0, 1] permuted to
+    (N, C, X, Y, Z), a fan-in scaled bf16 weight (16, C, 7, 7, 7)
+    channels-last-3d as the fold keeps it, its packing and a bias."""
+    import torch
+
+    from faster_voxelpose_tpu_torch.ops import front3d_kernels as fk
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(N, X, Y, Z, C, generator=gen).to(CARD).permute(0, 4, 1, 2, 3)
+    w = (torch.randn(16, C, 7, 7, 7, generator=gen) * (2.0 / (C * 343)) ** 0.5).to(torch.bfloat16)
+    w = w.contiguous(memory_format=torch.channels_last_3d).to(CARD)
+    b = (torch.randn(16, generator=gen) * 0.2).to(torch.bfloat16).to(CARD)
+    return x, w, b, fk.pack_weight(w)
+
+
+def front3d_phase(card):
+    """Kernel row 9, front3d, at the PRN's and the CPN's shapes: against
+    its plain version in float64 on the same bf16 operands within one bf16
+    ulp of the larger value and 2^-16 of the products' magnitude (as
+    tests/test_torch_cuda.py; the plain version in bf16, whose `F.conv3d`
+    rounds the conv before it adds the bias, is read against the same),
+    two launches equal, timed beside its bound (bf16 operations at 989
+    TFLOP/s, over the J channels), its plain version (the cast, `F.conv3d`
+    with the bias, ReLU) and cuDNN's `F.conv3d` + ReLU on the cast cube.
+    Returns the row, the PRN first and the CPN under `cases`."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_voxelpose_tpu_torch.ops import front3d_kernels as fk
+
+    def ulp(v):
+        a = v.float().abs()
+        return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-30))) - 7),
+                           0.0)
+
+    cases = []
+    for label, (N, C, X, Y, Z) in FRONT3D_SHAPES.items():
+        x, w, b, p = front3d_case(N, C, X, Y, Z)
+        out, ref = fk.front3d(x, w, b, p), fk.front3d_plain(x, w, b)
+        xb = x.to(torch.bfloat16)
+        xd, wd = xb.double().contiguous(), w.double().contiguous()
+        exact = fk.front3d_plain(xd, wd, b.double())
+        magnitude = F.conv3d(xd.abs(), wd.abs(), b.double().abs(), 1, 3)
+        del xd, wd
+
+        def off(y):  # <= 1 within the tests' tolerance
+            tol = ulp(torch.maximum(y.float().abs(), exact.float().abs())).double()
+            return float(((y.double() - exact).abs() / (tol + 2.0 ** -16 * magnitude + 1e-30))
+                         .max())
+
+        kernel_off, plain_off = off(out), off(ref)
+        equal = float((out == ref).float().mean())
+        del exact, magnitude
+        if not (kernel_off <= 1.0 and torch.equal(out, fk.front3d(x, w, b, p))):
+            raise AssertionError(f"front3d [{label}] off its plain version in float64: "
+                                 f"{kernel_off} of the tolerance")
+        voxels = N * X * Y * Z
+        flops = 2 * 16 * C * 343 * voxels
+        b_ms, b_by = bound(4 * C * voxels + 2 * 16 * voxels, flops, BF16_FLOPS)
+        row = dict(name="front3d", source="faster_voxelpose_tpu_torch/csrc/front3d.cu",
+                   replaces="none (the JAX package has no V2VNet)", path="voxelpose",
+                   label=label, shape=[N, C, X, Y, Z],
+                   **timings(lambda: fk.front3d(x, w, b, p)),
+                   plain_ms=device_readings(lambda: fk.front3d_plain(x, w, b))["device_ms"],
+                   **library_readings(lambda: F.conv3d(xb, w, b, 1, 3).relu_()),
+                   bound_ms=b_ms, bound_by=b_by, share_of_tolerance=kernel_off,
+                   plain_share_of_tolerance=plain_off, equal=equal)
+        row["share_of_bound"] = b_ms / row["device_ms"]
+        row["library_over_kernel"] = row["library_device_ms"] / row["device_ms"]
+        print(f"kernel front3d [{label} {N}x{X}x{Y}x{Z}x{C}]: against the plain version in "
+              f"float64 {kernel_off:.3g} of the tolerance (the plain version in bf16 "
+              f"{plain_off:.3g}), {equal:.4f} of the values equal to the bf16 one; kernel_ms "
+              f"{fmt(row)} plain_ms (device) {row['plain_ms']:.4f} {fmt_library(row)} bound_ms "
+              f"{b_ms:.4f} ({b_by}; {100 * row['share_of_bound']:.1f}% of it), cuDNN's conv + "
+              f"ReLU {row['library_over_kernel']:.2f}x the kernel's device time | {card}")
+        cases.append(row)
+    return dict(cases[0], cases=cases[1:])
+
+
 def voxelpose_phase(card, requests=8):
     """VoxelPose (`MODEL: voxelpose`) at the widths of the benchmark's
     `panoptic_voxelpose` (5 views of 240x128x15, 80x80x20, K = 10 cubes of
@@ -943,8 +1032,9 @@ def voxelpose_phase(card, requests=8):
     (`crop_kernel<false, true, true>`, about the CPN's own centres) against
     their plain versions (1e-5), timed; then the bf16 service as the cell
     serves it: one replay of its 'heatmaps' graph launches each of the two
-    once and no other sampler (counts reset just before it), `requests`
-    more launch them once each; last the float32 graph against an eager
+    once, front3d twice (the CPN's and the PRN's 7x7x7 fronts) and no
+    other kernel (counts reset just before it), `requests` more launch as
+    many each; last the float32 graph (no front3d) against an eager
     service with every slot answered (MIN_SCORE -1e9; within 0.01 mm).
     Returns the launch counts of the `requests` bf16 requests."""
     import torch
@@ -997,7 +1087,7 @@ def voxelpose_phase(card, requests=8):
     svc.infer_heatmaps(hm)
     one = sk.launch_counts()
     expect = {n: 0 for n in one}
-    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1})
+    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1, "front3d": 2})
     if one != expect:
         raise AssertionError(f"voxelpose: one replay launched {one}, expected {expect}")
     sk.reset_launch_counts()
@@ -4409,10 +4499,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only the kernel rows (1-8), each timed by tools/timing.py's three "
+                    help="only the kernel rows (1-9), each timed by tools/timing.py's three "
                          "timers, then their table; no path runs, no result line")
     ap.add_argument("--voxelpose", action="store_true",
-                    help="only the build and the VoxelPose phase; no result line")
+                    help="only the build, kernel row 9 and the VoxelPose phase; no result "
+                         "line")
     args = ap.parse_args(argv)
     t_start = T_START
     import torch
@@ -4436,7 +4527,9 @@ def main(argv=None) -> int:
     pin_float32()
     build_phase()
     if args.voxelpose:
-        print(json.dumps({"voxelpose": released(voxelpose_phase(card), "voxelpose")}))
+        row = released(front3d_phase(card), "front3d")
+        print(json.dumps({"kernels": [row],
+                          "voxelpose": released(voxelpose_phase(card), "voxelpose")}))
         print(f"chip_smoke --voxelpose: {time.perf_counter() - t_start:.1f} s from start")
         return 0
 
@@ -4455,6 +4548,7 @@ def main(argv=None) -> int:
     for name, cases in crop_shapes_phase(card).items():  # rows 2-4 at the Shelf and Campus shapes
         next(r for r in rows if r["name"] == name)["cases"] = cases
     rows.append(weightnet_phase(card))
+    rows.append(released(front3d_phase(card), "front3d"))
     if args.kernels:
         for phase in (window_phase, mma_phase):
             rows += phase(card)[0]

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD
+from ..ops import front3d_kernels
 from ..utils import profiling
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -246,18 +247,21 @@ def conv_add_relu(conv: "Conv", x: torch.Tensor, z: torch.Tensor) -> torch.Tenso
     return conv_folded(conv, x).add_(z).relu_()
 
 
+def keep(layer: nn.Module, name: str, value: Optional[torch.Tensor]) -> None:
+    """Keep a served tensor as the layer's non-persistent buffer `name` (so
+    that `state_dict()` keeps its keys); a refold copies into the buffer of
+    the first fold, so that a CUDA graph that reads it sees it."""
+    if name not in layer._buffers:
+        layer.register_buffer(name, value, persistent=False)
+    elif value is not None:
+        layer._buffers[name].copy_(value)
+
+
 def store_folded(layer: nn.Module, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
-    """Keep a layer's served weight and bias as its non-persistent buffers
-    `folded_weight` and `folded_bias` (so that `state_dict()` keeps its
-    keys); a refold copies into the buffers of the first fold, so that a
-    CUDA graph that reads them sees it."""
-    if "folded_weight" in layer._buffers:
-        layer.folded_weight.copy_(weight)
-        if bias is not None:
-            layer.folded_bias.copy_(bias)
-    else:
-        layer.register_buffer("folded_weight", weight, persistent=False)
-        layer.register_buffer("folded_bias", bias, persistent=False)
+    """Keep a layer's served weight and bias as its buffers `folded_weight`
+    and `folded_bias` (`keep`)."""
+    keep(layer, "folded_weight", weight)
+    keep(layer, "folded_bias", bias)
 
 
 def fold_layers(module: nn.Module) -> List[torch.Tensor]:
@@ -270,11 +274,12 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
     (float32 for a `float32_out` layer); torch's own `nn.Conv2d`,
     `nn.Linear` and `nn.LayerNorm` (a transformer's trunk) rounded to
     `module.dtype`.  4D kernels are channels-last and 5D kernels
-    channels-last-3d, kept as `store_folded`
-    keeps them; then the layer's forward runs on them outside train mode
-    (`runs_folded`).  Returns the tensors the fold read.  Run it under
-    `torch.no_grad()`, and outside inference mode, so that a refold
-    outside it can write into the buffers."""
+    channels-last-3d, kept as `store_folded` keeps them, and a 7x7x7
+    front that `front3d_kernels.serves` also keeps its weight packed for
+    that kernel (`front3d_weight`); then the layer's forward runs on them
+    outside train mode (`runs_folded`).  Returns the tensors the fold
+    read.  Run it under `torch.no_grad()`, and outside inference mode, so
+    that a refold outside it can write into the buffers."""
     bn_after = {}
     for m in module.modules():
         for layer, bn in getattr(m, "FOLD_PAIRS", ()):
@@ -298,6 +303,8 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
         elif w.ndim == 5:
             w = w.contiguous(memory_format=torch.channels_last_3d)
         store_folded(layer, w, None if b is None else b.to(dt, copy=True).to(out))
+        if isinstance(layer, Conv) and front3d_kernels.serves(layer):
+            keep(layer, "front3d_weight", front3d_kernels.pack_weight(w))
         layer.folded = True
         read += layer._parameters.values()
         if bn is not None:
@@ -419,7 +426,11 @@ class ConvBNRelu(nn.Module):
 
     def forward(self, x, train: bool = False):
         if runs_folded(self.conv, train):
-            x = x.to(self.conv.dtype)
+            conv = self.conv
+            if "front3d_weight" in conv._buffers:  # VoxelPose's 7x7x7 fronts: one kernel
+                return front3d_kernels.front3d(x, conv.folded_weight, conv.folded_bias,
+                                               conv.front3d_weight)
+            x = x.to(conv.dtype)
             # cuDNN's fused conv + bias + ReLU runs channels-last rows of a
             # multiple of 8 channels on the tensor cores; at the nets'
             # fronts' 15 or 17 joints it falls back to an engine up to 9x

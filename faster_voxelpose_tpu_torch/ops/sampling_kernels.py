@@ -156,6 +156,8 @@ LAUNCHES: Dict[str, int] = {
     "mma_window": 0,
     # WeightNet's front, ops/weightnet_kernels.py
     "weightnet_front": 0,
+    # VoxelPose's 7x7x7 front, ops/front3d_kernels.py
+    "front3d": 0,
 }
 
 

@@ -336,7 +336,8 @@ def test_model_cuda_matches_cpu(dev):
     assert sk.launch_counts() == {"sample_whole": 0, "sample_whole_projected": 1,
                                   "sample_crop_planes": 1,
                                   "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
-                                  "window_sample": 0, "mma_window": 0, "weightnet_front": 0}
+                                  "window_sample": 0, "mma_window": 0, "weightnet_front": 0,
+                                  "front3d": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5
 
@@ -777,6 +778,161 @@ def test_weightnet_wrapper_checks_and_counts(dev):
     assert sk.launch_counts()["weightnet_front"] == 0
     wk.weightnet_front(feats, w, b)
     assert sk.launch_counts()["weightnet_front"] == 1
+
+
+# ---------------------------------------------------------------------------
+# VoxelPose's 7x7x7 front (front3d, csrc/front3d.cu)
+# ---------------------------------------------------------------------------
+
+
+def _front3d_case(dev, N, C, X, Y, Z, seed=0):
+    """The samplers' cube (N, X, Y, Z, C) float32 in [0, 1] permuted to
+    (N, C, X, Y, Z), a fan-in scaled bf16 weight (16, C, 7, 7, 7)
+    channels-last-3d as the fold keeps it, a nonzero bias; outputs 0-3
+    have negative weights and bias, so every one of their sums is
+    negative."""
+    from faster_voxelpose_tpu_torch.ops import front3d_kernels as fk
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(N, X, Y, Z, C, generator=gen).to(dev).permute(0, 4, 1, 2, 3)
+    w = torch.randn(16, C, 7, 7, 7, generator=gen) * (2.0 / (C * 343)) ** 0.5
+    b = torch.randn(16, generator=gen) * 0.2
+    w[:4] = -w[:4].abs()
+    b[:4] = -b[:4].abs() - 0.01
+    w = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d).to(dev)
+    return x, w, b.to(torch.bfloat16).to(dev), fk.pack_weight(w)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp of |v| (2^-7 of its binade), 0 at 0."""
+    a = v.float().abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-30))) - 7), 0.0)
+
+
+def _front3d_exact(x, w, b):
+    """(The plain version in float64 on the bf16 operands: the exact value
+    that a bf16 output rounds, its sums' own rounding negligible; the
+    float64 sum of the products' magnitudes)."""
+    from faster_voxelpose_tpu_torch.ops import front3d_kernels as fk
+
+    xd, wd = x.to(torch.bfloat16).double().contiguous(), w.double().contiguous()
+    exact = fk.front3d_plain(xd, wd, b.double())
+    return exact, torch.nn.functional.conv3d(xd.abs(), wd.abs(), b.double().abs(), 1, 3)
+
+
+def _front3d_off(got, exact, magnitude):
+    """The largest |got - exact| in units of its tolerance: one bf16 ulp of
+    the larger of the two (a float32 sum rounded once to bf16 lies within
+    half an ulp, and float32 sums in another order can move the rounding
+    by one step), and 2^-16 of the products' magnitude, for the float32
+    sums' own error where they cancel to near 0."""
+    tol = _bf16_ulp(torch.maximum(got.float().abs(), exact.float().abs()))
+    tol = tol + 2.0 ** -16 * magnitude.float()
+    return float(((got.double() - exact).abs() / (tol.double() + 1e-30)).max())
+
+
+@pytest.mark.parametrize("shape", [(10, 15, 64, 64, 64), (1, 15, 80, 80, 20), (1, 17, 80, 80, 20),
+                                   (2, 15, 9, 13, 11), (2, 17, 9, 13, 11), (1, 1, 3, 2, 40),
+                                   (3, 15, 23, 9, 17)],
+                         ids=["prn", "cpn", "cpn_j17", "ragged", "ragged_j17", "one_channel",
+                              "rows"])
+def test_front3d_kernel_matches_plain(dev, shape):
+    """The PRN's (10 x 64^3 x 15) and the CPN's (80 x 80 x 20 x 15) shapes,
+    J = 17, ragged tiles and several rows of tiles a block, against the
+    plain version in float64 on the same bf16 operands within one bf16 ulp
+    (`_front3d_off`; the plain version in bf16 is no reference: cuDNN
+    rounds the conv to bf16, adds the bias and rounds again); outputs 0-3
+    read exactly 0; one launch; the layout and dtype of cuDNN's output; a
+    second launch equal bit for bit."""
+    from faster_voxelpose_tpu_torch.ops import front3d_kernels as fk
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    x, w, b, p = _front3d_case(dev, *shape)
+    sk.reset_launch_counts()
+    got = fk.front3d(x, w, b, p)
+    assert sk.launch_counts()["front3d"] == 1
+    want = fk.front3d_plain(x, w, b)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.stride() == want.stride() and got.is_contiguous(
+        memory_format=torch.channels_last_3d)
+    exact, magnitude = _front3d_exact(x, w, b)
+    assert _front3d_off(got, exact, magnitude) <= 1.0
+    assert not bool(got[:, :4].any()) and bool((got[:, 4:] > 0).any())
+    assert torch.equal(got, fk.front3d(x, w, b, p))
+
+
+def test_front3d_wrapper_checks_and_counts(dev):
+    """33 channels, a float32 weight, an unpacked weight and operands off
+    the card are refused on the card and launch nothing."""
+    from faster_voxelpose_tpu_torch.ops import front3d_kernels as fk
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    x, w, b, p = _front3d_case(dev, 1, 15, 4, 5, 6)
+    sk.reset_launch_counts()
+    x33 = torch.rand(1, 33, 4, 5, 6, device=dev)
+    with pytest.raises(ValueError):
+        fk.front3d(x33, torch.zeros(16, 33, 7, 7, 7, dtype=w.dtype, device=dev), b, p)
+    with pytest.raises(TypeError):
+        fk.front3d(x, w.float(), b.float(), p.float())
+    with pytest.raises(ValueError):
+        fk.front3d(x, w, b, w)
+    with pytest.raises(ValueError):
+        fk.front3d(x, w.cpu(), b.cpu(), p.cpu())
+    assert sk.launch_counts()["front3d"] == 0
+    fk.front3d(x, w, b, p)
+    assert sk.launch_counts()["front3d"] == 1
+
+
+def test_front3d_refold_reaches_a_captured_graph(dev):
+    """A folded rank-3 ConvBNRelu captured in a CUDA graph; its weights
+    and BatchNorm moved in place and refolded (into the same buffers): the
+    replay answers as the block does eagerly on the new weights, and not
+    as before."""
+    from faster_voxelpose_tpu_torch.models import blocks
+
+    torch.manual_seed(0)
+    block = blocks.ConvBNRelu(15, 16, 7, 3, torch.bfloat16).eval().to(dev)
+    with torch.no_grad():
+        block.conv.weight.normal_(0.0, (2.0 / (15 * 343)) ** 0.5)
+        blocks.fold_layers(block)
+    x = _front3d_case(dev, 2, 15, 9, 10, 12)[0]
+    out = {}
+    replay = _captured(lambda: out.update(y=block(x)))
+    replay()
+    before = out["y"].clone()
+    with torch.no_grad():
+        block.conv.weight.mul_(-0.5)
+        block.bn.running_mean.fill_(-0.2)
+        blocks.fold_layers(block)
+        want = block(x)
+    replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], want) and not torch.equal(out["y"], before)
+
+
+def test_served_voxelpose_launches_front3d_twice(dev):
+    """One request of a bf16 VoxelPose service on the tiny geometry, its
+    'heatmaps' graph replayed: the CPN's and the PRN's fronts launch
+    front3d once each, beside one launch of each sampler; the eager
+    forward launches the same."""
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.geometry import dome_rig
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    cfg = tiny_cfg()
+    cfg.MODEL, cfg.NETWORK.COMPUTE_DTYPE = "voxelpose", "bfloat16"
+    rig = dome_rig(1, 3, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
+                   ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE, focal=240.0)[0]
+    expect = {n: 0 for n in sk.launch_counts()}
+    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1, "front3d": 2})
+    for aot in (True, False):
+        svc = PoseService(cfg, rig=rig, device=dev, aot=aot)
+        assert (svc._compiled.get("heatmaps") is not None) == aot
+        frame = _tiny_frames(1)[0]
+        svc.infer_heatmaps(frame)
+        sk.reset_launch_counts()
+        svc.infer_heatmaps(frame)
+        assert sk.launch_counts() == expect, aot
 
 
 # ---------------------------------------------------------------------------
