@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # the kernel rows alone (no path run)
     python3 chip_smoke.py --voxelpose   # the build, row 9 and the VoxelPose phase alone
+    python3 chip_smoke.py --mvp   # the build, row 10 and the MvP phase alone
 
 Drives the port (`faster_voxelpose_tpu_torch`) only, at the Panoptic
 profile of configs/demo/panoptic_synthetic.yaml (5 views, 240x128x15
@@ -363,7 +364,8 @@ def build_phase():
     from faster_voxelpose_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["sampling", "window", "mma_window", "weightnet", "front3d"])
+    libs = cuda_build.build_all(["sampling", "window", "mma_window", "weightnet", "front3d",
+                                 "projattn"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -1111,6 +1113,139 @@ def voxelpose_phase(card, requests=8):
     got = [graph.infer_heatmaps(f) for f in frames]
     graph_against_eager("voxelpose float32", got, [eager.infer_heatmaps(f) for f in frames],
                         True, card)
+    return launches
+
+
+PROJATTN_CASE = (1, 5, 150, 8, 32, 4, [(32, 60), (64, 120), (128, 240)])  # MvP at Panoptic
+
+
+def projattn_phase(card):
+    """Kernel row 10, projattn, at MvP's Panoptic shapes (150 queries, 5
+    views, 8 heads of 32, 3 levels of 32x60 to 128x240, 4 points): against
+    its plain version in float64 on the same bf16 operands within one bf16
+    ulp of the value plus 2^-12 of the maps' largest magnitude (as
+    tests/test_torch_cuda.py), two launches equal, timed beside its bound
+    (`benchmark/counts/mvp.py`: each tap's 4 corners x 32 channels of bf16
+    read once, at 3.35 TB/s), its plain version (one `F.grid_sample` a
+    level over every view and head, the softmax and the sums, in float32)
+    and the library's part of that alone (the three `F.grid_sample` calls
+    on the maps laid out as they take them, bf16).  Returns the row."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_voxelpose_tpu_torch.ops import projattn_kernels as pk
+
+    sys.path.insert(0, str(ROOT / "tests"))  # not `tests.`: an installed package may take it
+    from test_torch_cuda import _projattn_case
+
+    values, ref, offsets, logits, cams, geom = _projattn_case(CARD, *PROJATTN_CASE)
+    out = pk.projective_attention(values, ref, offsets, logits, cams, geom)
+    exact = pk.projective_attention_plain([v.double() for v in values], ref.double(),
+                                          offsets.double(), logits.double(), cams.double(), geom)
+    vmax = max(float(v.abs().max()) for v in values)
+    a = torch.maximum(out.double().abs(), exact.abs())
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-30))) - 7), 0.0)
+    share = float(((out.double() - exact).abs() / (ulp + 2.0 ** -12 * vmax)).max())
+    del exact
+    if not (share <= 1.0 and torch.equal(out, pk.projective_attention(values, ref, offsets,
+                                                                       logits, cams, geom))):
+        raise AssertionError(f"projattn off its plain version in float64: {share} of the "
+                             "tolerance")
+    B, V, Q, M, Dh, P, sizes = PROJATTN_CASE
+    L = len(sizes)
+    taps = B * V * Q * M * L * P
+    nbytes = taps * 4 * Dh * 2 + Q * M * L * P * 3 * 4 + V * Q * M * Dh * 2
+    b_ms, b_by = bound(nbytes, taps * Dh * 10, BF16_FLOPS)
+    f32 = [v.float() for v in values]
+    maps = [v.reshape(V, h, w, M, Dh).permute(0, 3, 4, 1, 2).reshape(V * M, Dh, h, w)
+            .contiguous() for v, (h, w) in zip(values, sizes)]
+    grid = (torch.rand((V * M, Q, P, 2), device=CARD) * 2 - 1).to(torch.bfloat16)
+
+    def library():
+        return [F.grid_sample(m, grid, align_corners=False) for m in maps]
+
+    row = dict(name="projattn", source="faster_voxelpose_tpu_torch/csrc/projattn.cu",
+               replaces="none (the JAX package has no MvP)", path="mvp",
+               shape=[B, V, Q, M, Dh, P, sizes], **timings(
+                   lambda: pk.projective_attention(values, ref, offsets, logits, cams, geom)),
+               plain_ms=device_readings(lambda: pk.projective_attention_plain(
+                   f32, ref, offsets, logits, cams, geom))["device_ms"],
+               **library_readings(library), bound_ms=b_ms, bound_by=b_by,
+               share_of_tolerance=share)
+    row["share_of_bound"] = b_ms / row["device_ms"]
+    row["library_over_kernel"] = row["library_device_ms"] / row["device_ms"]
+    print(f"kernel projattn [{Q} queries x {V} views x {M} heads x {L} levels x {P} points]: "
+          f"against the plain version in float64 {share:.3g} of the tolerance; kernel_ms "
+          f"{fmt(row)} plain_ms (device) {row['plain_ms']:.4f} {fmt_library(row)} (the three "
+          f"grid_samples alone) bound_ms {b_ms:.4f} ({b_by}; {100 * row['share_of_bound']:.1f}% "
+          f"of it) | {card}")
+    return row
+
+
+def mvp_phase(card, requests=8):
+    """MvP (`MODEL: mvp`) at the widths of the benchmark's `panoptic_mvp`
+    (5 views of 960x512, a Pose-ResNet-50's three levels, 6 decoder layers
+    of 256), its seeded weights (`benchmark/core/mvp_weights.py`) on the
+    configuration's rig, frames of the benchmark's `images.live` pool: one
+    replay of the bf16 'images_u8' graph launches projattn once per layer
+    and no other kernel of the port (counts reset just before it),
+    `requests` more launch as many each; then the graph against an eager
+    service with the same weights on 3 frames (every slot; the gap in mm
+    printed, the people judged).  Returns the launch counts of the
+    `requests` requests."""
+    from benchmark.core.mvp_weights import mvp_weights
+    from benchmark.core.weights import backbone_weights
+    from benchmark.drivers.live_service import port_config
+    from benchmark.traffic.generate import make_pool
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from faster_voxelpose_tpu_torch.models import MvPNet
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    config = json.loads((ROOT / "benchmark/configs/panoptic_mvp.json").read_text())
+    mix = json.loads((ROOT / "benchmark/traffic/mixes/images.live.json").read_text())
+    cfg = port_config(config)
+    rig, pool, _ = make_pool(mix, config, 26, CARD)
+    weights = (backbone_weights(cfg.DATASET.NUM_JOINTS, 26, CARD),
+               mvp_weights(config["yaml"], 26, CARD))
+
+    def service(aot):
+        svc = PoseService(cfg, rig=rig, device=CARD, seed=0, aot=False)
+        svc.backbone.load_state_dict(weights[0])
+        svc.model.load_state_dict(weights[1])
+        if aot and svc.warmup() != ["images_u8"]:
+            raise AssertionError(f"mvp: graphs {svc.warmup()}")
+        return svc
+
+    svc = service(True)
+    if not isinstance(svc.model, MvPNet):
+        raise AssertionError(f"mvp: {type(svc.model).__name__}")
+    svc.infer_images(pool[0])
+    sk.reset_launch_counts()
+    svc.infer_images(pool[0])
+    one = sk.launch_counts()
+    expect = {n: 0 for n in one}
+    expect["projattn"] = len(svc.model.layers)
+    if one != expect:
+        raise AssertionError(f"mvp: one replay launched {one}, expected {expect}")
+    sk.reset_launch_counts()
+    for i in range(requests):
+        svc.infer_images(pool[i % len(pool)])
+    launches = sk.launch_counts()
+    if launches != {n: c * requests for n, c in expect.items()}:
+        raise AssertionError(f"mvp: {requests} requests launched {launches}")
+    print(f"mvp: one replay of the bf16 'images_u8' graph launched "
+          f"{ {n: c for n, c in one.items() if c} }; {requests} requests "
+          f"{ {n: c for n, c in launches.items() if c} } | {card}")
+    eager = service(False)
+    gaps, same = [], True
+    for f in pool[:3]:
+        got, want = svc.infer_images_raw(f)[0][0], eager.infer_images_raw(f)[0][0]
+        gaps.append(float(np.abs(got[..., :3] - want[..., :3]).max()))
+        same &= bool(np.array_equal(got[:, 0, 3], want[:, 0, 3]))
+    print(f"mvp: graph against eager (bf16) on 3 frames: the same slots valid {same}, joints "
+          f"within {max(gaps):.3g} mm ({gaps}) | {card}")
+    if not same:
+        raise AssertionError("mvp: the graph answers other people than eager")
     return launches
 
 
@@ -4499,11 +4634,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only the kernel rows (1-9), each timed by tools/timing.py's three "
+                    help="only the kernel rows (1-10), each timed by tools/timing.py's three "
                          "timers, then their table; no path runs, no result line")
     ap.add_argument("--voxelpose", action="store_true",
                     help="only the build, kernel row 9 and the VoxelPose phase; no result "
                          "line")
+    ap.add_argument("--mvp", action="store_true",
+                    help="only the build, kernel row 10 and the MvP phase; no result line")
     args = ap.parse_args(argv)
     t_start = T_START
     import torch
@@ -4532,6 +4669,11 @@ def main(argv=None) -> int:
                           "voxelpose": released(voxelpose_phase(card), "voxelpose")}))
         print(f"chip_smoke --voxelpose: {time.perf_counter() - t_start:.1f} s from start")
         return 0
+    if args.mvp:
+        row = released(projattn_phase(card), "projattn")
+        print(json.dumps({"kernels": [row], "mvp": released(mvp_phase(card), "mvp")}))
+        print(f"chip_smoke --mvp: {time.perf_counter() - t_start:.1f} s from start")
+        return 0
 
     cfg = panoptic_synthetic_profile()
     geom = make_projection_geometry(cfg)
@@ -4549,6 +4691,7 @@ def main(argv=None) -> int:
         next(r for r in rows if r["name"] == name)["cases"] = cases
     rows.append(weightnet_phase(card))
     rows.append(released(front3d_phase(card), "front3d"))
+    rows.append(released(projattn_phase(card), "projattn"))
     if args.kernels:
         for phase in (window_phase, mma_phase):
             rows += phase(card)[0]
@@ -4562,6 +4705,7 @@ def main(argv=None) -> int:
     paths["compiled"] = released(compiled_phase(cfg, rig, card, np.random.RandomState(9)),
                                  "compiled")
     paths["voxelpose"] = released(voxelpose_phase(card), "voxelpose")
+    paths["mvp"] = released(mvp_phase(card), "mvp")
     paths["route"] = released(route_phase(cfg, rig, card, rng), "route")
     released(train_parity_phase(card), "train parity")
     released(compiled_train_phase(card), "train graph")

@@ -127,6 +127,22 @@ class VitConfig:
 
 
 @dataclass
+class MvpConfig:
+    """The widths of MvP's decoder (`MODEL: 'mvp'`, models/mvp.py); the
+    defaults are the published Panoptic model's: d_model 256 in 8 heads,
+    an FFN of 1024, 6 decoder layers, 4 sampling points per head and
+    level.  The instances are CAPTURE_SPEC.MAX_PEOPLE, the inference
+    threshold CAPTURE_SPEC.MIN_SCORE, the levels the Pose-ResNet's three
+    transposed convs."""
+
+    D_MODEL: int = 256
+    NUM_HEADS: int = 8
+    DIM_FEEDFORWARD: int = 1024
+    DEC_LAYERS: int = 6
+    DEC_N_POINTS: int = 4
+
+
+@dataclass
 class TrainConfig:
     BATCH_SIZE: int = 8
     SHUFFLE: bool = True
@@ -199,13 +215,14 @@ class Config:
     PRINT_FREQ: int = 100
     OUTPUT_DIR: str = "output"
     LOG_DIR: str = "log"
-    MODEL: str = "faster_voxelpose"
+    MODEL: str = "faster_voxelpose"  # or "voxelpose", "mvp" (the MVP section)
 
     DATASET: DatasetConfig = field(default_factory=DatasetConfig)
     SYNTHETIC: SyntheticConfig = field(default_factory=SyntheticConfig)
     NETWORK: NetworkConfig = field(default_factory=NetworkConfig)
     RESNET: ResnetConfig = field(default_factory=ResnetConfig)
     VIT: VitConfig = field(default_factory=VitConfig)
+    MVP: MvpConfig = field(default_factory=MvpConfig)
     TRAIN: TrainConfig = field(default_factory=TrainConfig)
     TEST: TestConfig = field(default_factory=TestConfig)
     CAPTURE_SPEC: CaptureSpec = field(default_factory=CaptureSpec)
@@ -272,8 +289,9 @@ def load_config(yaml_path: Optional[Union[str, pathlib.Path]] = None) -> Config:
 def save_config(cfg: Config, yaml_path: Union[str, pathlib.Path]) -> None:
     """Dump the full resolved config, which `load_config` reads back
     (reference gen_config, config.py:191).  The VIT section is written
-    only where BACKBONE is 'vitpose', so that the file of any other
-    backbone is in the JAX package's schema, which has no such section."""
+    only where BACKBONE is 'vitpose', and the MVP section only where MODEL
+    is 'mvp', so that the file of any other model is in the JAX package's
+    schema, which has neither section."""
     import numpy as np
     import yaml
 
@@ -289,6 +307,8 @@ def save_config(cfg: Config, yaml_path: Union[str, pathlib.Path]) -> None:
     plain = to_plain(cfg)
     if cfg.BACKBONE != "vitpose":
         del plain["VIT"]
+    if cfg.MODEL != "mvp":
+        del plain["MVP"]
     with open(yaml_path, "w") as f:
         yaml.safe_dump(plain, f, default_flow_style=False)
 

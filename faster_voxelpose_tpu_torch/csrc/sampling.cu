@@ -50,6 +50,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "projection.cuh"
+
 namespace {
 
 // The block shapes below may be set by -D at build time (the block-shape
@@ -165,53 +167,25 @@ __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
 }
 
-// Round-to-nearest arithmetic that nvcc never contracts into an FMA: the
-// projection below rounds after every step, as the plain version's
-// separate tensor ops do.  Near a camera the perspective divide magnifies
-// one ulp of a contracted multiply-add past the 1e-5 sample tolerance.
-#define MUL __fmul_rn
-#define ADD __fadd_rn
-#define SUB __fsub_rn
-#define DIV __fdiv_rn
-
 // Camera-frame point (xc0, xc1, xc2) of one packed camera c[21] -> heatmap
 // pixel, op for op as the rest of project_points + project_to_norm_coords
-// + norm_to_pixel (geometry/cameras.py, geometry/grids.py).  Where inb is
+// + norm_to_pixel (geometry/cameras.py, geometry/grids.py): the network-
+// input pixel of camera_to_input (projection.cuh, where the arithmetic
+// rounds after every operation), then the heatmap frame.  Where inb is
 // given, whether the projected point, before its clamp, lies inside the
 // original image ([0, ori_w) x [0, ori_h): VoxelPose's `bounding`).
 __device__ __forceinline__ void camera_to_pixel(const float* c, float xc0,
                                                 float xc1, float xc2,
                                                 const CropConsts& k, float& px,
                                                 float& py, bool* inb = nullptr) {
-  const float den = ADD(xc2, 1e-5f);
-  const float y0 = DIV(xc0, den), y1 = DIV(xc1, den);
-  const float r2 = ADD(MUL(y0, y0), MUL(y1, y1));
-  const float d = ADD(ADD(ADD(1.0f, MUL(c[16], r2)), MUL(MUL(c[17], r2), r2)),
-                      MUL(MUL(MUL(c[18], r2), r2), r2));
-  const float u = ADD(ADD(MUL(y0, d), MUL(MUL(MUL(2.0f, c[19]), y0), y1)),
-                      MUL(c[20], ADD(r2, MUL(MUL(2.0f, y0), y0))));
-  const float v = ADD(ADD(MUL(y1, d), MUL(MUL(MUL(2.0f, c[20]), y0), y1)),
-                      MUL(c[19], ADD(r2, MUL(MUL(2.0f, y1), y1))));
-  const float rx = ADD(MUL(u, c[12]), c[14]), ry = ADD(MUL(v, c[13]), c[15]);
-  if (inb) *inb = rx >= 0.0f && ry >= 0.0f && rx < k.ori_w && ry < k.ori_h;
-  const float ox = fminf(fmaxf(rx, -1.0f), k.clip_hi);
-  const float oy = fminf(fmaxf(ry, -1.0f), k.clip_hi);
-  float qx = ADD(ADD(MUL(ox, k.t[0]), MUL(oy, k.t[1])), k.t[2]);
-  float qy = ADD(ADD(MUL(ox, k.t[3]), MUL(oy, k.t[4])), k.t[5]);
+  float qx, qy;
+  camera_to_input(c, xc0, xc1, xc2, k.t, k.clip_hi, k.ori_w, k.ori_h, qx, qy, inb);
   qx = MUL(MUL(qx, k.hm_w), k.inv_img_w);
   qy = MUL(MUL(qy, k.hm_h), k.inv_img_h);
   const float nx = fminf(fmaxf(SUB(MUL(MUL(qx, k.inv_wm1), 2.0f), 1.0f), -1.1f), 1.1f);
   const float ny = fminf(fmaxf(SUB(MUL(MUL(qy, k.inv_hm1), 2.0f), 1.0f), -1.1f), 1.1f);
   px = MUL(MUL(ADD(nx, 1.0f), 0.5f), k.wm1);
   py = MUL(MUL(ADD(ny, 1.0f), 0.5f), k.hm1);
-}
-
-// One of the nine products of a separable grid: world coordinate g on axis
-// a against camera c[21], row r of its rotation, as project_points forms
-// it: (g - T[a]) * R[r][a].  A grid whose coordinates on each axis depend
-// on that axis' index alone needs them per axis index, not per voxel.
-__device__ __forceinline__ float axis_product(const float* c, int r, int a, float g) {
-  return MUL(SUB(g, c[9 + a]), c[3 * r + a]);
 }
 
 // Heatmap pixel of one voxel in one view from that view's axis products:

@@ -43,13 +43,19 @@ device.
   ViTPose `device.vit_blocks` and `device.vit_head`, and for VoxelPose
   (`cfg.MODEL` "voxelpose", `models/voxelpose.py`) `device.cpn` and
   `device.prn` alone; its PRN's slots and valid people fill the same
-  counters).
+  counters; for MvP (`cfg.MODEL` "mvp", `models/mvp.py`) `device.backbone`,
+  `device.mvp_values` and `device.mvp_decoder`, its instance slots and
+  valid people in the same counters).
   Construction, each graph's capture and each fold of the model or the
   backbone are set-up spans (`setup.build`, `setup.capture`, `setup.fold`
-  labelled "fusion", or "voxelpose" for VoxelPose, or the backbone's
-  "backbone" or "vitpose").  `stats`
+  labelled "fusion", or "voxelpose" for VoxelPose, "mvp" for MvP, or the
+  backbone's "backbone" or "vitpose").  `stats`
   gives count / mean / p50 / p95 of the request spans, `trace_summary`
   every span, interval, counter and set-up span.
+- **MvP.** MvP reads the Pose-ResNet's feature levels
+  (`resnet.images_to_features`), not its heatmaps: its service serves
+  frames alone, captures the image graphs only, and `infer_heatmaps`
+  raises.
 - **Raw outputs.** Each graph returns the fused poses and the proposal
   centres.  A request copies the poses alone to the host;
   `infer_images_raw` replays a graph for both (`tools/demo.py` draws its
@@ -72,7 +78,7 @@ from ..geometry.cameras import pack_rig
 from ..geometry.example_rigs import dome_rig
 from ..geometry.transforms import get_resize_transform
 from ..models import ModelOutputs, build_fusion_model
-from ..models.resnet import build_backbone, images_to_heatmaps
+from ..models.resnet import build_backbone, images_to_features, images_to_heatmaps
 from ..utils import profiling
 from ..weights import from_jax_variables
 from . import graphs
@@ -178,7 +184,8 @@ class PoseService:
         """Compile the named graphs for batch 1: 'heatmaps', 'images'
         (normalised float32 frames) or 'images_u8' (uint8 frames).
         Default: 'heatmaps', plus 'images_u8' when backbone weights were
-        given.  On a CUDA device each is captured into a CUDA graph
+        given; for MvP, which takes no heatmaps, 'images_u8' alone.  On a
+        CUDA device each is captured into a CUDA graph
         (`_capture`); a capture that fails raises, and the service never
         answers eagerly in place of a graph it was asked to compile.  On
         the CPU nothing can be captured: each graph runs one eager
@@ -195,9 +202,12 @@ class PoseService:
         `_run`); modules replaced by new objects are not."""
         if graphs is None:
             graphs = ("heatmaps",) if self.backbone_random_init else ("heatmaps", "images_u8")
+            graphs = ("images_u8",) if self._reads_features() else graphs
         unknown = set(graphs) - set(GRAPHS)
         if unknown:
             raise ValueError(f"unknown graphs {sorted(unknown)}; known: {GRAPHS}")
+        if "heatmaps" in graphs:
+            self._takes_heatmaps()
         if not self._rig_set:
             self._rig.copy_(torch.as_tensor(self._placeholder_rig()))
         for name in graphs:
@@ -270,9 +280,23 @@ class PoseService:
         return self._rig if x.shape[0] == 1 else self._rig.expand(x.shape[0], -1, -1)
 
     def _images_forward(self, images: torch.Tensor, cams: torch.Tensor) -> ModelOutputs:
+        if self._reads_features():
+            feats = images_to_features(self.backbone, images, self.cfg.DATASET.COLOR_RGB)
+            profiling.mark("backbone")
+            return self.model(feats, cams)
         hm = images_to_heatmaps(self.backbone, images, self.cfg.DATASET.COLOR_RGB)
         profiling.mark("backbone")
         return self.model(hm, cams)
+
+    def _reads_features(self) -> bool:
+        """Whether the model reads the backbone's features (`READS =
+        "features"`, MvP) and not its heatmaps (the default)."""
+        return getattr(self.model, "READS", "heatmaps") == "features"
+
+    def _takes_heatmaps(self) -> None:
+        if self._reads_features():
+            raise ValueError("MvP reads the backbone's feature levels, not heatmaps: serve it "
+                             "frames (infer_images)")
 
     def _placeholder_rig(self) -> np.ndarray:
         """A dome rig around the capture space, for forwards before any
@@ -381,7 +405,9 @@ class PoseService:
         """(V, H, W, J) or (1, V, H, W, J) float32 heatmaps, numpy or a
         tensor -> poses.  The latency (`latency_ms`, the request span)
         runs from the call to the poses decoded on the host, the
-        host->device copy included."""
+        host->device copy included.  An MvP service raises ValueError: MvP
+        takes frames."""
+        self._takes_heatmaps()
         self._require_rig()
         with profiling.SPANS.request() as req:
             hm = torch.as_tensor(heatmaps, dtype=torch.float32)

@@ -25,7 +25,7 @@ deconv heatmap head that both 2D backbones end in.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -539,7 +539,8 @@ class HeatmapBackbone(FoldedModule):
     heatmaps (B, H/4, W/4, J) float32, through the subclass's trunk and
     the Simple-Baselines head that the Pose-ResNet and the ViTPose end in
     (`build_head`): 4x4 stride-2 transposed convs `deconv{i}`, each with
-    its BatchNorm `deconv_bn{i}` and ReLU, then the output conv `final`,
+    its BatchNorm `deconv_bn{i}` and ReLU (`upsample_levels` hands out
+    every one's output), then the output conv `final`,
     whose sums are float32 (`Conv`, `float32_out`), folded as every other
     layer.  The head's layers are the backbone's own attributes, so that
     their state-dict keys are the flax and upstream names.  It also holds
@@ -565,14 +566,27 @@ class HeatmapBackbone(FoldedModule):
         self.register_buffer("image_mean", torch.as_tensor(IMAGENET_MEAN), persistent=False)
         self.register_buffer("image_std", torch.as_tensor(IMAGENET_STD), persistent=False)
 
-    def upsample(self, x: torch.Tensor) -> torch.Tensor:
-        """The transposed convs, each with its BatchNorm and ReLU."""
+    def _upsampled(self, x: torch.Tensor) -> Iterator[torch.Tensor]:
+        """Each transposed conv's output, with its BatchNorm and ReLU, in
+        turn; a caller that keeps only the last frees each one as the
+        next is made."""
         for i in range(1, self.num_deconv + 1):
             deconv = getattr(self, f"deconv{i}")
             if runs_folded(deconv, False):
                 x = deconv_folded(deconv, x).relu_()
             else:
                 x = F.relu(getattr(self, f"deconv_bn{i}")(deconv(x)))
+            yield x
+
+    def upsample_levels(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every transposed conv's output (NCHW, the compute dtype),
+        coarsest first (MvP's feature levels)."""
+        return list(self._upsampled(x))
+
+    def upsample(self, x: torch.Tensor) -> torch.Tensor:
+        """The transposed convs, each with its BatchNorm and ReLU."""
+        for x in self._upsampled(x):
+            pass
         return x
 
     def head(self, x: torch.Tensor) -> torch.Tensor:

@@ -31,12 +31,13 @@ forward.
 
 `build_backbone` builds the backbone that a config names, this one or
 the ViTPose (`vitpose.py`), and `images_to_heatmaps` runs either on
-frames.
+frames; `images_to_features` runs this one to its transposed convs'
+outputs, the feature levels MvP (`mvp.py`) reads.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -166,12 +167,24 @@ class PoseResNet(HeatmapBackbone):
                     nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return self.head(self.trunk(images))
+
+    def features(self, images: torch.Tensor) -> List[torch.Tensor]:
+        """Images (B, H, W, 3), normalised -> each transposed conv's
+        output after its BatchNorm and ReLU, (B, C, H/16, W/16), (B, C,
+        H/8, W/8) and (B, C, H/4, W/4) in the compute dtype, channels-last
+        strides on the card; no output conv (MvP's feature levels)."""
+        return self.upsample_levels(self.trunk(images))
+
+    def trunk(self, images: torch.Tensor) -> torch.Tensor:
+        """Images (B, H, W, 3) through the stem and the residual stages
+        (NCHW)."""
         x = images.permute(0, 3, 1, 2)
         self.serving(x)  # refolds first where a tensor moved
         x = self.stem(x)
         for name in self.stages:
             x = getattr(self, name)(x)
-        return self.head(x)
+        return x
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """Images (NCHW) cast to the compute dtype, through conv1, bn1 and
@@ -204,6 +217,24 @@ def build_backbone(cfg: Config, device=None) -> HeatmapBackbone:
     ).eval()
 
 
+def _normalised(backbone: HeatmapBackbone, images: torch.Tensor, color_rgb: bool):
+    """uint8 frames decoded BGR and normalised on their device (RGB when
+    `color_rgb`); float frames as they are."""
+    if images.dtype == torch.uint8:
+        return normalize_images_device(images, color_rgb, backbone.image_mean,
+                                       backbone.image_std)
+    return images
+
+
+def images_to_features(backbone: PoseResNet, images: torch.Tensor,
+                       color_rgb: bool) -> List[torch.Tensor]:
+    """Frames (B, V, ih, iw, 3), as `images_to_heatmaps` takes them ->
+    the Pose-ResNet's feature levels (`PoseResNet.features`), each (B * V,
+    C, h, w), views of one sample adjacent."""
+    images = _normalised(backbone, images, color_rgb)
+    return backbone.features(images.reshape(-1, *images.shape[2:]))
+
+
 def images_to_heatmaps(backbone: HeatmapBackbone, images: torch.Tensor,
                        color_rgb: bool) -> torch.Tensor:
     """Frames (B, V, ih, iw, 3) -> heatmaps (B, V, ih/4, iw/4, J) float32:
@@ -211,9 +242,7 @@ def images_to_heatmaps(backbone: HeatmapBackbone, images: torch.Tensor,
     `color_rgb`); float frames are taken as normalised.  The backbone (a
     `PoseResNet` or a `vitpose.ViTPose`) runs over the B * V frames at
     once."""
-    if images.dtype == torch.uint8:
-        images = normalize_images_device(images, color_rgb, backbone.image_mean,
-                                         backbone.image_std)
+    images = _normalised(backbone, images, color_rgb)
     B, V = images.shape[:2]
     hm = backbone(images.reshape(B * V, *images.shape[2:]))
     return hm.reshape(B, V, *hm.shape[1:])

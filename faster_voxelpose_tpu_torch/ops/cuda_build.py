@@ -3,9 +3,10 @@
 Each source under `faster_voxelpose_tpu_torch/csrc/` is compiled by
 `nvcc` for `sm_90a` into a shared library with a plain C interface,
 loaded with ctypes.  The build runs at first use, into `build/kernels/`
-at the root of the checkout, under a name keyed by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-not.  Nothing here runs when the module is imported.
+at the root of the checkout, under a name keyed by a hash of the source,
+the shared headers (`csrc/*.cuh`) and the flags, so an edited source is
+rebuilt and an unchanged one is not.  Nothing here runs when the module
+is imported.
 
 A variant of a source is built with preprocessor defines (`-DNAME=VALUE`,
 e.g. the block shapes that `csrc/sampling.cu` guards with `#ifndef`) into
@@ -55,8 +56,9 @@ def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
 
 
 def library_path(name: str, defines: Sequence[str] = ()) -> pathlib.Path:
-    """The library of csrc/<name>.cu built with `defines`."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of csrc/<name>.cu built with `defines`, keyed by the
+    source, the headers under csrc/ (`projection.cuh`) and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     tag = "".join(f"-{d.replace('=', '')}" for d in defines)
     return BUILD_DIR / f"{name}{tag}-{key}.so"

@@ -116,10 +116,12 @@ REQUEST_SPANS = ("service.request", "service.input", "service.upload", "service.
 # blocks, and its last norm and head) come after the first five, whose
 # columns keep their places, and VoxelPose's two after them (its graph's
 # start to its proposals: whole-space sampling, CPN, NMS and top K; then
-# on to its end: cube sampling, PRN over the K slots, soft-argmax)
+# on to its end: cube sampling, PRN over the K slots, soft-argmax), and
+# MvP's two after those (the backbone's end to its values: rays, RayConv,
+# value projection; then on to the end: queries, decoder, heads)
 DEVICE_INTERVALS = ("device.upload", "device.launch_gap", "device.backbone", "device.hdn",
                     "device.jln", "device.vit_blocks", "device.vit_head", "device.cpn",
-                    "device.prn")
+                    "device.prn", "device.mvp_values", "device.mvp_decoder")
 COUNTERS = ("jln.slots", "jln.people")
 CAPACITY = 65536  # requests kept (the ring's bound)
 SETUP_CAPACITY = 4096  # set-up spans kept
@@ -322,7 +324,7 @@ class SpanLog:
     def requests(self, owner: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Copies of the kept requests, oldest first (of one service where
         `owner` is given): "id", "owner", "stamps_ns" (n, 6), "device_ms"
-        (n, 9), "counters" (n, 2)."""
+        (n, 11), "counters" (n, 2)."""
         order = self._order(self.written, self.capacity)
         if owner is not None:
             order = order[self.rows[order, 1] == owner]
@@ -412,6 +414,7 @@ class GraphMarks:
     STAGES = ("start", "backbone", "hdn", "end")
     VIT_STAGES = ("vit_patch", "vit_blocks", "backbone")  # a ViTPose backbone's marks
     VOXELPOSE_STAGES = ("start", "cpn", "end")  # a VoxelPose graph's marks
+    MVP_STAGES = ("start", "backbone", "values", "end")  # an MvP graph's marks
 
     def __init__(self):
         self.upload = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -436,13 +439,20 @@ class GraphMarks:
         the graph holds a ViT's marks, vit_patch -> vit_blocks -> backbone
         after them, which a graph without them does not read.  A VoxelPose
         graph (its "cpn" mark) reads NaN for the stages it lacks and
-        start -> cpn -> end as the last two."""
+        start -> cpn -> end as `device.cpn` and `device.prn`; an MvP graph
+        (its "values" mark) start -> backbone as `device.backbone`, NaN for
+        the other stages it lacks, and backbone -> values -> end as the
+        last two."""
         ev, (a, b) = self.events, self.upload
         start, nan = ev.get("start"), float("nan")
         out = [a.elapsed_time(b), b.elapsed_time(start) if start is not None else nan]
         if "cpn" in ev:
             first, cpn, end = (ev[n] for n in self.VOXELPOSE_STAGES)
-            return out + [nan] * 5 + [first.elapsed_time(cpn), cpn.elapsed_time(end)]
+            return out + [nan] * 5 + [first.elapsed_time(cpn), cpn.elapsed_time(end), nan, nan]
+        if "values" in ev:
+            first, backbone, values, end = (ev[n] for n in self.MVP_STAGES)
+            return out + [first.elapsed_time(backbone)] + [nan] * 6 + [
+                backbone.elapsed_time(values), values.elapsed_time(end)]
         prev = start
         for name in self.STAGES[1:]:
             e = ev.get(name)

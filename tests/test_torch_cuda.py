@@ -337,7 +337,7 @@ def test_model_cuda_matches_cpu(dev):
                                   "sample_crop_planes": 1,
                                   "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
                                   "window_sample": 0, "mma_window": 0, "weightnet_front": 0,
-                                  "front3d": 0}
+                                  "front3d": 0, "projattn": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5
 
@@ -1945,3 +1945,129 @@ def test_voxelpose_graph_equals_eager(dev):
     assert s["device"]["device.cpn"]["count"] >= 1 and s["device"]["device.prn"]["count"] >= 1
     assert s["device"]["device.hdn"]["count"] == 0 and s["device"]["device.jln"]["count"] == 0
     assert s["counters"] == {"jln.slots": 12, "jln.people": 12}
+
+
+# ---------------------------------------------------------------------------
+# MvP's projective attention (csrc/projattn.cu) and MvP's image graph
+# ---------------------------------------------------------------------------
+
+_PANOPTIC_LEVELS = [(32, 60), (64, 120), (128, 240)]  # MvP's levels at 960 x 512
+
+
+def _projattn_case(dev, B, V, Q, M, Dh, P, sizes, seed=0):
+    """bf16 value maps (B, V, H_l, W_l, M Dh) in [-1, 1]; reference points
+    in the middle of the Panoptic space, offsets of a few pixels and
+    logits (float32); dome rigs about the space and the projection of
+    1920x1080 frames served at 960x512."""
+    from faster_voxelpose_tpu_torch.geometry import dome_rig, get_resize_transform
+    from faster_voxelpose_tpu_torch.ops.projattn_kernels import ProjAttnGeometry
+
+    gen = torch.Generator().manual_seed(seed)
+    D, L = M * Dh, len(sizes)
+    values = [(torch.rand((B, V, h, w, D), generator=gen) * 2 - 1).to(torch.bfloat16).to(dev)
+              for h, w in sizes]
+    ref = (0.2 + 0.6 * torch.rand((B, Q, 3), generator=gen)).to(dev)
+    offsets = (torch.randn((B, Q, M, L, P, 2), generator=gen) * 3.0).to(dev)
+    logits = torch.randn((B, Q, M, L, P), generator=gen).to(dev)
+    ori, img, centre = (1920, 1080), (960, 512), (0.0, -500.0, 800.0)
+    cams = torch.as_tensor(dome_rig(B, V, space_center=centre, ori_image_size=ori, focal=1400.0),
+                           dtype=torch.float32).to(dev)
+    geom = ProjAttnGeometry.of((8000.0, 8000.0, 2000.0), centre, get_resize_transform(ori, img),
+                               ori, img)
+    return values, ref, offsets, logits, cams, geom
+
+
+@pytest.mark.parametrize("case", [
+    (1, 5, 150, 8, 32, 4, _PANOPTIC_LEVELS),  # MvP at Panoptic
+    (2, 3, 37, 4, 16, 2, [(5, 7), (9, 13), (17, 25)]),  # half-warp heads, a batch
+    (1, 1, 3, 1, 32, 1, [(1, 1)]),  # one level of one pixel: most taps outside
+])
+def test_projattn_kernel_matches_plain(dev, case):
+    """projattn_kernel against its plain version in float64 on the same
+    bf16 maps and float32 points, offsets and logits.  Tolerance: one bf16
+    ulp of the value (the kernel rounds its float32 sum once) plus 2^-12
+    of the maps' largest magnitude, for the float32 projection and tap
+    positions (a tap's weights sum to 1 over its corners, so a position
+    off by e pixels moves a sample by at most 2 e x that magnitude; e is
+    about 1e-4 pixels here).  Two launches equal; one counted each."""
+    from faster_voxelpose_tpu_torch.ops import projattn_kernels as pk
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    values, ref, offsets, logits, cams, geom = _projattn_case(dev, *case)
+    sk.reset_launch_counts()
+    out = pk.projective_attention(values, ref, offsets, logits, cams, geom)
+    assert sk.launch_counts()["projattn"] == 1
+    exact = pk.projective_attention_plain([v.double() for v in values], ref.double(),
+                                          offsets.double(), logits.double(), cams.double(), geom)
+    B, Q, M = offsets.shape[:3]
+    assert out.shape == exact.shape == (B, cams.shape[1], Q, values[0].shape[-1])
+    vmax = max(float(v.abs().max()) for v in values)
+    a = torch.maximum(out.double().abs(), exact.abs())
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-30))) - 7), 0.0)
+    off = (out.double() - exact).abs() / (ulp + 2.0 ** -12 * vmax)
+    assert float(off.max()) <= 1.0, float(off.max())
+    assert torch.equal(out, pk.projective_attention(values, ref, offsets, logits, cams, geom))
+    assert sk.launch_counts()["projattn"] == 2
+
+
+def test_projattn_wrapper_checks_and_counts(dev):
+    """The wrapper raises on what the kernel does not take on the card
+    (float32 maps, a mix of devices, an input that requires grad) and
+    counts only the launches it makes."""
+    from faster_voxelpose_tpu_torch.ops import projattn_kernels as pk
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    values, ref, offsets, logits, cams, geom = _projattn_case(dev, 1, 3, 5, 2, 32, 2,
+                                                              [(4, 6)] * 3)
+    sk.reset_launch_counts()
+    with pytest.raises(TypeError):
+        pk.projective_attention([v.float() for v in values], ref, offsets, logits, cams, geom)
+    with pytest.raises(ValueError):
+        pk.projective_attention(values, ref, offsets, logits, cams.cpu(), geom)
+    with pytest.raises(ValueError):
+        pk.projective_attention(values, ref.requires_grad_(), offsets, logits, cams, geom)
+    assert sk.launch_counts()["projattn"] == 0
+
+
+def _tiny_mvp_service(dev, aot):
+    """The CPU tests' tiny MvP (3 views of 64x48, d 64, 2 layers) in bf16
+    on the card, its weights drawn by the benchmark from one seed."""
+    from benchmark.core.mvp_weights import mvp_weights
+    from benchmark.core.weights import backbone_weights
+    from faster_voxelpose_tpu_torch.engine import PoseService
+    from test_torch_mvp import tiny_config, tiny_rig, yaml_of  # tests/ is on the path
+
+    cfg = tiny_config("bfloat16")
+    svc = PoseService(cfg, rig=tiny_rig(cfg)[0].numpy(), device=dev, aot=False)
+    svc.backbone.load_state_dict(backbone_weights(15, 5, dev))
+    svc.model.load_state_dict(mvp_weights(yaml_of(cfg), 5, dev))
+    if aot:
+        assert svc.warmup() == ["images_u8"]
+    return svc
+
+
+def test_mvp_graph_matches_eager_and_launches_projattn_per_layer(dev):
+    """MvP's captured 'images_u8' graph against the eager forward of the
+    same bf16 service on the same frames: every slot's fused poses within
+    0.05 mm and its score within 1e-4 (the same kernels; bit for bit is
+    expected, cuBLAS may choose another algorithm under capture); one
+    replay launches projattn once per decoder layer and no other kernel of
+    the port, as the eager forward does; a heatmaps request raises."""
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    graph, eager = _tiny_mvp_service(dev, True), _tiny_mvp_service(dev, False)
+    frames = np.random.RandomState(8).randint(0, 256, (3, 3, 48, 64, 3)).astype(np.uint8)
+    expect = {n: 0 for n in sk.launch_counts()}
+    expect["projattn"] = len(graph.model.layers)
+    for f in frames:
+        for svc in (graph, eager):
+            svc.infer_images(f)
+            sk.reset_launch_counts()
+            svc.infer_images(f)
+            assert sk.launch_counts() == expect
+        got, want = graph.infer_images_raw(f)[0], eager.infer_images_raw(f)[0]
+        assert got.shape == (1, 4, 15, 5)
+        np.testing.assert_allclose(got[..., :3], want[..., :3], rtol=0, atol=0.05)
+        np.testing.assert_allclose(got[..., 4], want[..., 4], rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="MvP"):
+        graph.infer_heatmaps(np.zeros((3, 12, 16, 15), np.float32))

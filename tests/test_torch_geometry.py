@@ -19,10 +19,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
 def jax_schema(cfg) -> dict:
-    """The port's config as a dict, without the VIT section, which the JAX
-    package (it has no ViTPose backbone) lacks."""
+    """The port's config as a dict, without the VIT and MVP sections, which
+    the JAX package (it has no ViTPose backbone and no MvP) lacks."""
     d = dataclasses.asdict(cfg)
-    del d["VIT"]
+    del d["VIT"], d["MVP"]
     return d
 
 

@@ -351,8 +351,8 @@ def test_faster_voxelpose_forward_is_unchanged(one_thread, dtype):
 
 def test_graph_marks_read_the_voxelpose_intervals():
     """A VoxelPose graph's marks (start, cpn, end) read NaN where it has no
-    stage and start -> cpn -> end as `device.cpn` and `device.prn`, the
-    last two of DEVICE_INTERVALS."""
+    stage and start -> cpn -> end as `device.cpn` and `device.prn`,
+    columns 7 and 8 of DEVICE_INTERVALS (MvP's two follow them)."""
     from faster_voxelpose_tpu_torch.utils import profiling
 
     class Event:
@@ -362,13 +362,13 @@ def test_graph_marks_read_the_voxelpose_intervals():
         def elapsed_time(self, other):
             return other.t - self.t
 
-    assert profiling.DEVICE_INTERVALS[-2:] == ("device.cpn", "device.prn")
+    assert profiling.DEVICE_INTERVALS[7:9] == ("device.cpn", "device.prn")
     marks = profiling.GraphMarks.__new__(profiling.GraphMarks)
     marks.upload = (Event(0.25), Event(0.75))
     marks.events = {"start": Event(1.0), "cpn": Event(2.5), "end": Event(12.0)}
     got = marks.read()
     assert len(got) == len(profiling.DEVICE_INTERVALS)
-    np.testing.assert_allclose(got, [0.5, 0.25] + [math.nan] * 5 + [1.5, 9.5])
+    np.testing.assert_allclose(got, [0.5, 0.25] + [math.nan] * 5 + [1.5, 9.5] + [math.nan] * 2)
 
 
 def test_service_serves_voxelpose(tiny):
