@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels   # the kernel rows alone (no path run)
-    python3 chip_smoke.py --voxelpose   # the build, row 9 and the VoxelPose phase alone
+    python3 chip_smoke.py --voxelpose   # the build, rows 9 and 11 and the VoxelPose phase alone
     python3 chip_smoke.py --mvp   # the build, row 10 and the MvP phase alone
 
 Drives the port (`faster_voxelpose_tpu_torch`) only, at the Panoptic
@@ -44,7 +44,11 @@ another committed snapshot's profile (`config.profile`):
    version in float64 on the same bf16 operands within one bf16 ulp, timed
    beside its bound
    (bf16 operations), its plain version and cuDNN's `F.conv3d` + ReLU on
-   the cast cube, which the port no longer calls;
+   the cast cube, which the port no longer calls.  Row 11, the head of
+   VoxelPose's `front_res` block (`front_res3d`), at the same two shapes
+   on 16 bf16 channels: h and s against the plain version in float64 on
+   the same bf16 operands within one bf16 ulp, timed beside its bound
+   (bytes), its plain version and the two cuDNN calls it replaced;
 3. parity phase: a small seeded model through the kernels on the card
    against its plain path on the CPU;
 4. route phase: the served path answers the same 6 frames under the
@@ -365,7 +369,7 @@ def build_phase():
 
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["sampling", "window", "mma_window", "weightnet", "front3d",
-                                 "projattn"])
+                                 "front_res3d", "projattn"])
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -1026,6 +1030,69 @@ def front3d_phase(card):
     return dict(cases[0], cases=cases[1:])
 
 
+FRONT_RES3D_SHAPES = {"prn": (10, 64, 64, 64), "cpn": (1, 80, 80, 20)}
+
+
+def front_res3d_phase(card):
+    """Kernel row 11, front_res3d, at the PRN's and the CPN's shapes: h and
+    s against the plain version in float64 on the same bf16 operands
+    within one bf16 ulp of the larger value and 2^-16 of the products'
+    magnitude (tests/test_torch_cuda.py's case and check; the plain
+    version in bf16 is read against the same), two launches equal, timed
+    beside its bound (bytes: 16 bf16 channels in and 2 x 32 out, 160
+    bytes a voxel at 3.35 TB/s), its plain version (`F.conv3d` with the
+    bias and ReLU, `F.conv3d` with the bias) and the two cuDNN calls that
+    the port made before it, which it no longer calls
+    (`torch.cudnn_convolution_relu`, `F.conv3d` with the bias).  Returns
+    the row, the PRN first and the CPN under `cases`."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_voxelpose_tpu_torch.ops import front_res3d_kernels as rk
+
+    sys.path.insert(0, str(ROOT / "tests"))  # not `tests.`: an installed package may take it
+    from test_torch_cuda import _front_res3d_case, _front_res3d_off
+
+    cases = []
+    for label, (N, X, Y, Z) in FRONT_RES3D_SHAPES.items():
+        x, w1, b1, ws, bs, p = _front_res3d_case(CARD, N, X, Y, Z)
+        out, ref = rk.front_res3d(x, w1, b1, ws, bs, p), rk.front_res3d_plain(x, w1, b1, ws, bs)
+        offs = [_front_res3d_off(y, x, w1, b1, 1) for y in (out[0], ref[0])]
+        offs += [_front_res3d_off(y, x, ws, bs, 0) for y in (out[1], ref[1])]
+        kernel_off, plain_off = max(offs[0], offs[2]), max(offs[1], offs[3])
+        equal = float(sum((a == b).float().mean() for a, b in zip(out, ref)) / 2)
+        again = rk.front_res3d(x, w1, b1, ws, bs, p)
+        if not (kernel_off <= 1.0 and all(map(torch.equal, out, again))):
+            raise AssertionError(f"front_res3d [{label}] off its plain version in float64: "
+                                 f"{kernel_off} of the tolerance")
+
+        def library():
+            return (torch.cudnn_convolution_relu(x, w1, b1, (1, 1, 1), (1, 1, 1), (1, 1, 1), 1),
+                    F.conv3d(x, ws, bs))
+
+        voxels = N * X * Y * Z
+        b_ms, b_by = bound(160 * voxels, 2 * 32 * 16 * 28 * voxels, BF16_FLOPS)
+        row = dict(name="front_res3d", source="faster_voxelpose_tpu_torch/csrc/front_res3d.cu",
+                   replaces="none (the JAX package has no V2VNet)", path="voxelpose",
+                   label=label, shape=[N, 16, X, Y, Z],
+                   **timings(lambda: rk.front_res3d(x, w1, b1, ws, bs, p)),
+                   plain_ms=device_readings(lambda: rk.front_res3d_plain(x, w1, b1, ws, bs))[
+                       "device_ms"],
+                   **library_readings(library),
+                   bound_ms=b_ms, bound_by=b_by, share_of_tolerance=kernel_off,
+                   plain_share_of_tolerance=plain_off, equal=equal)
+        row["share_of_bound"] = b_ms / row["device_ms"]
+        row["library_over_kernel"] = row["library_device_ms"] / row["device_ms"]
+        print(f"kernel front_res3d [{label} {N}x{X}x{Y}x{Z}x16]: h and s against the plain "
+              f"version in float64 {kernel_off:.3g} of the tolerance (the plain version in bf16 "
+              f"{plain_off:.3g}), {equal:.4f} of the values equal to the bf16 one; kernel_ms "
+              f"{fmt(row)} plain_ms (device) {row['plain_ms']:.4f} {fmt_library(row)} bound_ms "
+              f"{b_ms:.4f} ({b_by}; {100 * row['share_of_bound']:.1f}% of it), cuDNN's two calls "
+              f"{row['library_over_kernel']:.2f}x the kernel's device time | {card}")
+        cases.append(row)
+    return dict(cases[0], cases=cases[1:])
+
+
 def voxelpose_phase(card, requests=8):
     """VoxelPose (`MODEL: voxelpose`) at the widths of the benchmark's
     `panoptic_voxelpose` (5 views of 240x128x15, 80x80x20, K = 10 cubes of
@@ -1034,11 +1101,14 @@ def voxelpose_phase(card, requests=8):
     (`crop_kernel<false, true, true>`, about the CPN's own centres) against
     their plain versions (1e-5), timed; then the bf16 service as the cell
     serves it: one replay of its 'heatmaps' graph launches each of the two
-    once, front3d twice (the CPN's and the PRN's 7x7x7 fronts) and no
-    other kernel (counts reset just before it), `requests` more launch as
-    many each; last the float32 graph (no front3d) against an eager
-    service with every slot answered (MIN_SCORE -1e9; within 0.01 mm).
-    Returns the launch counts of the `requests` bf16 requests."""
+    once, front3d twice (the CPN's and the PRN's 7x7x7 fronts),
+    front_res3d twice (their `front_res` heads) and no other kernel
+    (counts reset just before it), `requests` more launch as many each;
+    last, with every slot answered (MIN_SCORE -1e9), the bf16 graph
+    against an eager bf16 service (both through the kernels; the gap
+    recorded) and the float32 graph (no kernel of the V2VNets) against an
+    eager service within 0.01 mm.  Returns the launch counts of the
+    `requests` bf16 requests."""
     import torch
 
     from benchmark.drivers.live_service import port_config
@@ -1089,7 +1159,8 @@ def voxelpose_phase(card, requests=8):
     svc.infer_heatmaps(hm)
     one = sk.launch_counts()
     expect = {n: 0 for n in one}
-    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1, "front3d": 2})
+    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1, "front3d": 2,
+                   "front_res3d": 2})
     if one != expect:
         raise AssertionError(f"voxelpose: one replay launched {one}, expected {expect}")
     sk.reset_launch_counts()
@@ -1103,16 +1174,18 @@ def voxelpose_phase(card, requests=8):
           f"{ {n: c for n, c in launches.items() if c} } | {card}")
     del svc, model
 
-    f32 = port_config(config)
-    f32.NETWORK.COMPUTE_DTYPE = "float32"
-    f32.CAPTURE_SPEC.MIN_SCORE = -1e9
-    graph = PoseService(f32, rig=rig, device=CARD, seed=0)
-    eager = PoseService(f32, rig=rig, device=CARD, seed=0, aot=False)
     frames = [render_frame(make_people(np.random.RandomState(s), n, cfg.CAPTURE_SPEC.SPACE_CENTER),
                            rig, cfg, CARD) for s, n in ((25, 1), (26, 6), (27, 10))]
-    got = [graph.infer_heatmaps(f) for f in frames]
-    graph_against_eager("voxelpose float32", got, [eager.infer_heatmaps(f) for f in frames],
-                        True, card)
+    for dtype in ("bfloat16", "float32"):
+        every = port_config(config)
+        every.NETWORK.COMPUTE_DTYPE = dtype
+        every.CAPTURE_SPEC.MIN_SCORE = -1e9
+        graph = PoseService(every, rig=rig, device=CARD, seed=0)
+        eager = PoseService(every, rig=rig, device=CARD, seed=0, aot=False)
+        got = [graph.infer_heatmaps(f) for f in frames]
+        graph_against_eager(f"voxelpose {dtype}", got, [eager.infer_heatmaps(f) for f in frames],
+                            dtype == "float32", card)
+        del graph, eager
     return launches
 
 
@@ -4634,11 +4707,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only the kernel rows (1-10), each timed by tools/timing.py's three "
+                    help="only the kernel rows (1-11), each timed by tools/timing.py's three "
                          "timers, then their table; no path runs, no result line")
     ap.add_argument("--voxelpose", action="store_true",
-                    help="only the build, kernel row 9 and the VoxelPose phase; no result "
-                         "line")
+                    help="only the build, kernel rows 9 and 11 and the VoxelPose phase; no "
+                         "result line")
     ap.add_argument("--mvp", action="store_true",
                     help="only the build, kernel row 10 and the MvP phase; no result line")
     args = ap.parse_args(argv)
@@ -4664,8 +4737,9 @@ def main(argv=None) -> int:
     pin_float32()
     build_phase()
     if args.voxelpose:
-        row = released(front3d_phase(card), "front3d")
-        print(json.dumps({"kernels": [row],
+        rows = [released(front3d_phase(card), "front3d"),
+                released(front_res3d_phase(card), "front_res3d")]
+        print(json.dumps({"kernels": rows,
                           "voxelpose": released(voxelpose_phase(card), "voxelpose")}))
         print(f"chip_smoke --voxelpose: {time.perf_counter() - t_start:.1f} s from start")
         return 0
@@ -4691,6 +4765,7 @@ def main(argv=None) -> int:
         next(r for r in rows if r["name"] == name)["cases"] = cases
     rows.append(weightnet_phase(card))
     rows.append(released(front3d_phase(card), "front3d"))
+    rows.append(released(front_res3d_phase(card), "front_res3d"))
     rows.append(released(projattn_phase(card), "projattn"))
     if args.kernels:
         for phase in (window_phase, mma_phase):

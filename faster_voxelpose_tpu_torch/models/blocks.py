@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..datasets.images import IMAGENET_MEAN, IMAGENET_STD
-from ..ops import front3d_kernels
+from ..ops import front3d_kernels, front_res3d_kernels
 from ..utils import profiling
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -276,7 +276,9 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
     `module.dtype`.  4D kernels are channels-last and 5D kernels
     channels-last-3d, kept as `store_folded` keeps them, and a 7x7x7
     front that `front3d_kernels.serves` also keeps its weight packed for
-    that kernel (`front3d_weight`); then the layer's forward runs on them
+    that kernel (`front3d_weight`), and a `ResBlock` whose head
+    `front_res3d_kernels.serves` keeps its conv1 and skip packed for
+    that one (`front_res3d_weight`); then the layer's forward runs on them
     outside train mode (`runs_folded`).  Returns the tensors the fold
     read.  Run it under `torch.no_grad()`, and outside inference mode, so
     that a refold outside it can write into the buffers."""
@@ -309,6 +311,10 @@ def fold_layers(module: nn.Module) -> List[torch.Tensor]:
         read += layer._parameters.values()
         if bn is not None:
             read += [*bn._parameters.values(), *bn._buffers.values()]
+    for block in module.modules():
+        if isinstance(block, ResBlock) and front_res3d_kernels.serves(block):
+            keep(block, "front_res3d_weight", front_res3d_kernels.pack_weight(
+                block.conv1.folded_weight, block.skip_conv.folded_weight))
     return read
 
 
@@ -462,6 +468,12 @@ class ResBlock(nn.Module):
     def forward(self, x, train: bool = False):
         if runs_folded(self.conv1, train):
             x = x.to(self.dtype)
+            if "front_res3d_weight" in self._buffers:  # VoxelPose's front_res: one kernel
+                c1, sk = self.conv1, self.skip_conv
+                h, skip = front_res3d_kernels.front_res3d(
+                    x, c1.folded_weight, c1.folded_bias, sk.folded_weight, sk.folded_bias,
+                    self.front_res3d_weight)
+                return conv_add_relu(self.conv2, h, skip)
             skip = conv_folded(self.skip_conv, x) if self.project else x
             return conv_add_relu(self.conv2, conv_relu(self.conv1, x), skip)
         res = F.relu(self.bn1(self.conv1(x, train), train))

@@ -158,6 +158,8 @@ LAUNCHES: Dict[str, int] = {
     "weightnet_front": 0,
     # VoxelPose's 7x7x7 front, ops/front3d_kernels.py
     "front3d": 0,
+    # the head of VoxelPose's front_res block, ops/front_res3d_kernels.py
+    "front_res3d": 0,
     # MvP's projective attention, ops/projattn_kernels.py
     "projattn": 0,
 }

@@ -337,7 +337,7 @@ def test_model_cuda_matches_cpu(dev):
                                   "sample_crop_planes": 1,
                                   "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
                                   "window_sample": 0, "mma_window": 0, "weightnet_front": 0,
-                                  "front3d": 0, "projattn": 0}
+                                  "front3d": 0, "front_res3d": 0, "projattn": 0}
     torch.testing.assert_close(out.proposal_centers.cpu(), ref.proposal_centers, atol=1e-3, rtol=0)
     assert float((out.fused_poses.cpu() - ref.fused_poses)[..., :3].abs().max()) <= 0.5
 
@@ -913,8 +913,9 @@ def test_front3d_refold_reaches_a_captured_graph(dev):
 def test_served_voxelpose_launches_front3d_twice(dev):
     """One request of a bf16 VoxelPose service on the tiny geometry, its
     'heatmaps' graph replayed: the CPN's and the PRN's fronts launch
-    front3d once each, beside one launch of each sampler; the eager
-    forward launches the same."""
+    front3d once each and their `front_res` blocks front_res3d once each,
+    beside one launch of each sampler; the eager forward launches the
+    same."""
     from faster_voxelpose_tpu_torch.engine import PoseService
     from faster_voxelpose_tpu_torch.geometry import dome_rig
     from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
@@ -924,7 +925,8 @@ def test_served_voxelpose_launches_front3d_twice(dev):
     rig = dome_rig(1, 3, space_center=cfg.CAPTURE_SPEC.SPACE_CENTER,
                    ori_image_size=cfg.DATASET.ORI_IMAGE_SIZE, focal=240.0)[0]
     expect = {n: 0 for n in sk.launch_counts()}
-    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1, "front3d": 2})
+    expect.update({"sample_whole_projected": 1, "sample_crop_cube": 1, "front3d": 2,
+                   "front_res3d": 2})
     for aot in (True, False):
         svc = PoseService(cfg, rig=rig, device=dev, aot=aot)
         assert (svc._compiled.get("heatmaps") is not None) == aot
@@ -933,6 +935,136 @@ def test_served_voxelpose_launches_front3d_twice(dev):
         sk.reset_launch_counts()
         svc.infer_heatmaps(frame)
         assert sk.launch_counts() == expect, aot
+
+
+# ---------------------------------------------------------------------------
+# the head of VoxelPose's front_res block (front_res3d, csrc/front_res3d.cu)
+# ---------------------------------------------------------------------------
+
+
+def _front_res3d_case(dev, N, X, Y, Z, seed=0):
+    """front3d's output as the block takes it: (N, X, Y, Z, 16) bf16 in [0,
+    1] permuted to (N, 16, X, Y, Z); fan-in scaled bf16 weights as the
+    fold keeps them (conv1 (32, 16, 3, 3, 3) channels-last-3d, the skip
+    (32, 16, 1, 1, 1)), nonzero biases and the packing; conv1's outputs
+    0-3 have negative weights and bias, so every one of their sums is
+    negative."""
+    from faster_voxelpose_tpu_torch.ops import front_res3d_kernels as rk
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(N, X, Y, Z, 16, generator=gen).to(torch.bfloat16).to(dev).permute(0, 4, 1, 2, 3)
+    w1 = torch.randn(32, 16, 3, 3, 3, generator=gen) * (2.0 / (16 * 27)) ** 0.5
+    b1 = torch.randn(32, generator=gen) * 0.2
+    w1[:4] = -w1[:4].abs()
+    b1[:4] = -b1[:4].abs() - 0.01
+    ws = torch.randn(32, 16, 1, 1, 1, generator=gen) * (2.0 / 16) ** 0.5
+    bs = torch.randn(32, generator=gen) * 0.2
+    w1 = w1.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d).to(dev)
+    ws = ws.to(torch.bfloat16).contiguous(memory_format=torch.channels_last_3d).to(dev)
+    b1, bs = b1.to(torch.bfloat16).to(dev), bs.to(torch.bfloat16).to(dev)
+    return x, w1, b1, ws, bs, rk.pack_weight(w1, ws)
+
+
+def _front_res3d_off(got, x, w, b, pad):
+    """`_front3d_off` of one output against the plain version's conv in
+    float64 on the same bf16 operands (ReLU where pad is 1, conv1)."""
+    F = torch.nn.functional
+    xd, wd, bd = x.double().contiguous(), w.double().contiguous(), b.double()
+    exact = F.conv3d(xd, wd, bd, 1, pad)
+    if pad:
+        exact = exact.relu_()
+    return _front3d_off(got, exact, F.conv3d(xd.abs(), wd.abs(), bd.abs(), 1, pad))
+
+
+@pytest.mark.parametrize("shape", [(10, 64, 64, 64), (1, 80, 80, 20), (2, 9, 13, 11),
+                                   (3, 23, 9, 17), (1, 5, 3, 40)],
+                         ids=["prn", "cpn", "ragged", "rows", "long_z"])
+def test_front_res3d_kernel_matches_plain(dev, shape):
+    """The PRN's (10 x 64^3) and the CPN's (80 x 80 x 20) shapes, ragged
+    tiles and several rows of tiles a block: h and s each against the
+    plain version in float64 on the same bf16 operands within one bf16
+    ulp (`_front3d_off`); h's outputs 0-3 read exactly 0; one launch; the
+    layout and dtype of cuDNN's outputs; a second launch equal bit for
+    bit."""
+    from faster_voxelpose_tpu_torch.ops import front_res3d_kernels as rk
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    x, w1, b1, ws, bs, p = _front_res3d_case(dev, *shape)
+    sk.reset_launch_counts()
+    h, s = rk.front_res3d(x, w1, b1, ws, bs, p)
+    assert sk.launch_counts()["front_res3d"] == 1
+    want = rk.front_res3d_plain(x, w1, b1, ws, bs)
+    for got, ref in zip((h, s), want):
+        assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert _front_res3d_off(h, x, w1, b1, 1) <= 1.0
+    assert _front_res3d_off(s, x, ws, bs, 0) <= 1.0
+    assert not bool(h[:, :4].any()) and bool((h[:, 4:] > 0).any()) and bool((s < 0).any())
+    again = rk.front_res3d(x, w1, b1, ws, bs, p)
+    assert torch.equal(h, again[0]) and torch.equal(s, again[1])
+
+
+def test_front_res3d_takes_any_strides(dev):
+    """x in plain contiguous strides (not the kernel's layout) is copied
+    into it first: the same answers as from channels-last-3d."""
+    from faster_voxelpose_tpu_torch.ops import front_res3d_kernels as rk
+
+    x, w1, b1, ws, bs, p = _front_res3d_case(dev, 2, 7, 10, 19)
+    want = rk.front_res3d(x, w1, b1, ws, bs, p)
+    assert not rk._kernel_layout(x.contiguous())
+    got = rk.front_res3d(x.contiguous(), w1, b1, ws, bs, p)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_front_res3d_wrapper_checks_and_counts(dev):
+    """15 channels, float32 operands, an unpacked weight and operands off
+    the card are refused on the card and launch nothing."""
+    from faster_voxelpose_tpu_torch.ops import front_res3d_kernels as rk
+    from faster_voxelpose_tpu_torch.ops import sampling_kernels as sk
+
+    x, w1, b1, ws, bs, p = _front_res3d_case(dev, 1, 4, 5, 6)
+    sk.reset_launch_counts()
+    with pytest.raises(ValueError):
+        rk.front_res3d(x[:, :15], w1, b1, ws, bs, p)
+    with pytest.raises(TypeError):
+        rk.front_res3d(x.float(), w1, b1, ws, bs, p)
+    with pytest.raises(ValueError):
+        rk.front_res3d(x, w1, b1, ws, bs, w1)
+    with pytest.raises(ValueError):
+        rk.front_res3d(x, w1.cpu(), b1.cpu(), ws.cpu(), bs.cpu(), p.cpu())
+    assert sk.launch_counts()["front_res3d"] == 0
+    rk.front_res3d(x, w1, b1, ws, bs, p)
+    assert sk.launch_counts()["front_res3d"] == 1
+
+
+def test_front_res3d_refold_reaches_a_captured_graph(dev):
+    """A folded rank-3 ResBlock(16, 32) captured in a CUDA graph; its
+    weights and BatchNorms moved in place and refolded (into the same
+    buffers): the replay answers as the block does eagerly on the new
+    weights, and not as before."""
+    from faster_voxelpose_tpu_torch.models import blocks
+
+    torch.manual_seed(0)
+    block = blocks.ResBlock(16, 32, 3, torch.bfloat16).eval().to(dev)
+    with torch.no_grad():
+        for conv in (block.conv1, block.conv2, block.skip_conv):
+            conv.weight.normal_(0.0, (2.0 / conv.weight[0].numel()) ** 0.5)
+        blocks.fold_layers(block)
+    assert "front_res3d_weight" in block._buffers
+    x = _front_res3d_case(dev, 2, 9, 10, 12)[0]
+    out = {}
+    replay = _captured(lambda: out.update(y=block(x)))
+    replay()
+    before = out["y"].clone()
+    with torch.no_grad():
+        block.conv1.weight.mul_(-0.5)
+        block.skip_conv.weight.mul_(2.0)
+        block.skip_bn.running_mean.fill_(-0.2)
+        blocks.fold_layers(block)
+        want = block(x)
+    replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out["y"], want) and not torch.equal(out["y"], before)
 
 
 # ---------------------------------------------------------------------------

@@ -199,6 +199,7 @@ def test_wrappers_take_plain_version_on_cpu():
         "sample_whole": 0, "sample_whole_projected": 0,
         "sample_crop_planes": 0, "sample_crop_planes_coords": 0, "sample_crop_cube": 0,
         "window_sample": 0, "mma_window": 0, "weightnet_front": 0, "front3d": 0,
+        "front_res3d": 0,
         "projattn": 0,
     }
 
